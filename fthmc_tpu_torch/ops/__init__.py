@@ -1,0 +1,1 @@
+"""Convolutions and the hand-written CUDA kernels with their plain twins."""

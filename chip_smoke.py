@@ -9,8 +9,8 @@ Phases, each printed on its own line:
   2. the card's name and power limit, as nvidia-smi gives them;
   3. each kernel against its plain PyTorch twin on the card, at the flagship
      shapes (16^2, 64 chains, 24-layer rncp, hidden (32, 32), 8 components,
-     s_clip 3), TF32 off; then the whole kernel force chain against the
-     autograd force;
+     s_clip 3), on every layer of the flow (all eight (mu, off) masks), TF32
+     off; then the whole kernel force chain against the autograd force;
   4. the main path: flagship FT-HMC with the trained flow at 16^2, beta=6,
      tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0), through
      run_fthmc with the default (kernel) force backend; physics checks;
@@ -31,12 +31,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from fthmc_tpu_torch import lattice
 from fthmc_tpu_torch.config import LeapfrogConfig
 from fthmc_tpu_torch.hmc import ft_force, run_fthmc
 from fthmc_tpu_torch.models.flow import flow_reverse
+from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
 from fthmc_tpu_torch.ops import _build
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
@@ -51,11 +53,14 @@ from fthmc_tpu_torch.weights import load_flow_npz
 
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
 N_THERM, N_MEAS = 32, 96
+TIMED_LAYER = 1               # the coupling layer the kernels are timed on
 # The JAX package's own run of this configuration (trained flow, 16^2,
 # beta=6, tau=0.5, 8 Omelyan steps, 64 chains, cold start, 4608 measured
 # trajectories; artifacts/round3/tauint_b6_ft_t05n8.json) accepted 0.827
 # with <exp(-dH)> = 0.955. A mean over 96 x 64 accept flips has a standard
-# error near 0.005 if independent; 0.78 leaves room for correlation.
+# error near 0.005 if independent; 0.78 leaves room for correlation. It is
+# the loosest check here: a wrong force shows first in phase 3's kernel and
+# force comparisons.
 MIN_ACCEPTANCE = 0.78
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -103,24 +108,66 @@ def cuda_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def bounds(spec, n_params: int) -> dict:
+def _dilate(m: np.ndarray) -> np.ndarray:
+    """Sites within one step (3x3, periodic) of a site of ``m``."""
+    return np.logical_or.reduce([np.roll(m, (dy, dx), axis=(0, 1))
+                                 for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+
+
+def _taps(need: np.ndarray, nonzero: np.ndarray) -> int:
+    """(site, tap) pairs of a periodic 3x3 conv whose output site is in
+    ``need`` and whose input site is in ``nonzero``."""
+    return sum(int((need & np.roll(nonzero, (dy, dx), axis=(0, 1))).sum())
+               for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def coupling_macs(widths, mu: int, off: int) -> dict:
+    """Conv multiply-adds per chain that one coupling layer's outputs depend
+    on, from its stripe masks. Forward (K6, K7): the raw conditioner output
+    is read on the active stripe only, each earlier conv's output where the
+    next conv reads it (one site further out) and, for K7, also where K8
+    reads it as an activation gate; every input may be nonzero (the cos
+    channel is 1 off the frozen stripe). K8: cotangents enter the
+    transposed chain on the active stripe and spread one site a conv; the
+    chain's result is read on the frozen stripe (the conditioner's input),
+    each earlier transposed conv's where the next one reads it."""
+    frozen, active, _ = (m.astype(bool) for m in plaq_masks((L, L), mu, off))
+    n = len(widths) - 1
+    need_in = [frozen]          # where conv l's input cotangent is read
+    for _ in range(1, n):
+        need_in.append(_dilate(need_in[-1]))
+    nz_out = [active] * n       # where conv l's output cotangent may be != 0
+    for li in range(n - 2, -1, -1):
+        nz_out[li] = _dilate(nz_out[li + 1])
+    k6, k7 = [active] * n, [active] * n     # where conv l's output is read
+    for li in range(n - 2, -1, -1):
+        k6[li] = _dilate(k6[li + 1])
+        k7[li] = _dilate(k7[li + 1]) | (need_in[li + 1] & nz_out[li])
+    cc = [widths[li] * widths[li + 1] for li in range(n)]
+    return {"K6": sum(c * 9 * int(m.sum()) for c, m in zip(cc, k6)),
+            "K7": sum(c * 9 * int(m.sum()) for c, m in zip(cc, k7)),
+            "K8": sum(c * _taps(need_in[li], nz_out[li])
+                      for li, c in enumerate(cc))}
+
+
+def bounds(spec, layer_params: int, mu: int, off: int) -> dict:
     """Least time (ms) the card could take for each kernel's work at the
-    flagship shapes: the larger of bytes / peak bandwidth (each input read
-    once, each output written once) and flops / peak fp32 rate. The coupling
-    kernels' flops are the conv chain's multiply-adds (2 flops each); their
+    flagship shapes, layer (mu, off): the larger of bytes / peak bandwidth
+    (each input read once, each output written once) and flops / peak fp32
+    rate. The coupling kernels' flops are the conv multiply-adds (2 flops
+    each) that their outputs depend on (``coupling_macs``); their
     elementwise transform work is not counted."""
     widths = [2, *spec.hidden_sizes, 2 * spec.n_mixture + 1]
     sites = B * L * L
     field = 4 * 2 * sites                      # one (B, 2, L, L) fp32 field
-    conv_flops = 2 * 9 * sites * sum(a * b for a, b in
-                                     zip(widths[:-1], widths[1:]))
+    macs = coupling_macs(widths, mu, off)
     resid = 4 * sites * sum(widths[1:])
-    weights = 4 * n_params
+    weights = 4 * layer_params                 # one layer's convs
     work = {
         "K1": (2 * field, 8 * sites),          # P, sin, 2 subs, 2 muls a site
-        "K6": (2 * field + weights + 4 * B, conv_flops),
-        "K7": (2 * field + weights + 4 * B + resid, conv_flops),
-        "K8": (3 * field + weights + 4 * B + resid, conv_flops),
+        "K6": (2 * field + weights + 4 * B, 2 * B * macs["K6"]),
+        "K7": (2 * field + weights + 4 * B + resid, 2 * B * macs["K7"]),
+        "K8": (3 * field + weights + 4 * B + resid, 2 * B * macs["K8"]),
     }
     out = {}
     for k, (nbytes, flops) in work.items():
@@ -156,8 +203,6 @@ def main() -> None:
 
     # 3. kernels against their plain twins, flagship shapes
     params, spec = load_flow_npz(device=dev)
-    n_params = sum(t.numel() for net in params for c in net
-                   for t in c.values())
     g = torch.Generator(device=dev).manual_seed(2026)
     x = (torch.rand((B, 2, L, L), generator=g, device=dev) * 2 - 1) * math.pi
     gy = torch.randn((B, 2, L, L), generator=g, device=dev)
@@ -168,9 +213,8 @@ def main() -> None:
         errs["K1"] = float((force(x, BETA) - f_ref).abs().max())
         tols["K1"] = 1e-4 * max(1.0, float(f_ref.abs().max()))
         e6, e7, e8 = [], [], []
-        for li in (0, 1):   # mu = 0 and mu = 1
-            mu, off = li % 2, (li // 2) % 4
-            layer = params[li]
+        for li, layer in enumerate(params):   # every (mu, off) of the path
+            mu, off = layer_mask_params(li)
             fx, lj = coupling_forward(layer, x, mu, off, spec)
             fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
             lscale = max(1.0, float(lj_p.abs().max()))
@@ -251,7 +295,7 @@ def main() -> None:
     require(not any(plain.values()), f"plain twins ran: {plain}")
 
     # 6. timings
-    layer, (mu, off) = params[1], (1, 0)
+    layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(TIMED_LAYER)
     _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
     with full_fp32():
         ms = {"K1": cuda_ms(lambda: force(x, BETA)),
@@ -286,7 +330,11 @@ def main() -> None:
         fthmc_chain_steps_per_s=B * NSTEP / t_traj)
 
     # 7. the kernels line
-    bnd = bounds(spec, n_params)
+    bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
+                 mu, off)
+    say("bounds", layer=TIMED_LAYER, mu=mu, off=off,
+        flops={k: v["flops"] for k, v in bnd.items()},
+        bytes={k: v["bytes"] for k, v in bnd.items()})
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": launches[k],
                 "max_abs_err": errs[k], "tolerance": tols[k], "ms": ms[k],

@@ -193,7 +193,7 @@ extern "C" int k8_coupling_bwd(const float* x, const float* gy,
   }
   Layer ly;
   ly.L = L;
-  ly.TW = L < TILE ? L : TILE;
+  ly.TW = tile_edge(L);
   ly.rncp = rncp;
   ly.M = M;
   ly.act = activation;

@@ -52,6 +52,8 @@ __host__ __device__ inline int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
+inline int tile_edge(int L) { return L < TILE ? L : TILE; }
+
 __device__ __forceinline__ float act_fn(int a, float v) {
   switch (a) {
     case ACT_RELU: return fmaxf(v, 0.f);
@@ -79,8 +81,9 @@ __device__ __forceinline__ float act_grad(int a, float v) {
 // Offsets (in floats) of the regions of a block's dynamic shared memory:
 // the largest conv's weights and bias, its largest haloed input tile, and
 // THREADS floats for the logJ sum. The backward convs run with Cin and Cout
-// swapped, so both ways are sized. Used by the host (launch size) and the
-// device (carving), so the two cannot disagree.
+// swapped, so both ways are sized. Used by the launches (size), the device
+// (carving) and, through ft_smem_bytes, the Python envelope check, so none
+// of them can disagree.
 struct SmemLayout {
   int w, b, tile, red, total;
 };
@@ -104,6 +107,28 @@ __host__ __device__ inline SmemLayout smem_layout(const Net& net, int TW) {
   s.red = s.tile + round_up(tmax, 4);
   s.total = s.red + THREADS;
   return s;
+}
+
+// Bytes of dynamic shared memory one K6/K7/K8 block takes for a conditioner
+// of n_convs convs of the given widths (n_convs + 1 ints) at lattice edge L,
+// or -1 for a conditioner or lattice the kernels do not take. The Python
+// wrappers hold it against ft_smem_limit before they launch.
+extern "C" int ft_smem_bytes(int n_convs, const int* widths, int L) {
+  if (n_convs < 1 || n_convs > MAX_CONVS || L < 4 || L % 4 != 0) return -1;
+  Net net;
+  net.n_convs = n_convs;
+  for (int l = 0; l <= n_convs; ++l) net.width[l] = widths[l];
+  const SmemLayout s = smem_layout(net, tile_edge(L));
+  return static_cast<int>(sizeof(float)) * s.total;
+}
+
+// Dynamic shared memory one block may opt in to on the device, or -1.
+extern "C" int ft_smem_limit(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
 }
 
 // Stage one conv's weights in shared memory. Forward: routine input

@@ -13,8 +13,10 @@
 // log-Jacobian, the link update on the active stripe and the per-chain
 // logJ sum as a block reduction. The conv chain writes its activations to
 // the buffers the caller passes: K7's residual outputs, or K6's two
-// ping-pong scratch buffers. Bound: the conv chain's flops (about 481
-// MFLOP per flagship launch, 24 x 16^2 x 64); bytes are far below.
+// ping-pong scratch buffers. Bound: the conv flops the layer's outputs
+// depend on (the last conv on the active stripe, the one before on its
+// one-site halo: 285 MFLOP per flagship launch at 16^2 x 64 chains; the
+// kernel runs all 481 MFLOP of the dense chain); bytes are far below.
 #include "coupling_common.cuh"
 
 __global__ void __launch_bounds__(THREADS)
@@ -82,11 +84,20 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) logj[b] = total;
 }
 
-static int launch_fwd(const float* x, float* fx, float* logj,
-                      void* const* act, int B, int L, int n_convs,
-                      const int* widths, const void* const* w,
-                      const void* const* bias, int rncp, int M, float s_clip,
-                      int activation, int mu, int off, void* stream) {
+// The one C entry of K6 and K7; the two differ only in the buffers passed.
+// x, fx: (B, 2, L, L); logj: (B,); widths: n_convs + 1 ints (host);
+// w[l]: (widths[l+1], widths[l], 3, 3), bias[l]: (widths[l+1],);
+// act[l]: (B, widths[l+1], L, L) device buffers. All fp32, contiguous.
+// K6: act holds scratch (any two alternating buffers of the widest size).
+// K7: act[l] are the residual outputs (hidden pre-activations, then the raw
+// conditioner output).
+extern "C" int ft_coupling_forward(const float* x, float* fx, float* logj,
+                                   void* const* act, int B, int L,
+                                   int n_convs, const int* widths,
+                                   const void* const* w,
+                                   const void* const* bias, int rncp, int M,
+                                   float s_clip, int activation, int mu,
+                                   int off, void* stream) {
   if (n_convs < 1 || n_convs > MAX_CONVS || L % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Net net;
@@ -100,7 +111,7 @@ static int launch_fwd(const float* x, float* fx, float* logj,
   }
   Layer ly;
   ly.L = L;
-  ly.TW = L < TILE ? L : TILE;
+  ly.TW = tile_edge(L);
   ly.rncp = rncp;
   ly.M = M;
   ly.act = activation;
@@ -116,32 +127,4 @@ static int launch_fwd(const float* x, float* fx, float* logj,
                         static_cast<cudaStream_t>(stream)>>>(x, fx, logj, net,
                                                              bufs, ly);
   return static_cast<int>(cudaGetLastError());
-}
-
-// x, fx: (B, 2, L, L); logj: (B,); widths: n_convs + 1 ints (host);
-// w[l]: (widths[l+1], widths[l], 3, 3), bias[l]: (widths[l+1],);
-// act[l]: (B, widths[l+1], L, L) device buffers. All fp32, contiguous.
-// K6: act holds scratch (any two alternating buffers of the widest size).
-extern "C" int k6_coupling_forward(const float* x, float* fx, float* logj,
-                                   void* const* act, int B, int L,
-                                   int n_convs, const int* widths,
-                                   const void* const* w,
-                                   const void* const* bias, int rncp, int M,
-                                   float s_clip, int activation, int mu,
-                                   int off, void* stream) {
-  return launch_fwd(x, fx, logj, act, B, L, n_convs, widths, w, bias, rncp,
-                    M, s_clip, activation, mu, off, stream);
-}
-
-// K7: act[l] are the residual outputs (hidden pre-activations, then the raw
-// conditioner output).
-extern "C" int k7_coupling_fwd_res(const float* x, float* fx, float* logj,
-                                   void* const* act, int B, int L,
-                                   int n_convs, const int* widths,
-                                   const void* const* w,
-                                   const void* const* bias, int rncp, int M,
-                                   float s_clip, int activation, int mu,
-                                   int off, void* stream) {
-  return launch_fwd(x, fx, logj, act, B, L, n_convs, widths, w, bias, rncp,
-                    M, s_clip, activation, mu, off, stream);
 }

@@ -171,17 +171,16 @@ def ft_force(params, spec: FlowSpec, z: torch.Tensor, beta: float,
 
 def resolve_force_backend(force_backend: str, spec: FlowSpec, z_shape,
                           dtype, device) -> str:
-    """'auto' -> 'kernel' on the card when the kernels take the shape, else
-    'autograd'. An explicit 'kernel' outside the kernels' envelope (spline,
-    bf16 convs, a shape they do not take, non-fp32 fields on the card) is
-    refused loudly. On the CPU the kernel chain runs its plain twins, which
-    take fp64 fields too."""
+    """'auto' -> 'kernel' on the card, 'autograd' on the CPU. 'kernel'
+    outside the kernels' envelope (spline, bf16 convs, a shape they do not
+    take, non-fp32 fields on the card) is refused loudly, so on the card a
+    run the kernels do not take raises under 'auto' too and the autograd
+    force runs only when asked for by name. On the CPU the kernel chain runs
+    its plain twins, which take fp64 fields too."""
     B, _, L, _ = z_shape
     on_card = torch.device(device).type == "cuda"
-    fits = kernel_fits(spec, L, B) and (dtype == torch.float32
-                                        or not on_card)
     if force_backend == "auto":
-        return "kernel" if on_card and fits else "autograd"
+        force_backend = "kernel" if on_card else "autograd"
     if force_backend == "kernel":
         if spec.coupling not in ("ncp", "rncp"):
             raise ValueError(f"force_backend='kernel' supports coupling "
@@ -191,7 +190,7 @@ def resolve_force_backend(force_backend: str, spec: FlowSpec, z_shape,
             raise ValueError("force_backend='kernel' requires "
                              "conv_dtype='float32' and, on the card, fp32 "
                              "fields")
-        if not fits:
+        if not kernel_fits(spec, L, B):
             raise ValueError(f"force_backend='kernel' unsupported at L={L}, "
                              f"B={B} for this spec (ops/coupling_kernels."
                              f"kernel_fits); use 'autograd'")

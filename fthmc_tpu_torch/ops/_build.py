@@ -39,13 +39,14 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-_COUPLING_FWD = [_P, _P, _P, _PP, _I, _I, _I, _IP, _PP, _PP, _I, _I, _F, _I,
-                 _I, _I, _P]
 # argtypes of every C entry, by library
 _SIGNATURES = {
     "force": {"k1_force": [_P, _P, _I, _I, _F, _P]},
-    "coupling_fwd": {"k6_coupling_forward": _COUPLING_FWD,
-                     "k7_coupling_fwd_res": _COUPLING_FWD},
+    "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _I, _I, _I, _IP,
+                                             _PP, _PP, _I, _I, _F, _I, _I, _I,
+                                             _P],
+                     # shared-memory queries (csrc/coupling_common.cuh)
+                     "ft_smem_bytes": [_I, _IP, _I], "ft_smem_limit": [_I]},
     "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _P, _P, _I,
                                          _I, _I, _IP, _PP, _I, _I, _F, _I, _I,
                                          _I, _P]},

@@ -4,13 +4,16 @@ support envelope.
 Replaces the TPU kernel ``fthmc_tpu/ops/pallas_coupling.py::_ncp_kernel``
 (``pallas_link_coupling_forward``, driven by ``pallas_flow_forward``).
 CUDA source: ``csrc/coupling_fwd.cu`` (with ``csrc/coupling_common.cuh``),
-one block per chain for the whole layer. Bound on the card: the conditioner's
-conv flops (2 * 9 * sum Cin*Cout per site, 481 MFLOP per launch at the
-flagship's widths, 16^2 and 64 chains); the bytes it must move are ~100x
-smaller. The energy flows of FT-HMC (y = f(z) before and after a
+one block per chain for the whole layer. Bound on the card: the conv flops
+the layer's outputs depend on (the last conv on the active stripe, the one
+before on its one-site halo: 285 MFLOP per launch at the flagship's widths,
+16^2 and 64 chains, of the dense chain's 481); the bytes it must move are
+~100x smaller. The energy flows of FT-HMC (y = f(z) before and after a
 trajectory) run through it.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -24,27 +27,25 @@ __all__ = ["coupling_forward", "coupling_forward_plain",
            "kernel_flow_forward", "kernel_fits"]
 
 ACT_CODES = {"relu": 0, "silu": 1, "swish": 1, "leaky_relu": 2, "tanh": 3}
-MAX_CONVS = 8              # csrc/coupling_common.cuh
-SMEM_LIMIT = 232448        # dynamic shared memory one block may use (H100)
-_OC, _THREADS, _TILE = 8, 256, 16
 
 
-def _round_up(v: int, m: int) -> int:
-    return (v + m - 1) // m * m
+@lru_cache(maxsize=None)
+def smem_bytes(widths: tuple[int, ...], L: int) -> int:
+    """Dynamic shared memory of one K6/K7/K8 block, as the kernels' own
+    ``smem_layout`` reckons it (csrc/coupling_common.cuh); -1 for a
+    conditioner the kernels do not take (more than their MAX_CONVS convs)."""
+    return _build.library("coupling_fwd").ft_smem_bytes(
+        len(widths) - 1, _build.int_array(widths), L)
 
 
-def smem_bytes(widths, L: int) -> int:
-    """Dynamic shared memory of a coupling-kernel block; the Python mirror
-    of ``smem_layout`` in csrc/coupling_common.cuh."""
-    tw = min(L, _TILE)
-    wmax = bmax = tmax = 0
-    for ci, co in zip(widths[:-1], widths[1:]):
-        c = max(ci, co)
-        wmax = max(wmax, ci * 9 * _round_up(co, _OC),
-                   co * 9 * _round_up(ci, _OC))
-        bmax = max(bmax, _round_up(c, _OC))
-        tmax = max(tmax, c * (tw + 2) ** 2)
-    return 4 * (_round_up(wmax + bmax, 4) + _round_up(tmax, 4) + _THREADS)
+@lru_cache(maxsize=None)
+def smem_limit(device_index: int) -> int:
+    """Dynamic shared memory one block may opt in to on a CUDA device."""
+    limit = _build.library("coupling_fwd").ft_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared memory limit of "
+                           f"cuda:{device_index}")
+    return limit
 
 
 def _conv_widths(spec: FlowSpec) -> list[int]:
@@ -54,18 +55,17 @@ def _conv_widths(spec: FlowSpec) -> list[int]:
 
 
 def kernel_fits(spec: FlowSpec, L: int, B: int) -> bool:
-    """The kernels' envelope: ncp/rncp with fp32 3x3 convs, L a multiple of
-    4 (the closed-form stripe masks), at most MAX_CONVS convs, and one
-    block's weights plus haloed tile within the card's shared memory. Any
-    chain count B (one block per chain). This covers the JAX package's
-    envelope (L <= 8 or B <= 128, for L a multiple of 4) and the flagship's
-    16^2 and 64^2 shapes."""
-    widths = _conv_widths(spec) if spec.coupling in ("ncp", "rncp") else []
-    return (bool(widths) and spec.conv_dtype == "float32"
+    """The kernels' envelope in the spec and shape alone: ncp/rncp with fp32
+    3x3 convs and a ported activation, L a multiple of 4 (the closed-form
+    stripe masks), any chain count B (one block per chain). This covers the
+    JAX package's envelope (L <= 8 or B <= 128, for L a multiple of 4) and
+    the flagship's 16^2 and 64^2 shapes. On the card a launch also needs
+    one block's weights and haloed tile within the device's shared memory;
+    ``check_kernel_call`` asks the kernels' library for that and refuses a
+    conditioner too wide or too deep. The CPU's plain twins take any."""
+    return (spec.coupling in ("ncp", "rncp") and spec.conv_dtype == "float32"
             and spec.kernel_size == 3 and spec.activation in ACT_CODES
-            and L % 4 == 0 and L >= 4 and B >= 1
-            and len(widths) - 1 <= MAX_CONVS
-            and smem_bytes(widths, L) <= SMEM_LIMIT)
+            and L % 4 == 0 and L >= 4 and B >= 1)
 
 
 def check_kernel_call(what: str, layer, x: torch.Tensor,
@@ -84,6 +84,13 @@ def check_kernel_call(what: str, layer, x: torch.Tensor,
         raise ValueError(f"{what}: conv widths {widths} do not match spec")
     _build.require_fp32_contiguous(what, x, *[t for p in layer
                                               for t in (p["w"], p["b"])])
+    need = smem_bytes(tuple(widths), L)
+    limit = smem_limit(x.device.index if x.device.index is not None
+                       else torch.cuda.current_device())
+    if not 0 < need <= limit:
+        raise ValueError(f"{what}: conv widths {widths} at L={L} need "
+                         f"{need} bytes of shared memory a block (-1: too "
+                         f"many convs); the card allows {limit}")
 
 
 def net_args(layer, spec: FlowSpec):
@@ -98,18 +105,21 @@ def net_args(layer, spec: FlowSpec):
             ACT_CODES[spec.activation])
 
 
-def launch_forward(entry, lib, layer, x: torch.Tensor, mu: int, off: int,
-                   spec: FlowSpec, bufs, stream: int):
-    """Run a coupling forward entry (K6 or K7) with activation buffers
-    ``bufs`` (one per conv); returns (fx, logJ)."""
+def launch_forward(layer, x: torch.Tensor, mu: int, off: int,
+                   spec: FlowSpec, bufs):
+    """Run the coupling forward entry of K6 and K7 with activation buffers
+    ``bufs`` (one per conv: K6's scratch, K7's residuals); returns
+    (fx, logJ)."""
+    lib = _build.library("coupling_fwd")
     B, _, L, _ = x.shape
     fx = torch.empty_like(x)
     logj = torch.empty(B, dtype=x.dtype, device=x.device)
     n, widths, w, b, rncp, M, s_clip, act = net_args(layer, spec)
-    rc = getattr(lib, entry)(x.data_ptr(), fx.data_ptr(), logj.data_ptr(),
-                             _build.ptr_array(bufs), B, L, n, widths, w, b,
-                             rncp, M, s_clip, act, mu, off, stream)
-    _build.check(rc, entry, lib)
+    rc = lib.ft_coupling_forward(x.data_ptr(), fx.data_ptr(),
+                                 logj.data_ptr(), _build.ptr_array(bufs), B,
+                                 L, n, widths, w, b, rncp, M, s_clip, act, mu,
+                                 off, _build.stream_handle(x))
+    _build.check(rc, "ft_coupling_forward", lib)
     return fx, logj
 
 
@@ -135,9 +145,7 @@ def coupling_forward(layer, x: torch.Tensor, mu: int, off: int,
     ping, pong = torch.empty((2, B * cmax * L * L), dtype=x.dtype,
                              device=x.device)
     bufs = [ping if i % 2 == 0 else pong for i in range(len(layer))]
-    fx, logj = launch_forward("k6_coupling_forward",
-                              _build.library("coupling_fwd"), layer, x, mu,
-                              off, spec, bufs, _build.stream_handle(x))
+    fx, logj = launch_forward(layer, x, mu, off, spec, bufs)
     _build.LAUNCHES["K6"] += 1
     return CouplingOut(fx, logj)
 

@@ -7,8 +7,10 @@ K7 replaces ``fthmc_tpu/ops/pallas_coupling_vjp.py::_fwd_res_kernel``
 (``pallas_link_coupling_bwd``); ``ft_force_kernel`` is the counterpart of
 ``ft_force_pallas``, with K1 for dS/dy at the flow output. CUDA sources:
 ``csrc/coupling_fwd.cu`` (K7 shares K6's kernel) and ``csrc/coupling_bwd.cu``.
-Both are bound by the conditioner's conv flops (481 MFLOP per launch at
-the flagship's widths, 16^2 and 64 chains). The force needs d/dz only, so
+Both are bound by the conv flops their outputs depend on (K7 285 MFLOP, K8
+276 MFLOP per launch at the flagship's widths, 16^2 and 64 chains:
+cotangents enter on the active stripe and leave on the frozen stripes;
+``chip_smoke.coupling_macs`` counts them). The force needs d/dz only, so
 K8 computes input cotangents and no parameter gradients, and reads the
 activation gates from K7's stored pre-activations instead of recomputing
 the convs. Fields stay chains-first (B, 2, L, L): the TPU kernels'
@@ -61,9 +63,7 @@ def coupling_fwd_res(layer, x: torch.Tensor, mu: int, off: int,
     B, _, L, _ = x.shape
     res = tuple(torch.empty((B, c, L, L), dtype=x.dtype, device=x.device)
                 for c in _conv_widths(spec)[1:])
-    fx, logj = launch_forward("k7_coupling_fwd_res",
-                              _build.library("coupling_fwd"), layer, x, mu,
-                              off, spec, res, _build.stream_handle(x))
+    fx, logj = launch_forward(layer, x, mu, off, spec, res)
     _build.LAUNCHES["K7"] += 1
     return fx, logj, res
 

@@ -20,7 +20,8 @@ from fthmc_tpu_torch.models.flow import init_flow_params
 from fthmc_tpu_torch.ops import _build
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
-                                                  coupling_forward_plain)
+                                                  coupling_forward_plain,
+                                                  smem_bytes, smem_limit)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
                                                       coupling_bwd_plain,
                                                       coupling_fwd_res,
@@ -60,8 +61,9 @@ def test_kernels_match_plain_twins(card, spec, B, L):
     with full_fp32():
         f = force(x, 2.0)
         assert float((f - force_plain(x, 2.0)).abs().max()) < 1e-5
-        for i, layer in enumerate(params):
-            mu, off = i % 2, 3 * i
+        # every (mu, off) a flow's layers take, layer mu's weights for mu
+        for mu, off in [(m, o) for o in range(4) for m in (0, 1)]:
+            layer = params[mu]
             fx, lj = coupling_forward(layer, x, mu, off, spec)
             fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
             assert _wrapped(fx, fx_p) < 1e-4
@@ -80,7 +82,32 @@ def test_kernels_match_plain_twins(card, spec, B, L):
             assert float((gx - gx_p).abs().max()) < \
                 2e-3 * max(1.0, float(gx_p.abs().max()))
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"K1": 1, "K6": 2, "K7": 2, "K8": 2}
+    assert launched == {"K1": 1, "K6": 8, "K7": 8, "K8": 8}
+
+
+def test_shared_memory_envelope(card):
+    # one flagship block: 32x32 conv weights + bias + a 32-channel 18^2
+    # haloed tile + 256 reduction floats, as the kernels' smem_layout says
+    assert smem_bytes((2, 32, 32, 17), 16) == 4 * (9216 + 32 + 10368 + 256)
+    assert smem_bytes(tuple([2] + [4] * 8 + [3]), 8) == -1   # 9 convs
+    assert smem_bytes((2, 32, 32, 17), 64) <= smem_limit(card.index or 0)
+    wide = FlowSpec(n_layers=1, hidden_sizes=(128, 128))
+    assert smem_bytes((2, 128, 128, 3), 16) > smem_limit(card.index or 0)
+    params = init_flow_params(wide, torch.Generator().manual_seed(1),
+                              device=card)
+    z = torch.zeros((2, 2, 16, 16), device=card)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        coupling_forward(params[0], z, 0, 0, wide)
+    # 'auto' on the card is the kernels: a run they do not take raises
+    # instead of falling back to the autograd force
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = torch.zeros(2, device=card)
+    with pytest.raises(ValueError):
+        th.fthmc_step(params, wide, gen, z, q, 2.0, 0.1, 2)
+    with pytest.raises(ValueError):
+        th.fthmc_step(params, wide, gen, z.double(), q, 2.0, 0.1, 2)
+    assert dict(_build.LAUNCHES) == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -178,16 +178,21 @@ def test_resolve_force_backend():
     assert th.resolve_force_backend("kernel", spec, shape, f32, "cpu") == \
         "kernel"
     spline = TSpec(n_layers=1, coupling="spline")
-    assert th.resolve_force_backend("auto", spline, shape, f32, "cuda") == \
+    assert th.resolve_force_backend("auto", spline, shape, f32, "cpu") == \
         "autograd"
+    assert th.resolve_force_backend("autograd", spline, shape, f32,
+                                    "cuda") == "autograd"
+    # on the card 'auto' is 'kernel': what the kernels do not take raises
+    # under either name instead of running the autograd force
     for bad_spec, bad_shape, dtype in [
             (spline, shape, f32),
             (TSpec(n_layers=1, conv_dtype="bfloat16"), shape, f32),
             (spec, shape, torch.float64),
             (spec, (4, 2, 6, 6), f32)]:
-        with pytest.raises(ValueError):
-            th.resolve_force_backend("kernel", bad_spec, bad_shape, dtype,
-                                     "cuda")
+        for backend in ("kernel", "auto"):
+            with pytest.raises(ValueError):
+                th.resolve_force_backend(backend, bad_spec, bad_shape, dtype,
+                                         "cuda")
     # the CPU's plain twins take fp64 fields
     assert th.resolve_force_backend("kernel", spec, shape, torch.float64,
                                     "cpu") == "kernel"

@@ -4,26 +4,39 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
-  1. build the CUDA kernels (K1, K6, K7, K8) from fthmc_tpu_torch/csrc with
-     nvcc for sm_90a, one nvcc per source, all at once;
+  1. build the CUDA kernels (K1-K8) from fthmc_tpu_torch/csrc with nvcc for
+     sm_90a, one nvcc per source, all at once;
   2. the card's name and power limit, as nvidia-smi gives them;
-  3. each kernel against its plain PyTorch twin on the card, at the flagship
-     shapes (16^2, 64 chains, 24-layer rncp, hidden (32, 32), 8 components,
-     s_clip 3), on every layer of the flow (all eight (mu, off) masks), TF32
-     off; then the whole kernel force chain against the autograd force;
-  4. the main path: flagship FT-HMC with the trained flow at 16^2, beta=6,
-     tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0), through
-     run_fthmc with the default (kernel) force backend; physics checks;
+  3. each kernel against its plain PyTorch twin on the card: K1, K6, K7, K8
+     at the flagship FT-HMC shapes (16^2, 64 chains, 24-layer rncp, hidden
+     (32, 32), 8 components, s_clip 3) on every layer of the flow (all eight
+     (mu, off) masks), TF32 off, then the whole kernel force chain against
+     the autograd force; K2, K4, K5 at the plain-HMC headline shapes (64^2,
+     1024 chains, beta=6, dt=0.04, 25 steps) and K3 at 32^2, 1024 chains;
+     K5 also against hmc_step's 'xla' path on the same draws;
+  4. the FT-HMC path: flagship FT-HMC with the trained flow at 16^2,
+     beta=6, tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0),
+     through run_fthmc with the default (kernel) force backend; physics
+     checks;
   5. the launch counters of that run against the path's own count;
-  6. timings with CUDA events: every kernel and its plain twin, the kernel
-     force chain against the autograd force, FT-HMC chain-steps/s;
-  7. a {"kernels": [...]} JSON line;
-  8. last, {"ok": true, "device": {...}}.
+  6. the plain-HMC paths: run_hmc at the headline configuration of
+     fthmc_tpu/bench.py (64^2, beta=6, tau=1, 25 steps, 1024 chains, cold
+     start) with the default backend (K2), 'fused' (K4) and 'fused_hostrng'
+     (K5), and K3's 'pallas_cl' at 32^2; each run's launch counters (set to
+     0 just before it) and physics checks;
+  7. timings with CUDA events: every kernel and its plain twin, the kernel
+     force chain against the autograd force, K2 against K3 over L (the
+     'auto' rule), FT-HMC chain-steps/s, and the headline's chain-steps/s
+     as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
+     profiler pass for the device's busy share;
+  8. a {"kernels": [...]} JSON line;
+  9. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -35,11 +48,12 @@ import numpy as np
 import torch
 
 from fthmc_tpu_torch import lattice
-from fthmc_tpu_torch.config import LeapfrogConfig
-from fthmc_tpu_torch.hmc import ft_force, run_fthmc
+from fthmc_tpu_torch.config import HMCConfig, LeapfrogConfig
+from fthmc_tpu_torch.hmc import ft_force, hmc_step, run_fthmc, run_hmc
 from fthmc_tpu_torch.models.flow import flow_reverse
 from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
-from fthmc_tpu_torch.ops import _build
+from fthmc_tpu_torch.ops import _build, rng
+from fthmc_tpu_torch.ops import lattice_kernels as lk
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
                                                   coupling_forward_plain)
@@ -62,11 +76,39 @@ TIMED_LAYER = 1               # the coupling layer the kernels are timed on
 # the loosest check here: a wrong force shows first in phase 3's kernel and
 # force comparisons.
 MIN_ACCEPTANCE = 0.78
+# The plain-HMC headline, fthmc_tpu/bench.py:42-76: 64^2, beta=6, tau=1,
+# 25 steps (dt=0.04), 1024 chains, cold start; timed as 5 repeats of 20
+# chained trajectories after a 20-trajectory warm-up. K3's run: 32^2, the
+# same beta and dt, inside K3's envelope.
+HMC_CFG = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, n_chains=1024,
+                    randinit=False, seed=0)
+CL_L = 32
+# From the cold start the plaquette's excess over its equilibrium falls
+# over some 500 trajectories (slow modes of fixed-length trajectories), so
+# 600 thermalize; 1000 are measured, in 10 blocks for the error.
+H_THERM, H_MEAS = 600, 1000
+BENCH_NTRAJ, BENCH_REPEATS = 20, 5
+# The JAX package's acceptance at the headline (BENCH_extra.json, 20
+# trajectories x 1024 chains after 100 from a cold start): a physics
+# reading the port must reproduce. 1000 x 1024 accept flips have a
+# standard error near 0.0004 if independent; the margin leaves room for
+# correlation and for the JAX reading's own 20 trajectories.
+# A smaller lattice accepts more at the same dt (<dH> grows with the
+# volume), so K3's 32^2 run is held to the floor only.
+JAX_ACCEPTANCE, ACC_MARGIN = 0.843, 0.02
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 SOURCES = {
     "K1": ("fthmc_tpu_torch/csrc/force.cu",
            "fthmc_tpu/ops/pallas_lattice.py:53"),
+    "K2": ("fthmc_tpu_torch/csrc/leapfrog.cu",
+           "fthmc_tpu/ops/pallas_lattice.py:79"),
+    "K3": ("fthmc_tpu_torch/csrc/leapfrog.cu",
+           "fthmc_tpu/ops/pallas_lattice.py:166"),
+    "K4": ("fthmc_tpu_torch/csrc/hmc_traj.cu",
+           "fthmc_tpu/ops/pallas_lattice.py:268"),
+    "K5": ("fthmc_tpu_torch/csrc/hmc_traj.cu",
+           "fthmc_tpu/ops/pallas_lattice.py:351"),
     "K6": ("fthmc_tpu_torch/csrc/coupling_fwd.cu",
            "fthmc_tpu/ops/pallas_coupling.py:131"),
     "K7": ("fthmc_tpu_torch/csrc/coupling_fwd.cu",
@@ -169,13 +211,242 @@ def bounds(spec, layer_params: int, mu: int, off: int) -> dict:
         "K7": (2 * field + weights + 4 * B + resid, 2 * B * macs["K7"]),
         "K8": (3 * field + weights + 4 * B + resid, 2 * B * macs["K8"]),
     }
-    out = {}
-    for k, (nbytes, flops) in work.items():
-        tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-        out[k] = {"bound_ms": max(tb, tf),
-                  "bound_by": "bytes" if tb >= tf else "operations",
-                  "bytes": nbytes, "flops": flops}
+    return {k: _bound(nbytes, flops) for k, (nbytes, flops) in work.items()}
+
+
+def _bound(nbytes: int, flops: int) -> dict:
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+# Operations a site of the trajectory kernels' bodies does
+# (csrc/traj_common.cuh, csrc/philox.cuh), counting sinf, cosf and logf as
+# 20 each and sqrtf as 4 (their range reduction and polynomial), and
+# Philox's integer operations at the fp32 rate (a lower rate would only
+# raise the bound):
+STEP_OPS = 35        # a step: plaquette 3, sinf 20, force 4, kick 4, drift 4
+HALF_DRIFT_OPS = 8   # the two half drifts: 2 links x 2 ops x 2
+ENERGY_OPS = 64      # 2 plaquettes 6, 2 cosf 40, 2 sums; kinetic 2 x 4;
+                     # wrap and select 2 x 4
+DRAW_OPS = 310       # 2 momenta x (Philox4x32-10 100, 2 uniforms 8, logf,
+                     # sqrtf, cosf 44, 3 muls)
+
+
+def traj_bounds(B: int, L: int, nstep: int) -> dict:
+    """Least time (ms) of K2-K5 for B chains of L^2 sites over nstep steps:
+    the larger of bytes / peak bandwidth (each input read once, each output
+    written once) and the operations above / peak fp32 rate. K4 draws each
+    momentum once in this count (the kernel draws it again at the end)."""
+    sites = B * L * L
+    field = 4 * 2 * sites                      # one (B, 2, L, L) fp32 field
+    lf = sites * (STEP_OPS * nstep + HALF_DRIFT_OPS)
+    work = {"K2": (4 * field, lf),             # x, v in; x', v' out
+            "K3": (4 * field, lf),
+            "K4": (2 * field + 4 + 8 * B,      # x, seed in; x', dh, acc out
+                   lf + sites * (ENERGY_OPS + DRAW_OPS)),
+            "K5": (3 * field + 12 * B,         # x, v0, u in; x', dh, acc out
+                   lf + sites * ENERGY_OPS)}
+    return {k: _bound(nbytes, flops) for k, (nbytes, flops) in work.items()}
+
+
+def near_equilibrium(g: torch.Generator, B: int, L: int, beta: float,
+                     dev) -> torch.Tensor:
+    """Links with Gaussian angles of variance 1 / (4 beta), so a plaquette
+    (four links) has about the variance of beta's equilibrium: trajectories
+    from here are accepted or rejected as the main path's are."""
+    return torch.randn((B, 2, L, L), generator=g, device=dev) / \
+        math.sqrt(4 * beta)
+
+
+def traj_check(what: str, got, ref, x0, v0, u, cfg) -> dict:
+    """K4/K5-style output (x', dH, acc) against a reference on the same
+    draws: dH within ``dh_tolerance``, the accept equal except where u lies
+    within that of exp(-dH), x' (wrapped) within 1e-4 where it is equal."""
+    tol = lk.dh_tolerance(x0, v0, cfg.beta, cfg.dt, cfg.nstep)
+    (xk, dhk, acck), (xp, dhp, accp) = got, ref
+    torch.cuda.synchronize()
+    err = (dhk - dhp).abs()
+    same = acck == accp
+    border = (u - torch.exp(-dhp)).abs() <= tol * torch.exp(-dhp)
+    out = {"dh_max_abs_err": float(err.max()),
+           "dh_err_over_tolerance": float((err / tol).max()),
+           "dh_tolerance_min": float(tol.min()),
+           "accepted": int(accp.sum()), "accept_flips": int((~same).sum()),
+           "x_max_wrapped_err": wrapped_err(xk[same], xp[same])}
+    require(bool((err <= tol).all()), f"{what} dH: {out}")
+    require(bool((same | border).all()), f"{what} accept: {out}")
+    require(out["x_max_wrapped_err"] <= 1e-4, f"{what} x: {out}")
     return out
+
+
+def compare_trajectory_kernels(dev):
+    """Phase 3, plain HMC: K2, K4, K5 at the headline shapes and K3 at
+    CL_L^2, each against its plain twin from near-equilibrium links; K5
+    against hmc_step's 'xla' path (the torch loop with K1) on the same
+    generator draws. Returns (errors, tolerances, details, inputs)."""
+    cfg = HMC_CFG
+    B, L, beta, dt, n = cfg.n_chains, cfg.L, cfg.beta, cfg.dt, cfg.nstep
+    g = torch.Generator(device=dev).manual_seed(2027)
+    x = near_equilibrium(g, B, L, beta, dev)
+    v = torch.randn(x.shape, generator=g, device=dev)
+    u = torch.rand((B,), generator=g, device=dev)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device=dev,
+                         dtype=torch.int32)
+    x3 = near_equilibrium(g, B, CL_L, beta, dev)
+    v3 = torch.randn(x3.shape, generator=g, device=dev)
+    errs, tols, info = {}, {}, {}
+    for k, (a, b), (got, ref) in (
+            ("K2", (x, v), (lk.leapfrog(x, v, beta, dt, n),
+                            lk.leapfrog_plain(x, v, beta, dt, n))),
+            ("K3", (x3, v3), (lk.leapfrog_cl(x3, v3, beta, dt, n),
+                              lk.leapfrog_cl_plain(x3, v3, beta, dt, n)))):
+        torch.cuda.synchronize()
+        ex, ev = wrapped_err(got[0], ref[0]), float((got[1] - ref[1]).abs()
+                                                    .max())
+        tv = 1e-4 * float(ref[1].abs().max())
+        info[k] = {"x_max_wrapped_err": ex, "v_max_abs_err": ev,
+                   "v_tolerance": tv}
+        require(ex <= 1e-4 and ev <= tv, f"{k} vs plain: {info[k]}")
+        errs[k], tols[k] = max(ex, ev), min(1e-4, tv)
+    info["K5"] = traj_check("K5", lk.hmc_traj_hostrng(x, v, u, beta, dt, n),
+                            lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, n),
+                            x, v, u, cfg)
+    v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
+    info["K4"] = traj_check("K4", lk.hmc_traj(x, seed, beta, dt, n),
+                            lk.hmc_traj_plain(x, seed, beta, dt, n),
+                            x, v4, u4, cfg)
+    # K5 against hmc_step('xla') from the same generator state: both draw
+    # v0 = randn(x.shape), then u = rand(B)
+    xa, _, ma = hmc_step(torch.Generator(device=dev).manual_seed(11), x,
+                         torch.zeros(B, device=dev), beta, dt, n,
+                         backend="xla", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    va = torch.randn(x.shape, generator=gen, device=dev)
+    ua = torch.rand((B,), generator=gen, device=dev)
+    info["K5_vs_xla_hmc_step"] = traj_check(
+        "K5 vs hmc_step('xla')", lk.hmc_traj_hostrng(x, va, ua, beta, dt, n),
+        (xa, ma.dh, ma.acc), x, va, ua, cfg)
+    for k in ("K4", "K5"):
+        errs[k], tols[k] = (info[k]["dh_max_abs_err"],
+                            info[k]["dh_tolerance_min"])
+    return errs, tols, info, (x, v, u, seed, x3, v3)
+
+
+def plain_hmc_runs(dev) -> dict:
+    """Phase 6: each plain-HMC path through run_hmc, its launch counters
+    set to 0 just before it and read just after, and its physics: <plaq>
+    within min(0.002, 5 sigma + 1 / (beta V)) of the exact value, sigma the
+    blocked standard error of the run's per-trajectory means (10 blocks)
+    and 1 / (beta V) twice the shift of <plaq> when topology stays frozen
+    at Q=0 from the cold start (2 pi^2 <Q^2> / V^2, <Q^2> = V / (4 pi^2
+    beta)); <exp(-dH)> within 0.02 of 1; acceptance within ACC_MARGIN of
+    the JAX package's at the headline, above its floor at CL_L^2."""
+    runs = {}
+    for backend, kernel, L in (("auto", "K2", HMC_CFG.L),
+                               ("fused", "K4", HMC_CFG.L),
+                               ("fused_hostrng", "K5", HMC_CFG.L),
+                               ("pallas_cl", "K3", CL_L)):
+        cfg = dataclasses.replace(HMC_CFG, L=L, ntraj=H_THERM + H_MEAS)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        x, hist = run_hmc(cfg, generator=gen, backend=backend, device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        expect = {k: cfg.ntraj if k == kernel else 0 for k in _build.KERNELS}
+        meas = slice(H_THERM, None)
+        ptraj = hist.plaq[meas].mean(dim=1)
+        stderr = float(ptraj.reshape(10, -1).mean(dim=1).std()
+                       / math.sqrt(10))
+        excess = (hist.plaq.mean(dim=1).reshape(-1, 100).mean(dim=1)
+                  - lattice.PLAQ_EXACT[cfg.beta])
+        bound = min(0.002, 5 * stderr + 1.0 / (cfg.beta * L * L))
+        r = {"backend": backend, "kernel": kernel, "L": L,
+             "chains": cfg.n_chains, "beta": cfg.beta, "tau": cfg.tau,
+             "nstep": cfg.nstep, "therm": H_THERM, "measured": H_MEAS,
+             "acceptance": float(hist.acc[meas].mean()),
+             "plaq": float(ptraj.mean()), "plaq_stderr_blocked": stderr,
+             "plaq_bound": bound, "plaq_exact": lattice.PLAQ_EXACT[cfg.beta],
+             "exp_mdh": float(hist.exp_mdh[meas].mean()),
+             "plaq_first_traj": float(hist.plaq[0].mean()),
+             "plaq_excess_by_100_traj": excess.tolist(),
+             "run_s": t_run, "launches": launches, "plain_calls": plain}
+        say("hmc", **r)
+        require(all(bool(torch.isfinite(t).all()) for t in hist)
+                and bool(torch.isfinite(x).all()), f"{backend}: not finite")
+        require(launches == expect, f"{backend} launches {launches}")
+        require(not any(plain.values()), f"{backend}: plain twins ran")
+        require(abs(r["plaq"] - r["plaq_exact"]) <= bound,
+                f"{backend} plaq {r['plaq']} vs {r['plaq_exact']}")
+        require(abs(r["exp_mdh"] - 1.0) <= 0.02,
+                f"{backend} <exp(-dH)> {r['exp_mdh']}")
+        if L == HMC_CFG.L:
+            require(abs(r["acceptance"] - JAX_ACCEPTANCE) <= ACC_MARGIN,
+                    f"{backend} acceptance {r['acceptance']}")
+        else:
+            require(r["acceptance"] >= JAX_ACCEPTANCE - ACC_MARGIN,
+                    f"{backend} acceptance {r['acceptance']}")
+        runs[kernel] = r
+    return runs
+
+
+def headline_rate(dev, backend: str) -> dict:
+    """Chain-steps/s of run_hmc at the headline as fthmc_tpu/bench.py
+    defines it: chains x ntraj x nstep / the median of BENCH_REPEATS runs of
+    BENCH_NTRAJ trajectories, each from the last one's state, after a
+    warm-up run; each run ends in a reduction read on the host."""
+    cfg = dataclasses.replace(HMC_CFG, ntraj=BENCH_NTRAJ)
+    x, _ = run_hmc(cfg, backend=backend, device=dev)
+    float(x.sum())
+    times = []
+    for i in range(BENCH_REPEATS):
+        gen = torch.Generator(device=dev).manual_seed(1000 + i)
+        t0 = time.perf_counter()
+        x, hist = run_hmc(cfg, x0=x, generator=gen, backend=backend,
+                          device=dev)
+        float(x.sum())
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return {"chain_steps_per_s": cfg.n_chains * cfg.ntraj * cfg.nstep / med,
+            "s_per_traj": med / cfg.ntraj, "times_s": times,
+            "acceptance": float(hist.acc.mean())}
+
+
+def device_busy(dev, backend: str, s_per_traj: float) -> dict:
+    """The card's kernel time over one BENCH_NTRAJ-trajectory headline run,
+    from torch.profiler, as a share of that run's unprofiled wall time
+    (``s_per_traj`` from headline_rate; the profiler's own host cost
+    stretches the profiled wall time, also reported), and the kernels that
+    take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(HMC_CFG, ntraj=BENCH_NTRAJ)
+    x, _ = run_hmc(cfg, backend=backend, device=dev)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_hmc(cfg, x0=x, backend=backend, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as e:
+        return {"busy_share": "not measured", "error": repr(e)}
+    rows = sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])
+    busy_s = sum(t for _, t in rows) / 1e6
+    if busy_s == 0:
+        return {"busy_share": "not measured", "error": "no device time"}
+    return {"busy_share": busy_s / (s_per_traj * cfg.ntraj),
+            "busy_share_profiled": busy_s / wall,
+            "device_s_per_traj": busy_s / cfg.ntraj, "kernels": len(rows),
+            "top_ms_per_traj": {k[:60]: t / 1e3 / cfg.ntraj
+                                for k, t in rows[:6]}}
 
 
 def main() -> None:
@@ -247,6 +518,11 @@ def main() -> None:
     say("compare", max_abs_err=errs, tolerance=tols,
         ft_force_kernel_vs_autograd={"max_abs_err": chain_err,
                                      "tolerance": chain_tol})
+    e_h, t_h, info, (xh, vh, uh, seed, x3, v3) = \
+        compare_trajectory_kernels(dev)
+    errs.update(e_h)
+    tols.update(t_h)
+    say("compare_hmc", max_abs_err=e_h, tolerance=t_h, details=info)
 
     # 4. the main path: trained-flow FT-HMC from z0 = f^-1(0)
     t0 = time.perf_counter()
@@ -286,15 +562,21 @@ def main() -> None:
     # 5. launch counters of the main path
     n_force = 2 * NSTEP + 1                    # Omelyan force evaluations
     n_layers = spec.n_layers
-    expect = {"K1": n_force * ntraj,
-              "K6": 2 * n_layers * ntraj + n_layers,
-              "K7": n_force * n_layers * ntraj,
-              "K8": n_force * n_layers * ntraj}
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect.update({"K1": n_force * ntraj,
+                   "K6": 2 * n_layers * ntraj + n_layers,
+                   "K7": n_force * n_layers * ntraj,
+                   "K8": n_force * n_layers * ntraj})
     say("launches", launches=launches, expected=expect, plain_calls=plain)
     require(launches == expect, f"launches {launches} != {expect}")
     require(not any(plain.values()), f"plain twins ran: {plain}")
 
-    # 6. timings
+    # 6. the plain-HMC paths, each with its own launch counts
+    runs = plain_hmc_runs(dev)
+    for k, r in runs.items():
+        launches[k] = r["launches"][k]
+
+    # 7. timings
     layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(TIMED_LAYER)
     _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
     with full_fp32():
@@ -328,10 +610,43 @@ def main() -> None:
         ft_force_autograd_ms=force_autograd_ms,
         s_per_trajectory=t_traj,
         fthmc_chain_steps_per_s=B * NSTEP / t_traj)
+    hc = HMC_CFG
+    hargs = (hc.beta, hc.dt, hc.nstep)
+    ms.update({"K2": cuda_ms(lambda: lk.leapfrog(xh, vh, *hargs)),
+               "K3": cuda_ms(lambda: lk.leapfrog_cl(x3, v3, *hargs)),
+               "K4": cuda_ms(lambda: lk.hmc_traj(xh, seed, *hargs)),
+               "K5": cuda_ms(lambda: lk.hmc_traj_hostrng(xh, vh, uh,
+                                                         *hargs))})
+    plain_ms.update({
+        "K2": cuda_ms(lambda: lk.leapfrog_plain(xh, vh, *hargs), reps=3),
+        "K3": cuda_ms(lambda: lk.leapfrog_cl_plain(x3, v3, *hargs), reps=3),
+        "K4": cuda_ms(lambda: lk.hmc_traj_plain(xh, seed, *hargs), reps=3),
+        "K5": cuda_ms(lambda: lk.hmc_traj_hostrng_plain(xh, vh, uh, *hargs),
+                      reps=3)})
+    # the 'auto' rule: K2 against K3 (boundary transposes included) where
+    # K3 takes the shape
+    g = torch.Generator(device=dev).manual_seed(5)
+    k2_vs_k3 = {}
+    for n in (8, 16, 32, 48):
+        xr = near_equilibrium(g, hc.n_chains, n, hc.beta, dev)
+        vr = torch.randn(xr.shape, generator=g, device=dev)
+        k2_vs_k3[n] = {"K2": cuda_ms(lambda: lk.leapfrog(xr, vr, *hargs)),
+                       "K3": cuda_ms(lambda: lk.leapfrog_cl(xr, vr, *hargs))}
+    rates = {b: headline_rate(dev, b) for b in ("auto", "fused")}
+    say("timing_hmc", kernel_ms={k: ms[k] for k in ("K2", "K3", "K4", "K5")},
+        plain_ms={k: plain_ms[k] for k in ("K2", "K3", "K4", "K5")},
+        k2_vs_k3_ms_by_L=k2_vs_k3, chains=hc.n_chains,
+        headline=rates,
+        device_busy={b: device_busy(dev, b, rates[b]["s_per_traj"])
+                     for b in rates})
 
-    # 7. the kernels line
+    # 8. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
+    tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
+    tb_3 = traj_bounds(hc.n_chains, CL_L, hc.nstep)
+    bnd.update({"K2": tb_h["K2"], "K3": tb_3["K3"], "K4": tb_h["K4"],
+                "K5": tb_h["K5"]})
     say("bounds", layer=TIMED_LAYER, mu=mu, off=off,
         flops={k: v["flops"] for k, v in bnd.items()},
         bytes={k: v["bytes"] for k, v in bnd.items()})
@@ -343,7 +658,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 8. the device line
+    # 9. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 // Shared device helpers of the port's CUDA kernels: angle wrapping, the
-// plaquette of a chains-first link field and the stripe masks.
+// plaquette of a chains-first link field, the stripe masks, and the C
+// entries every library carries (error strings, the shared-memory limit).
 //
 // Fields are chains-first fp32: x[b][d][i][j] with d the link direction,
 // i the 0-direction coordinate (rows) and j the 1-direction (columns).
@@ -39,4 +40,13 @@ __device__ __forceinline__ int stripe(int i, int j, int mu, int off) {
 
 extern "C" const char* ft_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Dynamic shared memory one block may opt in to on the device, or -1.
+extern "C" int ft_smem_limit(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
 }

@@ -122,15 +122,6 @@ extern "C" int ft_smem_bytes(int n_convs, const int* widths, int L) {
   return static_cast<int>(sizeof(float)) * s.total;
 }
 
-// Dynamic shared memory one block may opt in to on the device, or -1.
-extern "C" int ft_smem_limit(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
-}
-
 // Stage one conv's weights in shared memory. Forward: routine input
 // channel c is the conv's input channel. transpose: the routine runs the
 // transposed conv (input cotangents from output cotangents), i.e. a conv

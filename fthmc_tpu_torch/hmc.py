@@ -5,7 +5,26 @@ every trajectory ends in a per-chain Metropolis accept through
 ``torch.where``; energy differences are delta-form reductions (per-site
 cos differences and (v1 - v0)(v1 + v0)), which keep fp32 acceptance
 statistics those of fp64. Every random draw comes from the caller's
-``torch.Generator``.
+``torch.Generator``. A run is a Python loop over trajectories, not one
+compiled program as in the JAX package.
+
+Plain HMC has the JAX package's backends, mapped onto the port's kernels
+(ops/lattice_kernels.py; on the CPU each runs its plain twin):
+  - 'xla': the torch loop of ``leapfrog`` / ``omelyan`` with K1 as the
+    force, the counterpart of the JAX package's XLA scan;
+  - 'pallas': K2, the whole trajectory in one launch, chains-first;
+  - 'pallas_cl': K3, the same chains-last;
+  - 'fused': K4, refresh + trajectory + energy + Metropolis in one launch,
+    drawing from its in-kernel Philox stream (seeded from the generator);
+  - 'fused_hostrng': K5, the same with the momenta and accept draws taken
+    from the generator as 'xla' takes them, so its chains follow 'xla' up
+    to roundoff (the port's name for the JAX package's
+    ``pallas_hmc_traj_hostrng`` path);
+  - 'auto': 'xla' on the CPU; on the card the port's own rule,
+    ``_select_leapfrog``. fp64 fields on the card raise.
+The trajectory kernels integrate leapfrog only: 'omelyan' with any of them
+raises (the JAX package runs leapfrog there unasked); 'omelyan' under
+'auto' runs the 'xla' loop, K1 on the card.
 
 FT-HMC runs in the latent field z, with S_eff(z) = S(f(z)) - log|det df/dz|.
 Its force is one of two backends:
@@ -18,21 +37,25 @@ Its force is one of two backends:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
 
 from fthmc_tpu_torch import lattice
-from fthmc_tpu_torch.config import FlowSpec, LeapfrogConfig
+from fthmc_tpu_torch.config import FlowSpec, HMCConfig, LeapfrogConfig
 from fthmc_tpu_torch.device import resolve_device
 from fthmc_tpu_torch.models.flow import flow_forward
+from fthmc_tpu_torch.ops import lattice_kernels as lk
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (kernel_fits,
                                                   kernel_flow_forward)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import ft_force_kernel
 
-__all__ = ["TrajMetrics", "leapfrog", "omelyan", "hmc_step", "ft_action",
-           "ft_force", "resolve_remat", "resolve_force_backend",
+__all__ = ["TrajMetrics", "leapfrog", "omelyan", "BACKENDS",
+           "resolve_backend", "run_leapfrog", "hmc_step", "run_hmc",
+           "run_hmc_thinned", "run_hmc_nrun", "run_hmc_chunked",
+           "ft_action", "ft_force", "resolve_remat", "resolve_force_backend",
            "fthmc_step", "run_fthmc", "run_fthmc_chunked"]
 
 
@@ -109,22 +132,236 @@ def _metrics(dh, exp_mdh, acc, y, q_old):
                        plaq=lattice.plaq_mean(y), q=q, dq=(q - q_old).abs())
 
 
-@torch.no_grad()
-def hmc_step(generator: torch.Generator, x: torch.Tensor,
-             q_old: torch.Tensor, beta: float, dt: float, nstep: int,
-             integrator: str = "leapfrog"):
-    """One batched plain-HMC trajectory with the analytic force (K1 on the
-    card). Returns (x', q', metrics)."""
-    v0 = _normal(generator, x)
+# ---------------------------------------------------------------------------
+# Plain HMC
+# ---------------------------------------------------------------------------
+
+BACKENDS = ("auto", "xla", "pallas", "pallas_cl", "fused", "fused_hostrng")
+_KERNEL_BACKENDS = ("pallas", "pallas_cl", "fused", "fused_hostrng")
+
+
+def _select_leapfrog(integrator: str, dtype, device: torch.device) -> str:
+    """What 'auto' means: 'xla' on the CPU; on the card 'xla' (K1) for
+    omelyan and K2 ('pallas') for leapfrog, which measured faster than K3
+    (with its boundary transposes) at every L from 8 to 48 with 1024 chains
+    (PERF.md, the 'auto' rule). fp64 on the card raises: no kernel takes
+    it."""
+    if device.type != "cuda":
+        return "xla"
+    if dtype != torch.float32:
+        raise ValueError(f"backend='auto' on the card takes fp32 fields, got "
+                         f"{dtype}; the kernels have no fp64 path")
+    return "xla" if integrator == "omelyan" else "pallas"
+
+
+def resolve_backend(backend: str, integrator: str, dtype, device) -> str:
+    """The backend a plain-HMC trajectory runs on (see the module
+    docstring). Refuses unknown names and 'omelyan' with a trajectory
+    kernel; the kernels' wrappers refuse, at launch, shapes and types they
+    do not take."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if integrator not in ("leapfrog", "omelyan"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if integrator == "omelyan" and backend in _KERNEL_BACKENDS:
+        raise ValueError(f"backend={backend!r} integrates leapfrog only; "
+                         f"omelyan runs on 'xla' or 'auto'")
+    if backend == "auto":
+        return _select_leapfrog(integrator, dtype, torch.device(device))
+    return backend
+
+
+def _trajectory(x, v, beta, dt, nstep, backend, integrator):
+    """(x1, v1) of a resolved trajectory backend."""
+    if backend == "pallas":
+        return lk.leapfrog(x, v, beta, dt, nstep)
+    if backend == "pallas_cl":
+        return lk.leapfrog_cl(x, v, beta, dt, nstep)
     integ = omelyan if integrator == "omelyan" else leapfrog
-    x1, v1 = integ(x, v0, dt, nstep,
-                   lambda xx: lattice.batch_force(xx, beta))
-    x1 = lattice.wrap(x1)
-    dh = lattice.delta_action(x1, x, beta) + _kinetic_delta(v1, v0)
-    exp_mdh, acc, (x_new,) = _metropolis(generator, dh, (x1,), (x,))
+    return integ(x, v, dt, nstep, lambda xx: lattice.batch_force(xx, beta))
+
+
+@torch.no_grad()
+def run_leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
+                 nstep: int, backend: str = "auto",
+                 integrator: str = "leapfrog", device=None):
+    """One trajectory of (x, v) on ``device`` (the card by default) through
+    'xla', 'pallas', 'pallas_cl' or 'auto'. Returns (x1, v1), unwrapped."""
+    device = resolve_device(device)
+    x, v = x.to(device), v.to(device)
+    backend = resolve_backend(backend, integrator, x.dtype, device)
+    if backend in ("fused", "fused_hostrng"):
+        raise ValueError(f"backend={backend!r} is a whole HMC step "
+                         f"(hmc_step), not a trajectory")
+    return _trajectory(x, v, beta, dt, nstep, backend, integrator)
+
+
+def _hmc_step(generator, x, q_old, beta, dt, nstep, backend, integrator):
+    """hmc_step on a resolved backend, with x and q_old on the run's
+    device."""
+    if backend == "fused":
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             dtype=torch.int32, device=generator.device)
+        x_new, dh, acc = lk.hmc_traj(x, seed.to(x.device), beta, dt, nstep)
+        exp_mdh = torch.exp(-dh)
+    elif backend == "fused_hostrng":
+        v0 = _normal(generator, x)
+        u = _uniform(generator, x[:, 0, 0, 0])
+        x_new, dh, acc = lk.hmc_traj_hostrng(x, v0, u, beta, dt, nstep)
+        exp_mdh = torch.exp(-dh)
+    else:
+        v0 = _normal(generator, x)
+        x1, v1 = _trajectory(x, v0, beta, dt, nstep, backend, integrator)
+        x1 = lattice.wrap(x1)
+        dh = lattice.delta_action(x1, x, beta) + _kinetic_delta(v1, v0)
+        exp_mdh, acc, (x_new,) = _metropolis(generator, dh, (x1,), (x,))
     m = _metrics(dh, exp_mdh, acc, x_new, q_old)
     return x_new, m.q, m
 
+
+@torch.no_grad()
+def hmc_step(generator: torch.Generator, x: torch.Tensor,
+             q_old: torch.Tensor, beta: float, dt: float, nstep: int,
+             backend: str = "auto", integrator: str = "leapfrog",
+             device=None):
+    """One batched plain-HMC trajectory of x: (B, 2, L, L) on ``device``
+    (the card by default). Returns (x', q', metrics)."""
+    device = resolve_device(device)
+    x, q_old = x.to(device), q_old.to(device)
+    backend = resolve_backend(backend, integrator, x.dtype, device)
+    return _hmc_step(generator, x, q_old, beta, dt, nstep, backend,
+                     integrator)
+
+
+def _start(cfg: HMCConfig, x0, generator, dtype, device) -> torch.Tensor:
+    """x0 on the run's device, or the configuration's start: a hot start
+    from the generator (cfg.randinit) or the cold (zero-link) one."""
+    if x0 is not None:
+        return x0.to(device)
+    if cfg.randinit:
+        return lattice.hot_start(generator, cfg.n_chains, cfg.L,
+                                 device=device, dtype=dtype)
+    return torch.zeros((cfg.n_chains, 2, cfg.L, cfg.L), dtype=dtype,
+                       device=device)
+
+
+def _generator(cfg: HMCConfig, generator, device) -> torch.Generator:
+    """The caller's generator, or one on the device seeded with cfg.seed."""
+    if generator is None:
+        return torch.Generator(device).manual_seed(cfg.seed)
+    return generator
+
+
+def _run_setup(cfg, x0, generator, dtype, backend, integrator, device):
+    """(generator, x0, resolved backend, device) of a run."""
+    device = resolve_device(device)
+    generator = _generator(cfg, generator, device)
+    x = _start(cfg, x0, generator, dtype, device)
+    return (generator, x,
+            resolve_backend(backend, integrator, x.dtype, device),
+            device)
+
+
+def _stack(history: list[TrajMetrics]) -> TrajMetrics:
+    return TrajMetrics(*[torch.stack(f) for f in zip(*history)])
+
+
+@torch.no_grad()
+def run_hmc(cfg: HMCConfig, x0: torch.Tensor | None = None,
+            generator: torch.Generator | None = None,
+            dtype=torch.float32, backend: str = "auto",
+            integrator: str = "leapfrog", device=None):
+    """cfg.ntraj batched trajectories of cfg.n_chains chains on ``device``
+    (the card by default), from x0 or the configuration's start. The
+    generator defaults to one on the device seeded with cfg.seed.
+    Returns (x_final, TrajMetrics history of (ntraj, n_chains) tensors)."""
+    generator, x, backend, _ = _run_setup(cfg, x0, generator, dtype,
+                                          backend, integrator, device)
+    q = lattice.topo_charge(x)
+    history = []
+    for _ in range(cfg.ntraj):
+        x, q, m = _hmc_step(generator, x, q, cfg.beta, cfg.dt, cfg.nstep,
+                            backend, integrator)
+        history.append(m)
+    return x, _stack(history)
+
+
+@torch.no_grad()
+def run_hmc_thinned(cfg: HMCConfig, *, thin: int,
+                    x0: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None,
+                    dtype=torch.float32, backend: str = "auto",
+                    integrator: str = "leapfrog", device=None):
+    """run_hmc for long runs: the history keeps the last trajectory of every
+    ``thin`` ((ntraj // thin, B) tensors), and a summary dict holds exact
+    running means over ALL trajectories (acc, plaq, exp_mdh, abs_dh, each a
+    0-d tensor). cfg.ntraj must be a multiple of thin."""
+    if thin < 1 or cfg.ntraj % thin:
+        raise ValueError(f"ntraj={cfg.ntraj} is not a multiple of "
+                         f"thin={thin}")
+    generator, x, backend, device = _run_setup(cfg, x0, generator, dtype,
+                                               backend, integrator, device)
+    q = lattice.topo_charge(x)
+    sums = dict.fromkeys(("acc", "plaq", "exp_mdh", "abs_dh"),
+                         torch.zeros((), dtype=x.dtype, device=device))
+    history = []
+    for i in range(cfg.ntraj):
+        x, q, m = _hmc_step(generator, x, q, cfg.beta, cfg.dt, cfg.nstep,
+                            backend, integrator)
+        for k, t in (("acc", m.acc), ("plaq", m.plaq),
+                     ("exp_mdh", m.exp_mdh), ("abs_dh", m.dh.abs())):
+            sums[k] = sums[k] + t.mean()
+        if (i + 1) % thin == 0:
+            history.append(m)
+    return x, _stack(history), {k: v / cfg.ntraj for k, v in sums.items()}
+
+
+def run_hmc_nrun(cfg: HMCConfig, generator: torch.Generator | None = None,
+                 dtype=torch.float32, backend: str = "auto",
+                 integrator: str = "leapfrog", device=None):
+    """cfg.nrun independent runs, each from a fresh start (the
+    configuration's), drawing on in turn from one generator. Returns
+    (x_final of the last run, TrajMetrics of (nrun, ntraj, n_chains))."""
+    device = resolve_device(device)
+    generator = _generator(cfg, generator, device)
+    runs, x = [], None
+    for _ in range(cfg.nrun):
+        x, hist = run_hmc(cfg, generator=generator, dtype=dtype,
+                          backend=backend, integrator=integrator,
+                          device=device)
+        runs.append(hist)
+    return x, _stack(runs)
+
+
+def run_hmc_chunked(cfg: HMCConfig, *, block: int = 1024,
+                    x0: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None,
+                    callback=None, dtype=torch.float32,
+                    backend: str = "auto", integrator: str = "leapfrog",
+                    device=None):
+    """run_hmc in blocks of ``block`` trajectories, with the history moved
+    to the host and ``callback(done, block_history)`` after each block.
+    Returns (x_final, TrajMetrics of CPU tensors (ntraj, n_chains))."""
+    device = resolve_device(device)
+    generator = _generator(cfg, generator, device)
+    blocks = []
+    x, done = x0, 0
+    while done < cfg.ntraj:
+        n = min(block, cfg.ntraj - done)
+        x, hist = run_hmc(dataclasses.replace(cfg, ntraj=n), x0=x,
+                          generator=generator, dtype=dtype, backend=backend,
+                          integrator=integrator, device=device)
+        hist = TrajMetrics(*[t.cpu() for t in hist])
+        blocks.append(hist)
+        done += n
+        if callback is not None:
+            callback(done, hist)
+    return x, TrajMetrics(*[torch.cat(f) for f in zip(*blocks)])
+
+
+# ---------------------------------------------------------------------------
+# Flowed HMC
+# ---------------------------------------------------------------------------
 
 def resolve_remat(remat, shape) -> bool:
     """'auto' -> checkpoint each coupling layer only when the activation

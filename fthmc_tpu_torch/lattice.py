@@ -59,6 +59,11 @@ def action(x: torch.Tensor, beta: float) -> torch.Tensor:
     return -beta * torch.cos(plaq_phase(x)).sum(dim=(-2, -1))
 
 
+def action_density(x: torch.Tensor) -> torch.Tensor:
+    """cos(P) field; S = -beta * sum(action_density)."""
+    return torch.cos(plaq_phase(x))
+
+
 def delta_action(x1: torch.Tensor, x0: torch.Tensor,
                  beta: float) -> torch.Tensor:
     """S(x1) - S(x0) as a sum of per-site cos differences, which stays well
@@ -87,12 +92,69 @@ def force(x: torch.Tensor, beta: float) -> torch.Tensor:
     return beta * torch.stack((f0, f1), dim=-3)
 
 
+def grad_force(x: torch.Tensor, beta: float) -> torch.Tensor:
+    """dS/dx by autograd, the cross-check of the analytic stencil."""
+    with torch.enable_grad():
+        y = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(action(y, beta).sum(), y)
+    return g
+
+
+def wilson_loop_phase(x: torch.Tensor, R: int, T: int) -> torch.Tensor:
+    """Phase of the R x T rectangular Wilson loop at every site:
+    (..., 2, L0, L1) -> (..., L0, L1).
+
+    theta(y) = sum_{r<R} t0(y + r e0) + sum_{t<T} t1(y + R e0 + t e1)
+             - sum_{r<R} t0(y + r e0 + T e1) - sum_{t<T} t1(y + t e1);
+    R = T = 1 is the plaquette phase."""
+    x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
+    bottom = sum(torch.roll(x0, -r, dims=-2) for r in range(R))
+    top = torch.roll(bottom, -T, dims=-1)
+    left = sum(torch.roll(x1, -t, dims=-1) for t in range(T))
+    right = torch.roll(left, -R, dims=-2)
+    return bottom + right - top - left
+
+
+def wilson_loop(x: torch.Tensor, R: int, T: int) -> torch.Tensor:
+    """<cos theta> of the R x T Wilson loop: (..., 2, L0, L1) -> (...). In
+    2D U(1) its expectation is (I1/I0)^(R T)."""
+    return torch.cos(wilson_loop_phase(x, R, T)).mean(dim=(-2, -1))
+
+
+def polyakov_loop(x: torch.Tensor, mu: int = 0) -> torch.Tensor:
+    """Volume-averaged Polyakov loop winding direction mu, as the real pair
+    [Re P, Im P]: (..., 2, L0, L1) -> (..., 2). Gauge invariant."""
+    theta = x[..., mu, :, :].sum(dim=-2 + mu)
+    return torch.stack((torch.cos(theta).mean(dim=-1),
+                        torch.sin(theta).mean(dim=-1)), dim=-1)
+
+
+def gauge_transform(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """theta_mu(y) -> alpha(y) + theta_mu(y) - alpha(y + e_mu) for links
+    (..., 2, L0, L1) and alpha (..., L0, L1); the plaquette phase is
+    unchanged."""
+    return torch.stack([alpha + x[..., mu, :, :]
+                        - torch.roll(alpha, -1, dims=-2 + mu)
+                        for mu in range(2)], dim=-3)
+
+
+def random_gauge_transform(generator: torch.Generator,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Gauge-transform each chain of (B, 2, L0, L1) by its own alpha,
+    uniform in [0, 2pi), drawn on the generator's device."""
+    alpha = torch.rand(x.shape[:1] + x.shape[2:], generator=generator,
+                       dtype=x.dtype, device=generator.device) * TWO_PI
+    return gauge_transform(x, alpha.to(x.device))
+
+
 # Batched names of the JAX package: every function above already takes a
 # leading chain axis.
 batch_plaqs = plaq_phase
 batch_action = action
 batch_charges = topo_charge
 batch_plaq_mean = plaq_mean
+batch_wilson_loops = wilson_loop
+batch_polyakov_loops = polyakov_loop
 
 
 def batch_force(x: torch.Tensor, beta: float) -> torch.Tensor:

@@ -18,38 +18,51 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import torch
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
-           "build_all", "library", "bind", "check", "stream_handle",
+           "build_all", "library", "bind", "check", "smem_limit",
+           "stream_handle",
            "require_fp32_contiguous", "ptr_array", "int_array"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("force", "coupling_fwd", "coupling_bwd")
+SOURCES = ("force", "coupling_fwd", "coupling_bwd", "leapfrog", "hmc_traj")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("K1", "K6", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-# argtypes of every C entry, by library
+# (B, L, beta, dt, dt / 2, nstep, stream) ending every trajectory entry
+_TRAJ = [_I, _I, _F, _F, _F, _I, _P]
+# argtypes of every C entry, by library (each library also carries
+# ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
     "force": {"k1_force": [_P, _P, _I, _I, _F, _P]},
     "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _I, _I, _I, _IP,
                                              _PP, _PP, _I, _I, _F, _I, _I, _I,
                                              _P],
-                     # shared-memory queries (csrc/coupling_common.cuh)
-                     "ft_smem_bytes": [_I, _IP, _I], "ft_smem_limit": [_I]},
+                     # shared-memory need (csrc/coupling_common.cuh)
+                     "ft_smem_bytes": [_I, _IP, _I]},
     "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _P, _P, _I,
                                          _I, _I, _IP, _PP, _I, _I, _F, _I, _I,
                                          _I, _P]},
+    "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ,
+                 "k3_leapfrog_cl": [_P] * 4 + _TRAJ,
+                 "k3_chains_per_block": [],
+                 # shared-memory need (csrc/traj_common.cuh)
+                 "traj_smem_bytes": [_I, _I]},
+    "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ,
+                 "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ,
+                 "traj_smem_bytes": [_I, _I]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -124,7 +137,20 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.ft_error_string.argtypes = [ctypes.c_int]
     lib.ft_error_string.restype = ctypes.c_char_p
+    lib.ft_smem_limit.argtypes = [ctypes.c_int]
+    lib.ft_smem_limit.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def smem_limit(device_index: int) -> int:
+    """Dynamic shared memory one block may opt in to on a CUDA device, as
+    the kernels' libraries read it (``ft_smem_limit``)."""
+    limit = library("force").ft_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared memory limit of "
+                           f"cuda:{device_index}")
+    return limit
 
 
 def check(rc: int, what: str, lib: ctypes.CDLL) -> None:

@@ -38,16 +38,6 @@ def smem_bytes(widths: tuple[int, ...], L: int) -> int:
         len(widths) - 1, _build.int_array(widths), L)
 
 
-@lru_cache(maxsize=None)
-def smem_limit(device_index: int) -> int:
-    """Dynamic shared memory one block may opt in to on a CUDA device."""
-    limit = _build.library("coupling_fwd").ft_smem_limit(device_index)
-    if limit < 0:
-        raise RuntimeError(f"cannot read the shared memory limit of "
-                           f"cuda:{device_index}")
-    return limit
-
-
 def _conv_widths(spec: FlowSpec) -> list[int]:
     M = spec.n_mixture
     out = 2 * M + 1 if spec.coupling == "rncp" else M + 1
@@ -85,7 +75,7 @@ def check_kernel_call(what: str, layer, x: torch.Tensor,
     _build.require_fp32_contiguous(what, x, *[t for p in layer
                                               for t in (p["w"], p["b"])])
     need = smem_bytes(tuple(widths), L)
-    limit = smem_limit(x.device.index if x.device.index is not None
+    limit = _build.smem_limit(x.device.index if x.device.index is not None
                        else torch.cuda.current_device())
     if not 0 < need <= limit:
         raise ValueError(f"{what}: conv widths {widths} at L={L} need "

@@ -1,35 +1,193 @@
-"""K1, the Wilson gauge force stencil, and its plain PyTorch twin.
+"""The lattice kernels K1-K5 and their plain PyTorch twins: the counterpart
+of ``fthmc_tpu/ops/pallas_lattice.py``.
 
-Replaces the TPU kernel ``fthmc_tpu/ops/pallas_lattice.py::_force_kernel``
-(``pallas_force``). CUDA source: ``csrc/force.cu``, one thread per (chain,
-site). Memory-bound on the card: at 16^2 with 64 chains it reads and writes
-131 KB each, against a few flops per site.
+  K1 ``force``             csrc/force.cu     <- _force_kernel (pallas_force)
+  K2 ``leapfrog``          csrc/leapfrog.cu  <- _leapfrog_kernel
+                                                (pallas_leapfrog)
+  K3 ``leapfrog_cl``       csrc/leapfrog.cu  <- _leapfrog_cl_kernel
+                                                (pallas_leapfrog_cl)
+  K4 ``hmc_traj``          csrc/hmc_traj.cu  <- _hmc_traj_kernel
+                                                (pallas_hmc_traj)
+  K5 ``hmc_traj_hostrng``  csrc/hmc_traj.cu  <- _hmc_traj_hostrng_kernel
+                                                (pallas_hmc_traj_hostrng)
+
+A CPU tensor takes the plain twin (``*_plain``, same signature); a CUDA
+tensor launches the kernel, or raises for what the kernel does not take. K1
+is one thread per (chain, site) and memory-bound. K2-K5 keep a block's
+chains in shared memory for the whole trajectory (csrc/traj_common.cuh) and
+are bounded by operations. Their envelope on the card: fp32, (B, 2, L, L),
+any B (K3: a multiple of its chains a block), and L up to what one block's
+shared memory holds (L <= 106 for K2, K4, K5 on an H100, L <= 53 for K3).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from fthmc_tpu_torch.ops import _build
+from fthmc_tpu_torch.ops import _build, rng
 
-__all__ = ["force", "force_plain"]
+__all__ = ["force", "force_plain", "leapfrog", "leapfrog_plain",
+           "leapfrog_cl", "leapfrog_cl_plain", "hmc_traj", "hmc_traj_plain",
+           "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "dh_tolerance"]
+
+
+# ---------------------------------------------------------------------------
+# plain twins: the kernels' arithmetic, op for op, in torch
+# ---------------------------------------------------------------------------
+
+def _plaq_of(x: torch.Tensor, chains_last: bool = False) -> torch.Tensor:
+    """P = x0 + x1(i+1) - x0(j+1) - x1 of (B, 2, L, L) links, or of
+    chains-last (2, L, L, B) ones."""
+    if chains_last:
+        x0, x1, rows, cols = x[0], x[1], 0, 1
+    else:
+        x0, x1, rows, cols = x[:, 0], x[:, 1], 1, 2
+    return (x0 + torch.roll(x1, -1, dims=rows) - torch.roll(x0, -1, dims=cols)
+            - x1)
+
+
+def _force_of(x: torch.Tensor, beta: float,
+              chains_last: bool = False) -> torch.Tensor:
+    """F0 = beta (sin P - sin P(j-1)), F1 = beta (sin P(i-1) - sin P)."""
+    rows, cols, dim = (0, 1, 0) if chains_last else (1, 2, 1)
+    sp = torch.sin(_plaq_of(x, chains_last))
+    f0 = sp - torch.roll(sp, 1, dims=cols)
+    f1 = torch.roll(sp, 1, dims=rows) - sp
+    return beta * torch.stack((f0, f1), dim=dim)
+
+
+def _leapfrog_of(x, v, beta, dt, nstep, chains_last=False):
+    """Half drift, nstep x (kick, drift), trailing half drift undone."""
+    x = x + (0.5 * dt) * v
+    for _ in range(nstep):
+        v = v - dt * _force_of(x, beta, chains_last)
+        x = x + dt * v
+    return x - (0.5 * dt) * v, v
+
+
+def _hmc_traj_of(x0, v0, u, beta, dt, nstep):
+    """Trajectory, delta-form dH, Metropolis and wrap (``_hmc_traj_body``):
+    (x_new, dh, acc) with acc in x0's dtype."""
+    cos0 = torch.cos(_plaq_of(x0))
+    x1, v1 = _leapfrog_of(x0, v0, beta, dt, nstep)
+    dsw = (torch.cos(_plaq_of(x1)) - cos0).sum(dim=(1, 2))
+    dk = ((v1 - v0) * (v1 + v0)).sum(dim=(1, 2, 3))
+    dh = -beta * dsw + 0.5 * dk
+    acc = u < torch.exp(-dh)
+    x1w = torch.remainder(x1 + math.pi, 2.0 * math.pi) - math.pi
+    return (torch.where(acc[:, None, None, None], x1w, x0), dh,
+            acc.to(x0.dtype))
+
+
+def dh_tolerance(x0, v0, beta, dt, nstep) -> torch.Tensor:
+    """Per chain, how far two fp32 computations of the same trajectory's dH
+    may lie apart: 2^-19 (32 units of fp32 roundoff) times
+    beta sum|cos P1 - cos P0| + beta sum|sin P1| + 1/2 sum|(v1 - v0)(v1 +
+    v0)|, on the twin's (x1, v1). The first and last terms bound summing
+    the same per-site terms in two orders (each order errs by at most its
+    depth, under 32 here, times 2^-24 times the sum of magnitudes); the
+    middle one the cos P1 of wrapped links (hmc_step's 'xla' path), which
+    moves each plaquette by at most 4 roundings of 2pi-sized angles, under
+    2^-19."""
+    x1, v1 = _leapfrog_of(x0, v0, beta, dt, nstep)
+    p1 = _plaq_of(x1)
+    mags = (beta * (torch.cos(p1) - torch.cos(_plaq_of(x0))).abs().sum((1, 2))
+            + beta * torch.sin(p1).abs().sum((1, 2))
+            + 0.5 * ((v1 - v0) * (v1 + v0)).abs().sum((1, 2, 3)))
+    return mags * 2.0 ** -19
 
 
 def force_plain(x: torch.Tensor, beta: float) -> torch.Tensor:
-    """Plain twin: F = beta * (sin P - shifted sin P), (B, 2, L, L)."""
+    """K1's twin: F = beta * (sin P - shifted sin P), (B, 2, L, L)."""
     _build.PLAIN_CALLS["K1"] += 1
-    sp = torch.sin(x[:, 0] + torch.roll(x[:, 1], -1, dims=1)
-                   - torch.roll(x[:, 0], -1, dims=2) - x[:, 1])
-    f0 = sp - torch.roll(sp, 1, dims=2)
-    f1 = torch.roll(sp, 1, dims=1) - sp
-    return beta * torch.stack((f0, f1), dim=1)
+    return _force_of(x, beta)
 
 
-def _launch(lib, x: torch.Tensor, beta: float, stream: int) -> torch.Tensor:
+def leapfrog_plain(x, v, beta, dt, nstep):
+    """K2's twin: the trajectory as ``hmc.leapfrog`` runs it with this
+    force."""
+    _build.PLAIN_CALLS["K2"] += 1
+    return _leapfrog_of(x, v, beta, dt, nstep)
+
+
+def leapfrog_cl_plain(x, v, beta, dt, nstep):
+    """K3's twin: the same trajectory on chains-last (2, L, L, B) views."""
+    _build.PLAIN_CALLS["K3"] += 1
+    xt, vt = _leapfrog_of(x.permute(1, 2, 3, 0), v.permute(1, 2, 3, 0),
+                          beta, dt, nstep, chains_last=True)
+    return xt.permute(3, 0, 1, 2), vt.permute(3, 0, 1, 2)
+
+
+def hmc_traj_plain(x, seed, beta, dt, nstep):
+    """K4's twin: K5's arithmetic on the Philox draws of ``ops/rng.py``."""
+    _build.PLAIN_CALLS["K4"] += 1
     B, _, L, _ = x.shape
-    f = torch.empty_like(x)
-    rc = lib.k1_force(x.data_ptr(), f.data_ptr(), B, L, float(beta), stream)
-    _build.check(rc, "K1 force", lib)
-    return f
+    v0 = rng.momenta(seed, B, L, x.dtype, x.device)
+    u = rng.accept_uniforms(seed, B, x.dtype, x.device)
+    return _hmc_traj_of(x, v0, u, beta, dt, nstep)
+
+
+def hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep):
+    """K5's twin."""
+    _build.PLAIN_CALLS["K5"] += 1
+    return _hmc_traj_of(x, v0, u, beta, dt, nstep)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the twin on the CPU, the kernel on the card
+# ---------------------------------------------------------------------------
+
+def _check_links(what: str, x: torch.Tensor, *like: torch.Tensor) -> None:
+    if x.ndim != 4 or x.shape[1] != 2 or x.shape[2] != x.shape[3] \
+            or x.shape[0] < 1 or x.shape[2] < 2:
+        raise ValueError(f"{what} takes links (B, 2, L, L), L >= 2, got "
+                         f"{tuple(x.shape)}")
+    for t in like:
+        if t.shape != x.shape:
+            raise ValueError(f"{what}: shapes {tuple(t.shape)} and "
+                             f"{tuple(x.shape)} differ")
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+def _device_index(x: torch.Tensor) -> int:
+    return (x.device.index if x.device.index is not None
+            else torch.cuda.current_device())
+
+
+def _traj_library(what: str, name: str, x: torch.Tensor, chains: int,
+                  *tensors: torch.Tensor):
+    """The library of a trajectory kernel, after refusing what it does not
+    take: other dtypes, layouts or devices, and a lattice whose block (of
+    ``chains`` chains) does not fit the card's shared memory."""
+    _build.require_fp32_contiguous(what, x, *tensors)
+    lib = _build.library(name)
+    L = x.shape[2]
+    need = lib.traj_smem_bytes(L, chains)
+    limit = _build.smem_limit(_device_index(x))
+    if not 0 < need <= limit:
+        fits = [n for n in range(2, L)
+                if 0 < lib.traj_smem_bytes(n, chains) <= limit]
+        raise ValueError(f"{what}: L={L} needs {need} bytes of shared "
+                         f"memory a block of {chains} chain(s); the card "
+                         f"allows {limit}, so L <= {max(fits, default=1)}")
+    return lib
+
+
+def _traj_tail(x, beta, dt, nstep):
+    """(B, L, beta, dt, dt / 2, nstep, stream) of the trajectory entries."""
+    if int(nstep) != nstep or nstep < 0:
+        raise ValueError(f"nstep must be a non-negative integer, got {nstep}")
+    B, _, L, _ = x.shape
+    return (B, L, float(beta), float(dt), float(0.5 * dt), int(nstep),
+            _build.stream_handle(x))
 
 
 def force(x: torch.Tensor, beta: float) -> torch.Tensor:
@@ -37,11 +195,107 @@ def force(x: torch.Tensor, beta: float) -> torch.Tensor:
     twin; a CUDA tensor launches K1."""
     if x.ndim != 4 or x.shape[1] != 2 or x.shape[2] != x.shape[3]:
         raise ValueError(f"force takes (B, 2, L, L), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if _on_cpu(x):
         return force_plain(x, beta)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     _build.require_fp32_contiguous("K1 force", x)
-    f = _launch(_build.library("force"), x, beta, _build.stream_handle(x))
+    lib = _build.library("force")
+    B, _, L, _ = x.shape
+    f = torch.empty_like(x)
+    rc = lib.k1_force(x.data_ptr(), f.data_ptr(), B, L, float(beta),
+                      _build.stream_handle(x))
+    _build.check(rc, "K1 force", lib)
     _build.LAUNCHES["K1"] += 1
     return f
+
+
+def leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
+             nstep: int):
+    """Whole leapfrog trajectory of chains-first (B, 2, L, L) links x and
+    momenta v in one launch of K2. Returns (x', v'), x' unwrapped."""
+    _check_links("K2 leapfrog", x, v)
+    if _on_cpu(x):
+        return leapfrog_plain(x, v, beta, dt, nstep)
+    lib = _traj_library("K2 leapfrog", "leapfrog", x, 1, v)
+    tail = _traj_tail(x, beta, dt, nstep)
+    xo, vo = torch.empty_like(x), torch.empty_like(v)
+    rc = lib.k2_leapfrog(x.data_ptr(), v.data_ptr(), xo.data_ptr(),
+                         vo.data_ptr(), *tail)
+    _build.check(rc, "K2 leapfrog", lib)
+    _build.LAUNCHES["K2"] += 1
+    return xo, vo
+
+
+def leapfrog_cl(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
+                nstep: int):
+    """The same trajectory through K3, chains-last inside: (B, 2, L, L) at
+    the boundary, transposed to (2, L, L, B) around the launch, as the JAX
+    wrapper does. On the card B must be a multiple of K3's chains a
+    block."""
+    _check_links("K3 leapfrog_cl", x, v)
+    if _on_cpu(x):
+        return leapfrog_cl_plain(x, v, beta, dt, nstep)
+    xt = x.permute(1, 2, 3, 0).contiguous()
+    vt = v.permute(1, 2, 3, 0).contiguous()
+    lib = _build.library("leapfrog")
+    chains = lib.k3_chains_per_block()
+    if x.shape[0] % chains:
+        raise ValueError(f"K3 leapfrog_cl: B={x.shape[0]} is not a multiple "
+                         f"of the {chains} chains a block holds")
+    lib = _traj_library("K3 leapfrog_cl", "leapfrog", xt, chains, vt)
+    tail = _traj_tail(x, beta, dt, nstep)
+    xo, vo = torch.empty_like(xt), torch.empty_like(vt)
+    rc = lib.k3_leapfrog_cl(xt.data_ptr(), vt.data_ptr(), xo.data_ptr(),
+                            vo.data_ptr(), *tail)
+    _build.check(rc, "K3 leapfrog_cl", lib)
+    _build.LAUNCHES["K3"] += 1
+    return (xo.permute(3, 0, 1, 2).contiguous(),
+            vo.permute(3, 0, 1, 2).contiguous())
+
+
+def hmc_traj(x: torch.Tensor, seed: torch.Tensor, beta: float, dt: float,
+             nstep: int):
+    """One fused HMC trajectory of (B, 2, L, L) chains through K4: momenta
+    and accept draws from the in-kernel Philox stream keyed by (seed,
+    chain), the seed one int32 on x's device (so the host never waits).
+    Returns (x_new, dh, acc), dh and acc (B,), acc 0/1 in x's dtype."""
+    _check_links("K4 hmc_traj", x)
+    if seed.dtype != torch.int32 or seed.numel() != 1 \
+            or seed.device != x.device:
+        raise ValueError(f"K4 hmc_traj: seed must be one int32 on "
+                         f"{x.device}, got {seed.dtype} {tuple(seed.shape)} "
+                         f"on {seed.device}")
+    if _on_cpu(x):
+        return hmc_traj_plain(x, seed, beta, dt, nstep)
+    lib = _traj_library("K4 hmc_traj", "hmc_traj", x, 1)
+    tail = _traj_tail(x, beta, dt, nstep)
+    B = x.shape[0]
+    xo = torch.empty_like(x)
+    dh, acc = x.new_empty(B), x.new_empty(B)
+    rc = lib.k4_hmc_traj(x.data_ptr(), seed.data_ptr(), xo.data_ptr(),
+                         dh.data_ptr(), acc.data_ptr(), *tail)
+    _build.check(rc, "K4 hmc_traj", lib)
+    _build.LAUNCHES["K4"] += 1
+    return xo, dh, acc
+
+
+def hmc_traj_hostrng(x: torch.Tensor, v0: torch.Tensor, u: torch.Tensor,
+                     beta: float, dt: float, nstep: int):
+    """K4's trajectory through K5, with the caller's momenta v0 (B, 2, L, L)
+    and accept draws u (B,). Returns (x_new, dh, acc)."""
+    _check_links("K5 hmc_traj_hostrng", x, v0)
+    if u.shape != (x.shape[0],):
+        raise ValueError(f"K5 hmc_traj_hostrng: u must be ({x.shape[0]},), "
+                         f"got {tuple(u.shape)}")
+    if _on_cpu(x):
+        return hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep)
+    lib = _traj_library("K5 hmc_traj_hostrng", "hmc_traj", x, 1, v0, u)
+    tail = _traj_tail(x, beta, dt, nstep)
+    B = x.shape[0]
+    xo = torch.empty_like(x)
+    dh, acc = x.new_empty(B), x.new_empty(B)
+    rc = lib.k5_hmc_traj_hostrng(x.data_ptr(), v0.data_ptr(), u.data_ptr(),
+                                 xo.data_ptr(), dh.data_ptr(),
+                                 acc.data_ptr(), *tail)
+    _build.check(rc, "K5 hmc_traj_hostrng", lib)
+    _build.LAUNCHES["K5"] += 1
+    return xo, dh, acc

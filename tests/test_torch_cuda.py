@@ -8,20 +8,25 @@ torch and the port, so it also runs on a machine with no JAX:
 
 fp32 bounds: sum-order roundoff through the conv chain (fx wrapped 1e-4,
 logJ 1e-4 relative, gx 2e-3 * max|ref| as the JAX package's own fp32
-kernel tests use)."""
+kernel tests use); the trajectory kernels K2-K5 repeat their twins'
+arithmetic op for op, so x and v within 1e-4 (wrapped) and 1e-4 x max|v|,
+dH within ``dh_tolerance`` (sum order), and the accept equal except where
+u lies within that bound of exp(-dH)."""
 import math
 
 import pytest
 import torch
 
 from fthmc_tpu_torch import hmc as th
-from fthmc_tpu_torch.config import FlowSpec
+from fthmc_tpu_torch.config import FlowSpec, HMCConfig
 from fthmc_tpu_torch.models.flow import init_flow_params
-from fthmc_tpu_torch.ops import _build
+from fthmc_tpu_torch.ops import _build, rng
+from fthmc_tpu_torch.ops import lattice_kernels as lk
+from fthmc_tpu_torch.ops._build import smem_limit
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
                                                   coupling_forward_plain,
-                                                  smem_bytes, smem_limit)
+                                                  smem_bytes)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
                                                       coupling_bwd_plain,
                                                       coupling_fwd_res,
@@ -82,7 +87,8 @@ def test_kernels_match_plain_twins(card, spec, B, L):
             assert float((gx - gx_p).abs().max()) < \
                 2e-3 * max(1.0, float(gx_p.abs().max()))
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"K1": 1, "K6": 8, "K7": 8, "K8": 8}
+    assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                        "K6": 8, "K7": 8, "K8": 8}
 
 
 def test_shared_memory_envelope(card):
@@ -143,3 +149,114 @@ def test_fthmc_step_kernel_backend_matches_autograd(card):
     mk, ma = out["kernel"][3], out["autograd"][3]
     assert float((mk.dh - ma.dh).abs().max()) < 1e-3
     assert _wrapped(out["kernel"][0], out["autograd"][0]) < 1e-3
+
+
+def _close_traj(got, ref, x0, v0, u, beta, dt, nstep):
+    """K4/K5 output against the twin's: dH within dh_tolerance, the accept
+    equal except where u is within that of exp(-dH), x' (wrapped) where it
+    is equal."""
+    tol = lk.dh_tolerance(x0, v0, beta, dt, nstep)
+    (xk, dhk, acck), (xp, dhp, accp) = got, ref
+    assert bool(((dhk - dhp).abs() <= tol).all())
+    same = acck == accp
+    border = (u - torch.exp(-dhp)).abs() <= tol * torch.exp(-dhp)
+    assert bool((same | border).all())
+    assert _wrapped(xk[same], xp[same]) < 1e-4
+
+
+@pytest.mark.parametrize("B,L,nstep", [(8, 8, 6), (12, 20, 10), (4, 64, 3)])
+def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
+    g = torch.Generator(device=card).manual_seed(0)
+    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
+    v = torch.randn((B, 2, L, L), generator=g, device=card)
+    u = torch.rand((B,), generator=g, device=card)
+    seed = torch.tensor([12345], dtype=torch.int32, device=card)
+    beta, dt = 2.0, 0.1
+    before = dict(_build.LAUNCHES)
+    ref2 = lk.leapfrog_plain(x, v, beta, dt, nstep)
+    cl = L <= 48                  # inside K3's block
+    runs = [lk.leapfrog(x, v, beta, dt, nstep)]
+    if cl:
+        runs.append(lk.leapfrog_cl(x, v, beta, dt, nstep))
+    for got in runs:
+        torch.cuda.synchronize()
+        assert _wrapped(got[0], ref2[0]) < 1e-4
+        assert float((got[1] - ref2[1]).abs().max()) < \
+            1e-4 * float(ref2[1].abs().max())
+    _close_traj(lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep),
+                lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, nstep),
+                x, v, u, beta, dt, nstep)
+    v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
+    k4 = lk.hmc_traj(x, seed, beta, dt, nstep)
+    _close_traj(k4, lk.hmc_traj_plain(x, seed, beta, dt, nstep), x, v4, u4,
+                beta, dt, nstep)
+    # K4 is deterministic for a fixed seed
+    assert all(torch.equal(a, b) for a, b in
+               zip(k4, lk.hmc_traj(x, seed, beta, dt, nstep)))
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"K1": 0, "K2": 1, "K3": int(cl), "K4": 2, "K5": 1,
+                        "K6": 0, "K7": 0, "K8": 0}
+
+
+def test_trajectory_kernels_refuse_what_they_do_not_take(card):
+    x = torch.zeros((4, 2, 8, 8), device=card)
+    seed = torch.zeros(1, dtype=torch.int32, device=card)
+    big = torch.zeros((1, 2, 128, 128), device=card)  # over K2's block
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        lk.leapfrog(big, big, 1.0, 0.1, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        lk.hmc_traj(big, seed, 1.0, 0.1, 1)
+    x64 = torch.zeros((4, 2, 64, 64), device=card)   # over K3's block
+    with pytest.raises(ValueError, match="shared memory"):
+        lk.leapfrog_cl(x64, x64, 1.0, 0.1, 1)
+    x6 = torch.zeros((6, 2, 8, 8), device=card)      # B not a multiple of 4
+    with pytest.raises(ValueError, match="multiple"):
+        lk.leapfrog_cl(x6, x6, 1.0, 0.1, 1)
+    with pytest.raises(TypeError):
+        lk.leapfrog(x.double(), x.double(), 1.0, 0.1, 1)
+    with pytest.raises(ValueError):
+        lk.hmc_traj(x, seed.cpu(), 1.0, 0.1, 1)
+    q = torch.zeros(4, device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    with pytest.raises(ValueError):   # fp64 on the card: no kernel
+        th.hmc_step(gen, x.double(), q.double(), 1.0, 0.1, 1)
+    for backend in ("pallas", "pallas_cl", "fused", "fused_hostrng"):
+        with pytest.raises(ValueError):
+            th.hmc_step(gen, x, q, 1.0, 0.1, 1, backend=backend,
+                        integrator="omelyan")
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("auto", "K2"), ("pallas", "K2"), ("pallas_cl", "K3"), ("fused", "K4"),
+    ("fused_hostrng", "K5"), ("xla", "K1")])
+def test_run_hmc_launches_only_its_kernel(card, backend, kernel):
+    cfg = HMCConfig(beta=2.0, L=8, tau=1.0, nstep=5, ntraj=6, n_chains=8,
+                    randinit=True)
+    _build.reset_counts()
+    x, hist = th.run_hmc(cfg, backend=backend)
+    torch.cuda.synchronize()
+    per_traj = cfg.nstep if kernel == "K1" else 1
+    assert _build.LAUNCHES[kernel] == cfg.ntraj * per_traj
+    assert sum(_build.LAUNCHES.values()) == cfg.ntraj * per_traj
+    assert not any(_build.PLAIN_CALLS.values())
+    assert x.is_cuda and bool(torch.isfinite(hist.dh).all())
+
+
+def test_fused_hostrng_follows_xla(card):
+    """'fused_hostrng' (K5) takes the draws 'xla' takes: one step from the
+    same generator state gives the same dH within dh_tolerance and the same
+    x' where the accept agrees."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = (torch.rand((16, 2, 16, 16), generator=g, device=card) * 2 - 1)
+    q = torch.zeros(16, device=card)
+    out = {b: th.hmc_step(torch.Generator(device=card).manual_seed(9), x, q,
+                          2.0, 0.1, 8, backend=b)
+           for b in ("xla", "fused_hostrng")}
+    gen = torch.Generator(device=card).manual_seed(9)
+    v0 = torch.randn(x.shape, generator=gen, device=card)
+    u = torch.rand((16,), generator=gen, device=card)
+    (xa, _, ma), (xb, _, mb) = out["xla"], out["fused_hostrng"]
+    _close_traj((xb, mb.dh, mb.acc), (xa, ma.dh, ma.acc), x, v0, u, 2.0,
+                0.1, 8)

@@ -125,7 +125,7 @@ def test_identity_flow_is_plain_hmc(backend):
                                   x, q0, 2.0, 0.1, 5, force_backend=backend,
                                   device="cpu")
     x1, qh, mh = th.hmc_step(torch.Generator().manual_seed(4), x, q0, 2.0,
-                             0.1, 5)
+                             0.1, 5, device="cpu")
     np.testing.assert_allclose(z1.numpy(), x1.numpy(), atol=TOL)
     np.testing.assert_allclose(y1.numpy(), x1.numpy(), atol=TOL)
     for a, b in zip(m, mh):

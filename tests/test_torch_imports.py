@@ -13,7 +13,7 @@ import torch
 from fthmc_tpu_torch import device as tdev
 from fthmc_tpu_torch import hmc as th
 from fthmc_tpu_torch import lattice as tl
-from fthmc_tpu_torch.config import FlowSpec, LeapfrogConfig
+from fthmc_tpu_torch.config import FlowSpec, HMCConfig, LeapfrogConfig
 from fthmc_tpu_torch.models.flow import init_flow_params
 from fthmc_tpu_torch.weights import load_flow_npz
 
@@ -63,6 +63,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
                              ntraj=1, z0=z, generator=g),
         lambda: th.fthmc_step(params, spec, g, z, q, 1.0, 0.1, 1),
         lambda: th.ft_force(params, spec, z, 1.0),
+        lambda: th.hmc_step(g, z, q, 1.0, 0.1, 1),
+        lambda: th.run_hmc(HMCConfig(L=8, ntraj=1, n_chains=2), generator=g),
         lambda: load_flow_npz(),
         lambda: tl.hot_start(g, 2, 8),
         lambda: tdev.resolve_device(None),

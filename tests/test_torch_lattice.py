@@ -113,3 +113,59 @@ def test_starts_and_plaq_table():
     c = tl.cold_start(8, device="cpu")
     assert c.shape == (2, 8, 8) and not c.any()
     assert float(tl.plaq_mean(c)) == 1.0
+
+
+def test_loops_and_gauge_transforms_match():
+    """Wilson and Polyakov loops and the gauge transform, per chain, against
+    the JAX package's single-config functions (vmapped), same alpha."""
+    x = _links(6)
+    alpha = np.random.default_rng(7).uniform(0, 2 * math.pi, (4, 8, 8))
+    with jax.enable_x64():
+        xj, aj = jnp.asarray(x), jnp.asarray(alpha)
+        ref = {"w23": jl.batch_wilson_loops(xj, 2, 3),
+               "w23phase": jax.vmap(lambda y: jl.wilson_loop_phase(y, 2, 3))(
+                   xj),
+               "p0": jl.batch_polyakov_loops(xj),
+               "p1": jl.batch_polyakov_loops(xj, mu=1),
+               "gauge": jax.vmap(jl.gauge_transform)(xj, aj),
+               "density": jax.vmap(jl.action_density)(xj),
+               "grad": jax.vmap(lambda y: jl.grad_force(y, 2.7))(xj)}
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+    xt = torch.as_tensor(x)
+    got = {"w23": tl.batch_wilson_loops(xt, 2, 3),
+           "w23phase": tl.wilson_loop_phase(xt, 2, 3),
+           "p0": tl.batch_polyakov_loops(xt),
+           "p1": tl.batch_polyakov_loops(xt, mu=1),
+           "gauge": tl.gauge_transform(xt, torch.as_tensor(alpha)),
+           "density": tl.action_density(xt),
+           "grad": tl.grad_force(xt, 2.7)}
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), ref[k], rtol=0, atol=TOL,
+                                   err_msg=k)
+
+
+def test_wilson_loop_1x1_is_plaq_and_grad_force_is_force():
+    xt = torch.as_tensor(_links(8))
+    np.testing.assert_allclose(tl.batch_wilson_loops(xt, 1, 1).numpy(),
+                               tl.batch_plaq_mean(xt).numpy(), rtol=0,
+                               atol=TOL)
+    np.testing.assert_allclose(tl.grad_force(xt, 2.7).numpy(),
+                               tl.force(xt, 2.7).numpy(), rtol=0, atol=TOL)
+
+
+def test_observables_are_gauge_invariant():
+    x = torch.as_tensor(_links(9))
+    xg = tl.random_gauge_transform(torch.Generator().manual_seed(11), x)
+    assert xg.shape == x.shape and not torch.allclose(xg, x)
+    for f in (tl.batch_plaq_mean, tl.batch_charges,
+              lambda y: tl.batch_wilson_loops(y, 2, 3),
+              tl.batch_polyakov_loops,
+              lambda y: tl.batch_polyakov_loops(y, mu=1)):
+        np.testing.assert_allclose(f(xg).numpy(), f(x).numpy(), rtol=0,
+                                   atol=1e-9)
+
+
+def test_polyakov_cold_start_is_one():
+    p = tl.batch_polyakov_loops(tl.cold_start(8, device="cpu")[None])
+    assert p.shape == (1, 2)
+    np.testing.assert_allclose(p.numpy(), [[1.0, 0.0]], atol=1e-7)

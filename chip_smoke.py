@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
-  1. build the CUDA kernels (K1-K8) from fthmc_tpu_torch/csrc with nvcc for
+  1. build the CUDA kernels (K1-K11) from fthmc_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once;
   2. the card's name and power limit, as nvidia-smi gives them;
   3. each kernel against its plain PyTorch twin on the card: K1, K6, K7, K8
@@ -29,8 +29,20 @@ Phases, each printed on its own line:
      'auto' rule), FT-HMC chain-steps/s, and the headline's chain-steps/s
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
-  8. a {"kernels": [...]} JSON line;
-  9. last, {"ok": true, "device": {...}}.
+  8. dynamical fermions: K9 (64^2, 64 chains) and K10 (16^2, 128 chains)
+     against their twins, eo and not; K11's update against its twin; the
+     fused CG on the kernels against the same CG on the twins and the torch
+     'xla' CG, cold and warm; then paths A (plain dynamical HMC, 64^2, K9 +
+     K11 + K1), B (16^2, K10 by name + K11 + K1) and C (FT-HMC with the
+     trained flow, 16^2, K6-K8 + K1 + the 'auto' layout's operator + K11)
+     through run_hmc_dyn / run_fthmc_dyn at the JAX package's production
+     configurations, each with its launch counters (set to 0 just before
+     it) and its physics against the JAX package's reading (DYN_READING);
+     timings of K9-K11, their twins, a CG iteration, K9 against K10 over L
+     (the 'auto' layout rule), s/trajectory, chain-steps/s, CG iterations a
+     solve, and path A's device busy share;
+  9. a {"kernels": [...]} JSON line, K1-K11;
+  10. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -47,12 +59,14 @@ import time
 import numpy as np
 import torch
 
+from fthmc_tpu_torch import fermion as tf
 from fthmc_tpu_torch import lattice
 from fthmc_tpu_torch.config import HMCConfig, LeapfrogConfig
 from fthmc_tpu_torch.hmc import ft_force, hmc_step, run_fthmc, run_hmc
 from fthmc_tpu_torch.models.flow import flow_reverse
 from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
 from fthmc_tpu_torch.ops import _build, rng
+from fthmc_tpu_torch.ops import fermion_kernels as fk
 from fthmc_tpu_torch.ops import lattice_kernels as lk
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
@@ -63,6 +77,8 @@ from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
                                                       coupling_fwd_res_plain,
                                                       ft_force_kernel)
 from fthmc_tpu_torch.ops.lattice_kernels import force, force_plain
+from fthmc_tpu_torch.schwinger import (SchwingerConfig, run_fthmc_dyn,
+                                       run_hmc_dyn)
 from fthmc_tpu_torch.weights import load_flow_npz
 
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
@@ -115,7 +131,48 @@ SOURCES = {
            "fthmc_tpu/ops/pallas_coupling_vjp.py:182"),
     "K8": ("fthmc_tpu_torch/csrc/coupling_bwd.cu",
            "fthmc_tpu/ops/pallas_coupling_vjp.py:255"),
+    "K9": ("fthmc_tpu_torch/csrc/fermion.cu",
+           "fthmc_tpu/ops/pallas_fermion.py:175"),
+    "K10": ("fthmc_tpu_torch/csrc/fermion.cu",
+            "fthmc_tpu/ops/pallas_fermion.py:192"),
+    "K11": ("fthmc_tpu_torch/csrc/fermion.cu",
+            "fthmc_tpu/ops/pallas_fermion.py:321"),
 }
+# Dynamical fermions (fthmc_tpu_torch.schwinger): the JAX package's own
+# production runs, which used its fused CG, and what they read (acceptance,
+# <exp(-dH)>, <plaq>):
+#  A  artifacts/round3/schw_mts_L64b6.json, row plain:16:0:tau=2.0: 64^2,
+#     beta=6, m=0.1, 64 chains, tau=2, 16 Omelyan steps, maxiter 2000;
+#  B  artifacts/round3/probe_b6_plain.json, row plain:10:0:tau=2.0: 16^2,
+#     128 chains, tau=2, 10 steps, maxiter 1500 (run here on K10 by name);
+#  C  artifacts/round4/ferm_16b6.json, second row: FT-HMC with the trained
+#     flagship flow, 16^2, 128 chains, tau=0.5, 4 steps, maxiter 1500, from
+#     z0 = f^-1(0).
+# All eo-preconditioned and warm-started, force solves at 1e-9 and the
+# Metropolis solve at 1e-12 on |r|^2/|b|^2, the default CG backend.
+MASS = 0.1
+DYN = {
+    "A": SchwingerConfig(L=64, beta=6.0, mass=MASS, tau=2.0, nstep=16,
+                         n_chains=64, cg_tol_force=1e-9, cg_tol_mh=1e-12,
+                         cg_maxiter=2000),
+    "B": SchwingerConfig(L=16, beta=6.0, mass=MASS, tau=2.0, nstep=10,
+                         n_chains=128, cg_tol_force=1e-9, cg_tol_mh=1e-12,
+                         cg_maxiter=1500, cg_layout="cl"),
+    "C": SchwingerConfig(L=16, beta=6.0, mass=MASS, tau=0.5, nstep=4,
+                         n_chains=128, cg_tol_force=1e-9, cg_tol_mh=1e-12,
+                         cg_maxiter=1500),
+}
+DYN_READING = {"A": (0.95458984375, 0.999826192855835, 0.9147999286651611),
+               "B": (0.9369964599609375, 1.0002156496047974,
+                     0.9148625135421753),
+               "C": (0.6754817962646484, 0.884468674659729,
+                     0.914852499961853)}
+# (chains, L, chains-last) of the kernel comparisons: paths A's and B's
+FERMION_SHAPES = {"A": (64, 64, False), "B": (128, 16, True)}
+# K9 against K10 (the 'auto' layout rule): these L, this many chains
+LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
+# (thermalizing, measured) trajectories, sized against the time limit
+DYN_TRAJ = {"A": (100, 100), "B": (100, 400), "C": (100, 300)}
 
 
 def say(phase: str, **kw) -> None:
@@ -415,38 +472,346 @@ def headline_rate(dev, backend: str) -> dict:
             "acceptance": float(hist.acc.mean())}
 
 
-def device_busy(dev, backend: str, s_per_traj: float) -> dict:
-    """The card's kernel time over one BENCH_NTRAJ-trajectory headline run,
-    from torch.profiler, as a share of that run's unprofiled wall time
-    (``s_per_traj`` from headline_rate; the profiler's own host cost
-    stretches the profiled wall time, also reported), and the kernels that
-    take it."""
+def profile_busy(run, ntraj: int, s_per_traj: float) -> dict:
+    """The card's kernel time over ``run()`` (ntraj trajectories), from
+    torch.profiler, as a share of ``s_per_traj`` x ntraj, an unprofiled
+    wall time (the profiler's own host cost stretches the profiled wall
+    time, also reported), and the kernels that take it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cfg = dataclasses.replace(HMC_CFG, ntraj=BENCH_NTRAJ)
-    x, _ = run_hmc(cfg, backend=backend, device=dev)
-    torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_hmc(cfg, x0=x, backend=backend, device=dev)
+            run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rows = [(e.key, e.self_device_time_total)
-                for e in prof.key_averages()
+        events = prof.key_averages()
+        rows = [(e.key, e.self_device_time_total) for e in events
                 if e.device_type == DeviceType.CUDA]
+        host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                       for e in events), key=lambda r: -r[1])[:6]
     except (RuntimeError, AttributeError) as e:
         return {"busy_share": "not measured", "error": repr(e)}
     rows = sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])
     busy_s = sum(t for _, t in rows) / 1e6
     if busy_s == 0:
         return {"busy_share": "not measured", "error": "no device time"}
-    return {"busy_share": busy_s / (s_per_traj * cfg.ntraj),
+    return {"busy_share": busy_s / (s_per_traj * ntraj),
             "busy_share_profiled": busy_s / wall,
-            "device_s_per_traj": busy_s / cfg.ntraj, "kernels": len(rows),
-            "top_ms_per_traj": {k[:60]: t / 1e3 / cfg.ntraj
-                                for k, t in rows[:6]}}
+            "device_s_per_traj": busy_s / ntraj, "kernels": len(rows),
+            "top_ms_per_traj": {k[:60]: t / 1e3 / ntraj
+                                for k, t in rows[:6]},
+            "host_top_ms_and_calls_per_traj": {
+                k[:60]: [t / 1e3 / ntraj, n / ntraj] for k, t, n in host}}
+
+
+def device_busy(dev, backend: str, s_per_traj: float) -> dict:
+    """profile_busy of one BENCH_NTRAJ-trajectory headline run against
+    ``s_per_traj`` from headline_rate."""
+    cfg = dataclasses.replace(HMC_CFG, ntraj=BENCH_NTRAJ)
+    x, _ = run_hmc(cfg, backend=backend, device=dev)
+    torch.cuda.synchronize()
+    return profile_busy(lambda: run_hmc(cfg, x0=x, backend=backend,
+                                        device=dev), cfg.ntraj, s_per_traj)
+
+
+# ---------------------------------------------------------------------------
+# dynamical fermions: K9, K10, K11 and paths A, B, C
+# ---------------------------------------------------------------------------
+
+def _complex_field(g: torch.Generator, B: int, L: int, dev) -> torch.Tensor:
+    return torch.complex(torch.randn((B, L, L, 2), generator=g, device=dev),
+                         torch.randn((B, L, L, 2), generator=g, device=dev))
+
+
+def _cl(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(1, 2, 3, 0).contiguous()
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().norm() / b.abs().norm())
+
+
+def fermion_inputs(dev):
+    """Near-equilibrium links at beta=6 for path A's shape (64^2, B=64) and
+    path B's (16^2, B=128), their link planes and even-masked planes."""
+    g = torch.Generator(device=dev).manual_seed(2028)
+    out = {}
+    for key, (B, L, chains_last) in FERMION_SHAPES.items():
+        x = near_equilibrium(g, B, L, 6.0, dev)
+        even, _ = fk.parity_masks(L, L, 1, dev)
+        psi = _complex_field(g, B, L, dev)
+        ur, ui = fk.link_planes(x)
+        p4 = {eo: fk.pack_spinor(psi * even if eo else psi).contiguous()
+              for eo in (True, False)}
+        if chains_last:
+            ur, ui = _cl(ur), _cl(ui)
+            p4 = {eo: _cl(v) for eo, v in p4.items()}
+        out[key] = {"x": x, "ur": ur, "ui": ui, "p4": p4,
+                    "cl": chains_last}
+    return out
+
+
+def _update_inputs(inp):
+    """(p, mp, x, r, rsq, stop) of a CG's first iteration on inp's planes:
+    x = 0, r = p = b, mp = M p (the twin), stop = 1e-9 |b|^2."""
+    b = inp["p4"][True]
+    mp = (fk.mdagm_cl_plain if inp["cl"] else fk.mdagm_plain)(
+        inp["ur"], inp["ui"], b, MASS, True)
+    dims = (0, 1, 2) if inp["cl"] else (1, 2, 3)
+    rsq = (b * b).sum(dim=dims)
+    return b.clone(), mp, torch.zeros_like(b), b.clone(), rsq, 1e-9 * rsq
+
+
+def _worst(pairs):
+    """The (error, tolerance) pair nearest its tolerance."""
+    return max(pairs, key=lambda et: et[0] / et[1])
+
+
+def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
+    """K9 (path A's shape) and K10 (path B's) against their twins, eo and
+    not: 1e-6 x max|ref| (they repeat the twins' arithmetic op for op);
+    K11's update against its twin, 1e-5 x max|ref| (its sums run in
+    another order) and the same counters; the whole fused CG on the
+    kernels against the same on the twins (cg_solve_fused_plain) and
+    against the torch 'xla' CG, tol 1e-9, cold and warm (from a 20-iteration
+    solve), at both shapes: solutions within 1e-3 relative (two fp32 CGs
+    stopped at a relative residual of 3e-5 on an operator of condition
+    ~30), iters within 1 (rsq may cross its stop one iteration apart),
+    rsq <= tol."""
+    errs, tols, info = {}, {}, {}
+    for k, key, op, plain in (("K9", "A", fk.mdagm, fk.mdagm_plain),
+                              ("K10", "B", fk.mdagm_cl, fk.mdagm_cl_plain)):
+        d = inp[key]
+        pairs = []
+        for eo in (True, False):
+            got = op(d["ur"], d["ui"], d["p4"][eo], MASS, eo)
+            ref = plain(d["ur"], d["ui"], d["p4"][eo], MASS, eo)
+            torch.cuda.synchronize()
+            pairs.append((float((got - ref).abs().max()),
+                          1e-6 * float(ref.abs().max())))
+        errs[k], tols[k] = _worst(pairs)
+        info[k] = pairs
+        require(all(e <= t for e, t in pairs), f"{k} vs plain: {pairs}")
+    pairs = []
+    for key in ("A", "B"):
+        d = inp[key]
+        bufs = [list(_update_inputs(d)) for _ in range(2)]
+        outs = []
+        for fn, (p, mp, x, r, rsq, stop) in zip(
+                (fk.cg_update, fk.cg_update_plain), bufs):
+            c = torch.zeros(2, dtype=torch.int32, device=dev)
+            fn(p, mp, x, r, rsq, stop, c, 0, d["cl"])
+            outs.append((p, x, r, rsq, c))
+        torch.cuda.synchronize()
+        for a, b in zip(outs[0][:4], outs[1][:4]):
+            pairs.append((float((a - b).abs().max()),
+                          1e-5 * float(b.abs().max())))
+        require(torch.equal(outs[0][4], outs[1][4]), "K11 counters")
+    errs["K11"], tols["K11"] = _worst(pairs)
+    info["K11"] = pairs
+    require(all(e <= t for e, t in pairs), f"K11 vs plain: {pairs}")
+    cg = {}
+    for key, layout in (("A", "cf"), ("B", "cl")):
+        cfg, x = DYN[key], inp[key]["x"]
+        phi, _ = tf.pf_refresh(torch.Generator(device=dev).manual_seed(3), x,
+                               MASS, eo=True)
+        kw = dict(tol=1e-9, maxiter=cfg.cg_maxiter, eo=True, layout=layout)
+        warm = fk.cg_solve_fused(x, phi, MASS, tol=1e-9, maxiter=20, eo=True,
+                                 layout=layout).x
+        for start, x0 in (("cold", None), ("warm", warm)):
+            k = fk.cg_solve_fused(x, phi, MASS, x0, **kw)
+            t = fk.cg_solve_fused_plain(x, phi, MASS, x0, **kw)
+            xla = tf.cg_solve(x, phi, MASS, x0, tol=1e-9,
+                              maxiter=cfg.cg_maxiter, eo=True, backend="xla")
+            r = {"iters": [k.iters, t.iters, xla.iters],
+                 "launched": k.launched,
+                 "rel_vs_twins": _rel(k.x, t.x), "rel_vs_xla": _rel(k.x, xla.x),
+                 "rsq_max": [float(v.rsq.max()) for v in (k, t, xla)]}
+            cg[f"{key}_{layout}_{start}"] = r
+            require(r["rel_vs_twins"] <= 1e-3 and r["rel_vs_xla"] <= 1e-3,
+                    f"fused CG {key} {start}: {r}")
+            require(abs(k.iters - t.iters) <= 1
+                    and abs(k.iters - xla.iters) <= 1, f"CG iters {r}")
+            require(max(r["rsq_max"]) <= 1e-9, f"CG rsq {r}")
+    info["cg"] = cg
+    return errs, tols, info
+
+
+def _solve_launches(log: tf.CGLog) -> int:
+    """Operator launches of a run's CG solves: the iterations launched plus
+    one initial residual a solve."""
+    return log.launched() + log.count()
+
+
+def _blocked(t: torch.Tensor) -> tuple[float, float]:
+    """Mean and blocked standard error (10 blocks) of per-trajectory values
+    (ntraj, B)."""
+    per = t.mean(dim=1)
+    return (float(per.mean()),
+            float(per.reshape(10, -1).mean(dim=1).std() / math.sqrt(10)))
+
+
+def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
+    """Path ``name`` of DYN through run_hmc_dyn (or run_fthmc_dyn with the
+    flow), its launch counters set to 0 just before it and read just after,
+    and its physics against the JAX package's reading: acceptance within
+    0.03 of it (A, B) or >= 0.60 (C); <plaq> within min(0.002, 5 sigma +
+    1 / (beta V)) of it (A, B: sigma the blocked standard error of the run,
+    10 blocks; 1 / (beta V) the thermalization allowance, twice the
+    plaquette's shift when topology stays frozen from the start) or 0.003
+    (C); exactness: <exp(-dH)> within 0.03 of 1 (A, B) and, for C, whose
+    exp(-dH) has tails too heavy for a mean over a few hundred trajectories
+    (single trajectories reach exp(-dH) ~ 10^3; the JAX package read 0.884
+    over 4096), the same identity in a bounded form: reversibility and
+    area preservation give p(-dH) = exp(-dH) p(dH), hence <(1 - exp(-dH))
+    h(dH)> = 0 for every even h; with h = exp(-|dH|) the summand lies in
+    [-1, 1/4], and its mean must lie within 5 blocked standard errors of
+    0. <exp(-dH)> of C is printed beside the JAX package's."""
+    cfg = DYN[name]
+    therm, meas = DYN_TRAJ[name]
+    cfg = dataclasses.replace(cfg, ntraj=therm + meas)
+    log = tf.CGLog()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    if params is None:
+        x, hist = run_hmc_dyn(cfg, x0=x0, generator=gen, device=dev,
+                              cg_log=log)
+    else:
+        x, hist = run_fthmc_dyn(params, spec, cfg, z0=x0, generator=gen,
+                                device=dev, cg_log=log)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    n_force = 2 * cfg.nstep * cfg.ntraj           # Omelyan, unmerged kicks
+    op = "K10" if fk.resolve_layout(cfg.cg_layout, cfg.L, cfg.L) == "cl" \
+        else "K9"
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect.update({"K1": n_force, op: _solve_launches(log),
+                   "K11": log.launched()})
+    if params is not None:
+        n_layers = len(params)
+        expect.update({"K6": n_layers * (2 * cfg.ntraj + 1),
+                       "K7": n_layers * n_force, "K8": n_layers * n_force})
+    sl = slice(therm, None)
+    ptraj = hist.plaq[sl].mean(dim=1)
+    stderr = float(ptraj.reshape(10, -1).mean(dim=1).std() / math.sqrt(10))
+    acc_j, emdh_j, plaq_j = DYN_READING[name]
+    blocks = hist.plaq.mean(dim=1).reshape(10, -1).mean(dim=1) - plaq_j
+    allowance = 1.0 / (cfg.beta * cfg.L * cfg.L)
+    bound = 0.003 if params is not None else min(0.002,
+                                                 5 * stderr + allowance)
+    emdh = hist.exp_mdh[sl].mean(dim=1)
+    dh = hist.dh[sl]
+    bounded, bounded_se = _blocked(torch.where(
+        dh > 0, torch.exp(-dh) - torch.exp(-2 * dh), torch.exp(dh) - 1))
+    r = {"path": name, "L": cfg.L, "chains": cfg.n_chains, "beta": cfg.beta,
+         "mass": cfg.mass, "tau": cfg.tau, "nstep": cfg.nstep,
+         "layout": op, "ft": params is not None, "therm": therm,
+         "measured": meas, "acceptance": float(hist.acc[sl].mean()),
+         "exp_mdh": float(hist.exp_mdh[sl].mean()),
+         "exp_mdh_stderr_blocked": float(emdh.reshape(10, -1).mean(dim=1)
+                                         .std() / math.sqrt(10)),
+         "exp_mdh_median": float(hist.exp_mdh[sl].median()),
+         "exp_mdh_max": float(hist.exp_mdh[sl].max()),
+         "exp_mdh_by_block": (emdh.reshape(10, -1).mean(dim=1)).tolist(),
+         "bounded_identity": bounded, "bounded_identity_se": bounded_se,
+         "plaq": float(ptraj.mean()), "plaq_stderr_blocked": stderr,
+         "plaq_bound": bound, "jax_reading": DYN_READING[name],
+         "plaq_excess_by_block": blocks.tolist(),
+         "plaq_first_traj": float(hist.plaq[0].mean()),
+         "cg_iters_mean": {k: log.mean_iters(k) for k in ("force", "mh")},
+         "cg_solves": log.count(), "cg_iterations_launched": log.launched(),
+         "run_s": t_run, "s_per_traj": t_run / cfg.ntraj,
+         "chain_steps_per_s": cfg.n_chains * cfg.nstep * cfg.ntraj / t_run,
+         "launches": launches, "expected": expect, "plain_calls": plain}
+    say("dyn_path", **r)
+    require(all(bool(torch.isfinite(t).all()) for t in hist)
+            and bool(torch.isfinite(x).all()), f"path {name}: not finite")
+    require(launches == expect, f"path {name} launches {launches}")
+    require(not any(plain.values()), f"path {name}: plain twins ran")
+    if params is None:
+        require(abs(r["acceptance"] - acc_j) <= 0.03,
+                f"path {name} acceptance {r['acceptance']} vs {acc_j}")
+        require(abs(r["exp_mdh"] - 1.0) <= 0.03,
+                f"path {name} <exp(-dH)> {r['exp_mdh']}")
+    else:
+        require(r["acceptance"] >= 0.60,
+                f"path {name} acceptance {r['acceptance']}")
+        require(abs(bounded) <= 5 * bounded_se,
+                f"path {name} <(1 - exp(-dH)) exp(-|dH|)> {bounded} "
+                f"+- {bounded_se}")
+    require(abs(r["plaq"] - plaq_j) <= bound,
+            f"path {name} plaq {r['plaq']} vs {plaq_j} (bound {bound})")
+    return r
+
+
+def fermion_timings(dev, inp) -> dict:
+    """CUDA-event times (ms) of K9 at path A's shape, K10 at path B's, K11
+    at both, each a launch bound once as the CG's loop binds it (so the
+    time is the card's, not the Python wrapper's), and their twins; one CG
+    iteration (operator and update) at each shape; and K9 against K10 at L
+    in LAYOUT_RULE_L, LAYOUT_RULE_B chains, which sets the 'auto' layout
+    rule."""
+    out = {"kernel_ms": {}, "plain_ms": {}}
+    for key, k, plain in (("A", "K9", fk.mdagm_plain),
+                          ("B", "K10", fk.mdagm_cl_plain)):
+        d = inp[key]
+        op, _ = fk.operator_launch(d["cl"], d["ur"], d["ui"], d["p4"][True],
+                                   MASS, True, None, None)
+        out["kernel_ms"][k] = cuda_ms(op)
+        out["plain_ms"][k] = cuda_ms(lambda: plain(d["ur"], d["ui"],
+                                                   d["p4"][True], MASS,
+                                                   True), reps=3)
+        p, mp, x, r, rsq, stop = _update_inputs(d)
+        stop = torch.full_like(stop, math.inf)    # keep the values fixed
+        c = torch.zeros(2, dtype=torch.int32, device=dev)
+        upd = fk.update_launch(p, mp, x, r, rsq, stop, c, d["cl"])
+        it_op, _ = fk.operator_launch(d["cl"], d["ur"], d["ui"], p, MASS,
+                                      True, mp, None)
+        out[f"K11_{key}"] = {
+            "kernel_ms": cuda_ms(lambda: upd(0)),
+            "plain_ms": cuda_ms(lambda: fk.cg_update_plain(
+                p, mp, x, r, rsq, stop, c, 0, d["cl"]), reps=3),
+            "cg_iteration_ms": cuda_ms(lambda: (it_op(), upd(0)))}
+    g = torch.Generator(device=dev).manual_seed(6)
+    rule = {}
+    for n in LAYOUT_RULE_L:
+        x = near_equilibrium(g, LAYOUT_RULE_B, n, 6.0, dev)
+        ur, ui = fk.link_planes(x)
+        even, _ = fk.parity_masks(n, n, 1, dev)
+        p4 = fk.pack_spinor(_complex_field(g, LAYOUT_RULE_B, n, dev) * even) \
+            .contiguous()
+        k9, _ = fk.operator_launch(False, ur, ui, p4, MASS, True, None, None)
+        k10, _ = fk.operator_launch(True, _cl(ur), _cl(ui), _cl(p4), MASS,
+                                    True, None, None)
+        rule[n] = {"K9": cuda_ms(k9), "K10": cuda_ms(k10),
+                   "auto": fk.resolve_layout("auto", n, n)}
+    out["k9_vs_k10_ms_by_L"] = rule
+    return out
+
+
+def fermion_bounds(B: int, L: int) -> dict:
+    """Least time of K9/K10 (one operator: p and four link planes read,
+    four planes written, 112 flops a site: each of the four eo hop passes
+    runs 44 on half the sites, each combine 12 on all) and K11 (p, Mp, x, r
+    read, x, r, p written; 10 flops an element) for B chains of L^2."""
+    sites = B * L * L
+    op = _bound(12 * 4 * sites, 112 * sites)
+    return {"K9": op, "K10": op, "K11": _bound(7 * 4 * 4 * sites,
+                                                10 * 4 * sites)}
+
+
+def path_a_busy(dev, x, s_per_traj: float) -> dict:
+    """profile_busy of two trajectories of path A from x against path A's
+    own s/trajectory."""
+    cfg = dataclasses.replace(DYN["A"], ntraj=2)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    return profile_busy(lambda: run_hmc_dyn(cfg, x0=x, generator=gen,
+                                            device=dev), cfg.ntraj,
+                        s_per_traj)
 
 
 def main() -> None:
@@ -640,13 +1005,47 @@ def main() -> None:
         device_busy={b: device_busy(dev, b, rates[b]["s_per_traj"])
                      for b in rates})
 
-    # 8. the kernels line
+    # 8. dynamical fermions: K9-K11 against their twins, paths A, B, C
+    inp = fermion_inputs(dev)
+    e_f, t_f, info_f = compare_fermion(dev, inp)
+    errs.update(e_f)
+    tols.update(t_f)
+    say("compare_fermion", max_abs_err=e_f, tolerance=t_f, details=info_f)
+    dyn = {"A": dyn_path("A", dev, near_equilibrium(
+               torch.Generator(device=dev).manual_seed(51), 64, 64, 6.0,
+               dev)),
+           "B": dyn_path("B", dev, near_equilibrium(
+               torch.Generator(device=dev).manual_seed(52), 128, 16, 6.0,
+               dev))}
+    zc, _ = flow_reverse(params, torch.zeros((128, 2, 16, 16), device=dev),
+                         spec)
+    dyn["C"] = dyn_path("C", dev, zc, params, spec)
+    launches.update({"K9": dyn["A"]["launches"]["K9"],
+                     "K10": dyn["B"]["launches"]["K10"],
+                     "K11": dyn["A"]["launches"]["K11"]})
+    ft = fermion_timings(dev, inp)
+    ms.update(ft["kernel_ms"])
+    plain_ms.update(ft["plain_ms"])
+    for t in ft["k9_vs_k10_ms_by_L"].values():
+        t["rule_agrees"] = (t["K9"] <= t["K10"]) == (t["auto"] == "cf")
+    ms["K11"], plain_ms["K11"] = (ft["K11_A"]["kernel_ms"],
+                                  ft["K11_A"]["plain_ms"])
+    say("timing_fermion", **ft,
+        s_per_traj={k: r["s_per_traj"] for k, r in dyn.items()},
+        chain_steps_per_s={k: r["chain_steps_per_s"] for k, r in dyn.items()},
+        cg_iters_mean={k: r["cg_iters_mean"] for k, r in dyn.items()},
+        path_a_device_busy=path_a_busy(dev, inp["A"]["x"],
+                                       dyn["A"]["s_per_traj"]))
+
+    # 9. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
     tb_3 = traj_bounds(hc.n_chains, CL_L, hc.nstep)
     bnd.update({"K2": tb_h["K2"], "K3": tb_3["K3"], "K4": tb_h["K4"],
                 "K5": tb_h["K5"]})
+    fb_a, fb_b = fermion_bounds(64, 64), fermion_bounds(128, 16)
+    bnd.update({"K9": fb_a["K9"], "K10": fb_b["K10"], "K11": fb_a["K11"]})
     say("bounds", layer=TIMED_LAYER, mu=mu, off=off,
         flops={k: v["flops"] for k, v in bnd.items()},
         bytes={k: v["bytes"] for k, v in bnd.items()})
@@ -658,7 +1057,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 9. the device line
+    # 10. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

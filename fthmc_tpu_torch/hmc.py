@@ -54,7 +54,7 @@ from fthmc_tpu_torch.ops.coupling_vjp_kernels import ft_force_kernel
 
 __all__ = ["TrajMetrics", "leapfrog", "omelyan", "BACKENDS",
            "resolve_backend", "run_leapfrog", "hmc_step", "run_hmc",
-           "run_hmc_thinned", "run_hmc_nrun", "run_hmc_chunked",
+           "run_hmc_thinned", "run_hmc_nrun", "run_hmc_chunked", "run_blocks",
            "ft_action", "ft_force", "resolve_remat", "resolve_force_backend",
            "fthmc_step", "run_fthmc", "run_fthmc_chunked"]
 
@@ -333,6 +333,23 @@ def run_hmc_nrun(cfg: HMCConfig, generator: torch.Generator | None = None,
     return x, _stack(runs)
 
 
+def run_blocks(run, ntraj: int, block: int, state, callback):
+    """Blocks of ``block`` trajectories through ``run(n, state) -> (state,
+    history)``, each block's history moved to the host and passed to
+    ``callback(done, block_history)``. Returns (state, TrajMetrics of CPU
+    tensors (ntraj, B))."""
+    blocks, done = [], 0
+    while done < ntraj:
+        n = min(block, ntraj - done)
+        state, hist = run(n, state)
+        hist = TrajMetrics(*[t.cpu() for t in hist])
+        blocks.append(hist)
+        done += n
+        if callback is not None:
+            callback(done, hist)
+    return state, TrajMetrics(*[torch.cat(f) for f in zip(*blocks)])
+
+
 def run_hmc_chunked(cfg: HMCConfig, *, block: int = 1024,
                     x0: torch.Tensor | None = None,
                     generator: torch.Generator | None = None,
@@ -344,19 +361,13 @@ def run_hmc_chunked(cfg: HMCConfig, *, block: int = 1024,
     Returns (x_final, TrajMetrics of CPU tensors (ntraj, n_chains))."""
     device = resolve_device(device)
     generator = _generator(cfg, generator, device)
-    blocks = []
-    x, done = x0, 0
-    while done < cfg.ntraj:
-        n = min(block, cfg.ntraj - done)
-        x, hist = run_hmc(dataclasses.replace(cfg, ntraj=n), x0=x,
-                          generator=generator, dtype=dtype, backend=backend,
-                          integrator=integrator, device=device)
-        hist = TrajMetrics(*[t.cpu() for t in hist])
-        blocks.append(hist)
-        done += n
-        if callback is not None:
-            callback(done, hist)
-    return x, TrajMetrics(*[torch.cat(f) for f in zip(*blocks)])
+
+    def run(n, x):
+        return run_hmc(dataclasses.replace(cfg, ntraj=n), x0=x,
+                       generator=generator, dtype=dtype, backend=backend,
+                       integrator=integrator, device=device)
+
+    return run_blocks(run, cfg.ntraj, block, x0, callback)
 
 
 # ---------------------------------------------------------------------------
@@ -511,17 +522,10 @@ def run_fthmc_chunked(params, spec: FlowSpec, lf: LeapfrogConfig, *,
     """run_fthmc in blocks of ``block`` trajectories, with the history moved
     to the host and ``callback(done, block_history)`` after each block.
     Returns (z_final, TrajMetrics of CPU tensors (ntraj, B))."""
-    blocks = []
-    z, done = z0, 0
-    while done < ntraj:
-        n = min(block, ntraj - done)
-        z, hist = run_fthmc(params, spec, lf, beta=beta, ntraj=n, z0=z,
-                            generator=generator, remat=remat,
-                            integrator=integrator,
-                            force_backend=force_backend, device=device)
-        hist = TrajMetrics(*[t.cpu() for t in hist])
-        blocks.append(hist)
-        done += n
-        if callback is not None:
-            callback(done, hist)
-    return z, TrajMetrics(*[torch.cat(f) for f in zip(*blocks)])
+    def run(n, z):
+        return run_fthmc(params, spec, lf, beta=beta, ntraj=n, z0=z,
+                         generator=generator, remat=remat,
+                         integrator=integrator, force_backend=force_backend,
+                         device=device)
+
+    return run_blocks(run, ntraj, block, z0, callback)

@@ -31,11 +31,13 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("force", "coupling_fwd", "coupling_bwd", "leapfrog", "hmc_traj")
+SOURCES = ("force", "coupling_fwd", "coupling_bwd", "leapfrog", "hmc_traj",
+           "fermion")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+           "K11")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -63,6 +65,11 @@ _SIGNATURES = {
     "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ,
                  "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ,
                  "traj_smem_bytes": [_I, _I]},
+    # (pointers, B, L0, L1, a, b, eo, stream) of the operators
+    "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _P],
+                "k10_mdagm_cl": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _P],
+                "k11_cg_update": [_P] * 7 + [_I] * 5 + [_P],
+                "k9_smem_bytes": [_I, _I]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -34,7 +34,7 @@ from fthmc_tpu_torch.ops.coupling_kernels import (_conv_widths,
 from fthmc_tpu_torch.ops.lattice_kernels import force as force_kernel
 
 __all__ = ["coupling_fwd_res", "coupling_fwd_res_plain", "coupling_bwd",
-           "coupling_bwd_plain", "ft_force_kernel"]
+           "coupling_bwd_plain", "flow_vjp_kernel", "ft_force_kernel"]
 
 
 def coupling_fwd_res_plain(layer, x: torch.Tensor, mu: int, off: int,
@@ -177,12 +177,13 @@ def launch_bwd(lib, layer, x, residuals, gy, gl, mu: int, off: int,
 
 
 @torch.no_grad()
-def ft_force_kernel(params, spec: FlowSpec, z: torch.Tensor,
-                    beta: float) -> torch.Tensor:
-    """FT-HMC force dS_eff/dz, S_eff(z) = S(f(z)) - log|det df/dz|, through
-    the per-layer kernels: K7 forward over every layer keeping residuals,
-    K1 for dS/dy at the flow output, then K8 back through every layer with
-    gl = -1. On the CPU every step is its plain twin. z: (B, 2, L, L)."""
+def flow_vjp_kernel(params, spec: FlowSpec, z: torch.Tensor,
+                    cotangent) -> torch.Tensor:
+    """d/dz of S(f(z)) - log|det df/dz| for an action S whose gradient at
+    the flow output y = f(z) is ``cotangent(y)``, through the per-layer
+    kernels: K7 forward over every layer keeping residuals, the cotangent
+    at y, then K8 back through every layer with gl = -1. On the CPU every
+    step is its plain twin. z: (B, 2, L, L)."""
     xs, residuals = [], []
     x = z
     for i, layer in enumerate(params):
@@ -190,10 +191,17 @@ def ft_force_kernel(params, spec: FlowSpec, z: torch.Tensor,
         xs.append(x)
         x, _, res = coupling_fwd_res(layer, x, mu, off, spec)
         residuals.append(res)
-    gy = force_kernel(x, beta)
+    gy = cotangent(x)
     gl = torch.full((z.shape[0],), -1.0, dtype=z.dtype, device=z.device)
     for i in range(len(params) - 1, -1, -1):
         mu, off = layer_mask_params(i)
         gy = coupling_bwd(params[i], xs[i], residuals[i], gy, gl, mu, off,
                           spec)
     return gy
+
+
+def ft_force_kernel(params, spec: FlowSpec, z: torch.Tensor,
+                    beta: float) -> torch.Tensor:
+    """FT-HMC force dS_eff/dz, S_eff(z) = S(f(z)) - log|det df/dz| with the
+    Wilson action S: ``flow_vjp_kernel`` with K1's force at y."""
+    return flow_vjp_kernel(params, spec, z, lambda y: force_kernel(y, beta))

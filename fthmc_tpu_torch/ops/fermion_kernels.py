@@ -1,0 +1,588 @@
+"""The Wilson-Dirac kernels K9-K11, their plain PyTorch twins, and the CG
+built on them: the counterpart of ``fthmc_tpu/ops/pallas_fermion.py``.
+
+  K9  ``mdagm``      csrc/fermion.cu  <- _mdagm_kernel (_mdagm_call,
+                                         pallas_mdagm layout 'cf')
+  K10 ``mdagm_cl``   csrc/fermion.cu  <- _mdagm_cl_kernel (_mdagm_call_cl)
+  K11 ``cg_update``  csrc/fermion.cu  <- the while_loop body of
+                                         cg_solve_fused
+
+K9 and K10 apply the normal operator D^dag D, or the even-odd Schur
+Dhat^dag Dhat, to packed real planes [Re s0, Im s0, Re s1, Im s1]: K9 on
+chains-first (B, 4, L0, L1), K10 on chains-last (4, L0, L1, B). K11 is one
+CG iteration's vector update on the same layout. ``cg_solve_fused`` is a
+host loop of one operator launch and one K11 launch an iteration, which
+reads the device's "any chain still active" flag every ``CHECK_EVERY``
+iterations only.
+
+The twins' math has one source, ``hop_planes`` and ``normal_op_planes``
+(ports of ``_hop_planes`` and ``normal_op_planes``), with a roll callable
+for the layout, as in the JAX package. A CPU tensor takes the twin; a CUDA
+tensor launches the kernel, or raises for what the kernels do not take:
+other dtypes, odd sides or sides under 4 (``check_sides``). There is no
+upper limit: a K9 block keeps its chain in shared memory where it fits
+(L0 L1 <= 4,842 sites on an H100, so up to 64^2) and in a scratch buffer
+the wrapper allocates beyond.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
+
+import torch
+
+from fthmc_tpu_torch.ops import _build
+
+__all__ = ["pack_spinor", "unpack_spinor", "link_planes", "parity_masks",
+           "hop_planes", "normal_op_planes", "mdagm_plain", "mdagm_cl_plain",
+           "cg_update_plain", "mdagm", "mdagm_cl", "cg_update",
+           "check_sides", "resolve_layout", "fused_mdagm", "CGResult",
+           "cg_solve_fused", "cg_solve_fused_plain", "operator_launch",
+           "update_launch", "CHECK_EVERY"]
+
+# iterations between two reads of the device's convergence flag: each read
+# stalls the host until the card drains; the iterations after the last
+# chain converged (half of this on average) are launched for nothing
+CHECK_EVERY = 8
+
+
+# ---------------------------------------------------------------------------
+# packing helpers (once per solve, not per iteration)
+# ---------------------------------------------------------------------------
+
+def pack_spinor(psi: torch.Tensor) -> torch.Tensor:
+    """Complex spinor field (..., L0, L1, 2) -> packed (..., 4, L0, L1) fp32
+    planes [Re s0, Im s0, Re s1, Im s1]."""
+    s0, s1 = psi[..., 0], psi[..., 1]
+    return torch.stack((s0.real, s0.imag, s1.real, s1.imag), dim=-3)
+
+
+def unpack_spinor(p4: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_spinor: (..., 4, L0, L1) -> (..., L0, L1, 2)."""
+    s0 = torch.complex(p4[..., 0, :, :], p4[..., 1, :, :])
+    s1 = torch.complex(p4[..., 2, :, :], p4[..., 3, :, :])
+    return torch.stack((s0, s1), dim=-1)
+
+
+def link_planes(theta: torch.Tensor):
+    """(ur, ui), each (..., 2, L0, L1) fp32: the links' real and imaginary
+    parts, with the antiperiodic time boundary folded into direction 0's
+    last time slice (the sign convention of ``fermion._links``)."""
+    th = theta.to(torch.float32)
+    ur, ui = torch.cos(th), torch.sin(th)
+    L0 = theta.shape[-2]
+    sign = torch.ones((2, L0, 1), dtype=torch.float32, device=theta.device)
+    sign[0, L0 - 1] = -1.0
+    return ur * sign, ui * sign
+
+
+def parity_masks(L0: int, L1: int, trailing: int, device):
+    """(even, odd) fp32 masks of shape (L0, L1) + (1,) * trailing."""
+    i0 = torch.arange(L0, device=device)[:, None]
+    i1 = torch.arange(L1, device=device)[None, :]
+    even = ((i0 + i1) % 2 == 0).to(torch.float32)
+    even = even.reshape((L0, L1) + (1,) * trailing)
+    return even, 1.0 - even
+
+
+# ---------------------------------------------------------------------------
+# the operator's math, one source for both layouts
+# ---------------------------------------------------------------------------
+
+def hop_planes(ur0, ui0, ur1, ui1, s0r, s0i, s1r, s1i, roll):
+    """Wilson hop H psi on packed planes; returns the four result planes.
+    ``roll(x, shift, axis)`` shifts along lattice axis 1 (x0) or 2 (x1) of
+    (chain, L0, L1) planes; roll(x, -1, axis) is x(n + 1). Per direction
+    one complex combine, one complex multiply and one two-plane roll, from
+    the rank-one projectors p0m = (d, -d), p0p = (e, e), p1m = (w, -i w),
+    p1p = (v, i v)."""
+    # forward 0: u0 * psi(n + e0), projector (1 - g0): (d, -d), d = t0 - t1
+    t0r, t0i = roll(s0r, -1, 1), roll(s0i, -1, 1)
+    t1r, t1i = roll(s1r, -1, 1), roll(s1i, -1, 1)
+    dr, di = t0r - t1r, t0i - t1i
+    mr = ur0 * dr - ui0 * di
+    mi = ur0 * di + ui0 * dr
+    h0r, h0i, h1r, h1i = mr, mi, -mr, -mi
+
+    # backward 0: (conj(u0) psi)(n - e0), projector (1 + g0): (e, e)
+    er, ei = s0r + s1r, s0i + s1i
+    mr = ur0 * er + ui0 * ei
+    mi = ur0 * ei - ui0 * er
+    rr, ri = roll(mr, 1, 1), roll(mi, 1, 1)
+    h0r = h0r + rr
+    h0i = h0i + ri
+    h1r = h1r + rr
+    h1i = h1i + ri
+
+    # forward 1: u1 * psi(n + e1), projector (1 - g1): (w, -i w),
+    # w = t0 + i t1
+    t0r, t0i = roll(s0r, -1, 2), roll(s0i, -1, 2)
+    t1r, t1i = roll(s1r, -1, 2), roll(s1i, -1, 2)
+    wr, wi = t0r - t1i, t0i + t1r
+    mr = ur1 * wr - ui1 * wi
+    mi = ur1 * wi + ui1 * wr
+    h0r = h0r + mr
+    h0i = h0i + mi
+    h1r = h1r + mi           # -i m = (Im m, -Re m)
+    h1i = h1i + (-mr)
+
+    # backward 1: (conj(u1) psi)(n - e1), projector (1 + g1): (v, i v),
+    # v = s0 - i s1
+    vr, vi = s0r + s1i, s0i - s1r
+    mr = ur1 * vr + ui1 * vi
+    mi = ur1 * vi - ui1 * vr
+    rr, ri = roll(mr, 1, 2), roll(mi, 1, 2)
+    h0r = h0r + rr
+    h0i = h0i + ri
+    h1r = h1r + (-ri)        # i r = (-Im r, Re r)
+    h1i = h1i + rr
+    return h0r, h0i, h1r, h1i
+
+
+def normal_op_planes(hop, s, mass: float, eo: bool, even, odd):
+    """D^dag D, or the even-odd Schur Dhat^dag Dhat, of four packed planes
+    ``s`` from a hop closure; ``even``/``odd`` broadcast against the planes
+    (unused when eo is False)."""
+    a = mass + 2.0
+    if eo:
+        b = 0.25 / a
+
+        def dhat(s):
+            h = hop(s)
+            h = hop(tuple(odd * c for c in h))
+            return tuple(a * si - b * even * hi for si, hi in zip(s, h))
+    else:
+        def dhat(s):
+            h = hop(s)
+            return tuple(a * si - 0.5 * hi for si, hi in zip(s, h))
+
+    def dhat_dag(s):
+        # g5 D g5: g5 negates the second spinor component's planes
+        r = dhat((s[0], s[1], -s[2], -s[3]))
+        return (r[0], r[1], -r[2], -r[3])
+
+    return dhat_dag(dhat(s))
+
+
+def _roll_cf(x, shift, axis):
+    return torch.roll(x, shift, dims=axis)
+
+
+def _roll_cl(x, shift, axis):
+    return torch.roll(x, shift, dims=axis - 1)   # (L0, L1, B) planes
+
+
+def mdagm_plain(ur, ui, p4, mass: float, eo: bool) -> torch.Tensor:
+    """K9's twin: links (B, 2, L0, L1), planes (B, 4, L0, L1)."""
+    _build.PLAIN_CALLS["K9"] += 1
+    even, odd = parity_masks(p4.shape[-2], p4.shape[-1], 0, p4.device)
+
+    def hop(s):
+        return hop_planes(ur[:, 0], ui[:, 0], ur[:, 1], ui[:, 1], *s,
+                          roll=_roll_cf)
+
+    m = normal_op_planes(hop, tuple(p4[:, k] for k in range(4)), mass, eo,
+                         even, odd)
+    return torch.stack(m, dim=1)
+
+
+def mdagm_cl_plain(urt, uit, p4t, mass: float, eo: bool) -> torch.Tensor:
+    """K10's twin: links (2, L0, L1, B), planes (4, L0, L1, B)."""
+    _build.PLAIN_CALLS["K10"] += 1
+    even, odd = parity_masks(p4t.shape[1], p4t.shape[2], 1, p4t.device)
+
+    def hop(s):
+        return hop_planes(urt[0], uit[0], urt[1], uit[1], *s, roll=_roll_cl)
+
+    m = normal_op_planes(hop, tuple(p4t[k] for k in range(4)), mass, eo,
+                         even, odd)
+    return torch.stack(m, dim=0)
+
+
+def _chain_dims(chains_last: bool):
+    """(reduction dims, broadcast of a (B,) vector) of a packed layout."""
+    if chains_last:
+        return (0, 1, 2), (lambda a: a[None, None, None, :])
+    return (1, 2, 3), (lambda a: a[:, None, None, None])
+
+
+def cg_update_plain(p, mp, x, r, rsq, stop, counters, it: int,
+                    chains_last: bool) -> None:
+    """K11's twin: one CG iteration's update, in place, after mp = M p.
+    Per chain, active = rsq > stop;
+      alpha = active ? rsq / max(<p, mp>, 1e-30) : 0,
+      x += alpha p,  r -= alpha mp,  rsq_new = <r, r>,
+      beta = active ? rsq_new / max(rsq, 1e-30) : 0,
+      p = r + beta p,  rsq = active ? rsq_new : rsq.
+    counters (int32 (2,)): [0] the iterations, it + 1, in which a chain
+    was active, [1] those after which one still is (maxima over chains)."""
+    _build.PLAIN_CALLS["K11"] += 1
+    dims, bc = _chain_dims(chains_last)
+    active = rsq > stop
+    denom = (p * mp).sum(dim=dims)
+    alpha = torch.where(active, rsq / torch.clamp_min(denom, 1e-30), 0.0)
+    x.add_(bc(alpha) * p)
+    r.sub_(bc(alpha) * mp)
+    rsq_new = (r * r).sum(dim=dims)
+    beta = torch.where(active, rsq_new / torch.clamp_min(rsq, 1e-30), 0.0)
+    p.copy_(r + bc(beta) * p)
+    live = active & (rsq_new > stop)
+    rsq.copy_(torch.where(active, rsq_new, rsq))
+    step = torch.tensor([it + 1, it + 1], dtype=counters.dtype,
+                        device=counters.device)
+    flags = torch.stack((active.any(), live.any()))
+    counters.copy_(torch.where(flags, torch.maximum(counters, step),
+                               counters))
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the twin on the CPU, the kernel on the card
+# ---------------------------------------------------------------------------
+
+def check_sides(L0: int, L1: int) -> None:
+    """The kernels' envelope: even sides of at least 4 (the checkerboard
+    parity must tile). Raises ValueError naming it."""
+    if L0 % 2 or L1 % 2 or L0 < 4 or L1 < 4:
+        raise ValueError(f"the fermion kernels take even sides >= 4, got "
+                         f"L0={L0}, L1={L1}")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
+
+
+def _check_planes(what: str, ur, ui, p4, chains_last: bool) -> tuple:
+    """(B, L0, L1) of consistent link and spinor planes."""
+    if p4.ndim != 4 or ur.ndim != 4:
+        raise ValueError(f"{what}: planes must be rank 4, got "
+                         f"{tuple(p4.shape)} and {tuple(ur.shape)}")
+    if chains_last:
+        (_, L0, L1, B), want = p4.shape, (2,) + tuple(p4.shape[1:])
+        ok = p4.shape[0] == 4
+    else:
+        (B, _, L0, L1), want = p4.shape, (p4.shape[0], 2) + tuple(
+            p4.shape[2:])
+        ok = p4.shape[1] == 4
+    if not ok or tuple(ur.shape) != want or tuple(ui.shape) != want:
+        raise ValueError(f"{what}: links {tuple(ur.shape)}, "
+                         f"{tuple(ui.shape)} do not match planes "
+                         f"{tuple(p4.shape)}")
+    check_sides(L0, L1)
+    return B, L0, L1
+
+
+def _out(what: str, out, p4):
+    if out is None:
+        return torch.empty_like(p4)
+    if out.shape != p4.shape or out.dtype != p4.dtype \
+            or out.device != p4.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous tensor like the "
+                         f"planes")
+    return out
+
+
+def _ab(mass: float) -> tuple[float, float]:
+    """(a, b) = (m + 2, 1 / (4 a)) of the kernels' entries, in double as
+    ``normal_op_planes`` forms them (ctypes rounds each to fp32, as a torch
+    op rounds a Python scalar)."""
+    a = mass + 2.0
+    return a, 0.25 / a
+
+
+@lru_cache(maxsize=None)
+def _k9_fits(L0: int, L1: int, device_index: int) -> bool:
+    need = _build.library("fermion").k9_smem_bytes(L0, L1)
+    return 0 < need <= _build.smem_limit(device_index)
+
+
+def k9_scratch_floats(B: int, L0: int, L1: int, device) -> int:
+    """Scratch K9 needs: none where a chain's 12 planes fit one block's
+    shared memory, else two 4-plane buffers a chain."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return 0 if _k9_fits(L0, L1, index) else 8 * B * L0 * L1
+
+
+class _Launch:
+    """A kernel entry with its arguments bound after one validation: a call
+    launches the kernel (one ctypes call), checks the launch and counts it.
+    The CG keeps one of each a solve, so an iteration costs two ctypes
+    calls on the host."""
+    __slots__ = ("name", "fn", "lib", "args", "stream")
+
+    def __init__(self, name: str, fn, lib, args: tuple, stream: int):
+        self.name, self.fn, self.lib = name, fn, lib
+        self.args, self.stream = args, stream
+
+    def __call__(self, *mid) -> None:
+        rc = self.fn(*self.args, *mid, self.stream)
+        if rc:
+            _build.check(rc, self.name, self.lib)
+        _build.LAUNCHES[self.name] += 1
+
+
+def operator_launch(cl: bool, ur, ui, p4, mass: float, eo: bool, out,
+                     scratch):
+    """(K9 or K10 launch of p4 -> out, out) after refusing what the kernel
+    does not take; allocates out and scratch when not given."""
+    name = "K10" if cl else "K9"
+    what = "K10 mdagm_cl" if cl else "K9 mdagm"
+    B, L0, L1 = _check_planes(what, ur, ui, p4, cl)
+    _build.require_fp32_contiguous(what, ur, ui, p4)
+    out = _out(what, out, p4)
+    n_scratch = 8 * B * L0 * L1 if cl else k9_scratch_floats(B, L0, L1,
+                                                              p4.device)
+    if n_scratch and (scratch is None or scratch.numel() < n_scratch):
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=p4.device)
+    lib = _build.library("fermion")
+    args = (ur.data_ptr(), ui.data_ptr(), p4.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if n_scratch else None, B, L0, L1,
+            *_ab(mass), int(eo))
+    fn = lib.k10_mdagm_cl if cl else lib.k9_mdagm
+    return _Launch(name, fn, lib, args, _build.stream_handle(p4)), out
+
+
+def mdagm(ur, ui, p4, mass: float, eo: bool, out=None, scratch=None):
+    """Normal operator of chains-first planes p4 (B, 4, L0, L1) with links
+    (B, 2, L0, L1) through K9 (its twin on the CPU), into ``out`` if
+    given. ``scratch``: K9's buffer beyond shared memory
+    (``k9_scratch_floats``), allocated here when needed and not given."""
+    _check_planes("K9 mdagm", ur, ui, p4, False)
+    if _on_cpu(p4):
+        res = mdagm_plain(ur, ui, p4, mass, eo)
+        return res if out is None else out.copy_(res)
+    launch, out = operator_launch(False, ur, ui, p4, mass, eo, out, scratch)
+    launch()
+    return out
+
+
+def mdagm_cl(urt, uit, p4t, mass: float, eo: bool, out=None, scratch=None):
+    """Normal operator of chains-last planes p4t (4, L0, L1, B) with links
+    (2, L0, L1, B) through K10 (its twin on the CPU), into ``out`` if
+    given. ``scratch``: 8 L0 L1 B floats for K10's intermediates,
+    allocated here when not given."""
+    _check_planes("K10 mdagm_cl", urt, uit, p4t, True)
+    if _on_cpu(p4t):
+        res = mdagm_cl_plain(urt, uit, p4t, mass, eo)
+        return res if out is None else out.copy_(res)
+    launch, out = operator_launch(True, urt, uit, p4t, mass, eo, out,
+                                   scratch)
+    launch()
+    return out
+
+
+def _check_update(p, mp, x, r, rsq, stop, counters, chains_last) -> int:
+    if not (p.shape == mp.shape == x.shape == r.shape) or p.ndim != 4:
+        raise ValueError("K11 cg_update: p, mp, x, r must share one packed "
+                         "shape")
+    B = p.shape[-1] if chains_last else p.shape[0]
+    if rsq.shape != (B,) or stop.shape != (B,) or counters.shape != (2,):
+        raise ValueError("K11 cg_update: rsq and stop must be (B,), "
+                         "counters (2,)")
+    return B
+
+
+def update_launch(p, mp, x, r, rsq, stop, counters, chains_last):
+    """K11's launch over these buffers (the iteration index is the call's
+    argument), after refusing what the kernel does not take."""
+    B = _check_update(p, mp, x, r, rsq, stop, counters, chains_last)
+    _build.require_fp32_contiguous("K11 cg_update", p, mp, x, r, rsq, stop)
+    if counters.dtype != torch.int32 or counters.device != p.device:
+        raise ValueError("K11 cg_update: counters must be int32 on the "
+                         "planes' device")
+    n_elem = p.numel() // B
+    stride_e, stride_c = (B, 1) if chains_last else (1, n_elem)
+    lib = _build.library("fermion")
+    args = (p.data_ptr(), mp.data_ptr(), x.data_ptr(), r.data_ptr(),
+            rsq.data_ptr(), stop.data_ptr(), counters.data_ptr(), B, n_elem,
+            stride_e, stride_c)
+    return _Launch("K11", lib.k11_cg_update, lib, args,
+                   _build.stream_handle(p))
+
+
+def cg_update(p, mp, x, r, rsq, stop, counters, it: int,
+              chains_last: bool) -> None:
+    """One CG iteration's update in place (see ``cg_update_plain``) through
+    K11, one block a chain, on packed planes in either layout; its twin on
+    the CPU."""
+    _check_update(p, mp, x, r, rsq, stop, counters, chains_last)
+    if _on_cpu(p):
+        return cg_update_plain(p, mp, x, r, rsq, stop, counters, it,
+                               chains_last)
+    update_launch(p, mp, x, r, rsq, stop, counters, chains_last)(int(it))
+
+
+# ---------------------------------------------------------------------------
+# the operator on complex fields, and the CG
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ("auto", "cf", "cl")
+
+
+def resolve_layout(layout: str, L0: int, L1: int) -> str:
+    """'cf' (K9) or 'cl' (K10). 'auto' is K9 at every size: on an H100 it
+    was faster than K10 at every L from 8 to 64 with 128 chains (PERF.md,
+    the 'auto' layout rule), where the JAX package picks chains-last below
+    32 sites a side for its TPU's lanes."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
+    return "cf" if layout == "auto" else layout
+
+
+class _PackedOperator:
+    """The normal operator of one gauge field on packed planes of one
+    layout, with its links and scratch made once (per solve)."""
+
+    def __init__(self, theta: torch.Tensor, mass: float, eo: bool,
+                 layout: str, plain: bool = False):
+        B, _, L0, L1 = theta.shape
+        check_sides(L0, L1)
+        self.mass, self.eo, self.chains_last = mass, eo, layout == "cl"
+        self.plain = plain
+        ur, ui = link_planes(theta)
+        self.scratch = None
+        on_card = theta.device.type == "cuda" and not plain
+        if self.chains_last:
+            ur, ui = (t.permute(1, 2, 3, 0).contiguous() for t in (ur, ui))
+            if on_card:
+                self.scratch = torch.empty(8 * B * L0 * L1,
+                                           dtype=torch.float32,
+                                           device=theta.device)
+        elif on_card:
+            n = k9_scratch_floats(B, L0, L1, theta.device)
+            if n:
+                self.scratch = torch.empty(n, dtype=torch.float32,
+                                           device=theta.device)
+        self.ur, self.ui = ur, ui
+
+    def pack(self, psi):
+        p4 = pack_spinor(psi)
+        return (p4.permute(1, 2, 3, 0) if self.chains_last else p4) \
+            .contiguous()
+
+    def unpack(self, p4):
+        return unpack_spinor(p4.permute(3, 0, 1, 2) if self.chains_last
+                             else p4)
+
+    def launch(self, v, out) -> _Launch:
+        """The kernel's launch of v -> out, bound once (on the card)."""
+        return operator_launch(self.chains_last, self.ur, self.ui, v,
+                                self.mass, self.eo, out, self.scratch)[0]
+
+    def __call__(self, v, out=None):
+        if self.plain:
+            fn = mdagm_cl_plain if self.chains_last else mdagm_plain
+            res = fn(self.ur, self.ui, v, self.mass, self.eo)
+            return res if out is None else out.copy_(res)
+        fn = mdagm_cl if self.chains_last else mdagm
+        return fn(self.ur, self.ui, v, self.mass, self.eo, out=out,
+                  scratch=self.scratch)
+
+
+def fused_mdagm(theta: torch.Tensor, psi: torch.Tensor, mass: float, *,
+                eo: bool = True, layout: str = "cf") -> torch.Tensor:
+    """The normal operator of complex fields through K9 ('cf') or K10
+    ('cl'), the counterpart of ``pallas_mdagm``: theta (B, 2, L0, L1) or
+    (2, L0, L1), psi (B, L0, L1, 2) or (L0, L1, 2)."""
+    squeeze = psi.ndim == 3
+    if squeeze:
+        theta, psi = theta[None], psi[None]
+    layout = resolve_layout(layout, theta.shape[-2], theta.shape[-1])
+    op = _PackedOperator(theta, mass, eo, layout)
+    res = op.unpack(op(op.pack(psi)))
+    return res[0] if squeeze else res
+
+
+class CGResult(NamedTuple):
+    """A CG solve: the solution (b's shape), the iterations in which any
+    chain was active (a Python int, JAX's ``k``), each chain's final
+    |r|^2 / |b|^2, and the iterations launched (``iters`` rounded up to
+    the convergence check for the fused CG; ``iters`` for the torch one)."""
+    x: torch.Tensor
+    iters: int
+    rsq: torch.Tensor
+    launched: int
+
+
+@torch.no_grad()
+def cg_solve_fused(theta: torch.Tensor, b: torch.Tensor, mass: float,
+                   x0: torch.Tensor | None = None, *, tol: float = 1e-8,
+                   maxiter: int = 1000, eo: bool = True,
+                   layout: str = "auto") -> CGResult:
+    """Batched CG for the normal operator (eo: the Schur system) on packed
+    planes through K9 or K10 and K11 (their twins on the CPU), with
+    ``fermion.cg_solve``'s semantics: per-chain freezing of converged
+    chains, tol on |r|^2 / |b|^2. Complex in and out, either rank. The
+    device's convergence flag is read every CHECK_EVERY iterations; the
+    iterations launched after every chain converged leave x, r and rsq as
+    they were (alpha = beta = 0), so the result is that of stopping at
+    once. x, r, p, M p and the per-chain scalars are allocated once."""
+    return _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout,
+                      plain=False)
+
+
+@torch.no_grad()
+def cg_solve_fused_plain(theta: torch.Tensor, b: torch.Tensor, mass: float,
+                         x0: torch.Tensor | None = None, *, tol: float = 1e-8,
+                         maxiter: int = 1000, eo: bool = True,
+                         layout: str = "auto") -> CGResult:
+    """``cg_solve_fused`` on the plain twins on any device: the yardstick
+    the kernels' CG is held against on the card."""
+    return _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout,
+                      plain=True)
+
+
+def _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout, plain):
+    squeeze = b.ndim == 3
+    if squeeze:
+        theta, b = theta[None], b[None]
+        x0 = None if x0 is None else x0[None]
+    layout = resolve_layout(layout, theta.shape[-2], theta.shape[-1])
+    op = _PackedOperator(theta, mass, eo, layout, plain)
+    update = cg_update_plain if plain else cg_update
+    dims, _ = _chain_dims(op.chains_last)
+    b4 = op.pack(b)
+    x = torch.zeros_like(b4) if x0 is None else op.pack(x0)
+    bsq = (b4 * b4).sum(dim=dims)
+    stop = tol * bsq
+    r = b4 - op(x)
+    p = r.clone()
+    rsq = (r * r).sum(dim=dims)
+    mp = torch.empty_like(b4)
+    counters = torch.zeros(2, dtype=torch.int32, device=b4.device)
+    if plain or b4.device.type == "cpu":
+        def iteration(it):
+            op(p, out=mp)
+            update(p, mp, x, r, rsq, stop, counters, it, op.chains_last)
+    else:
+        op_launch = op.launch(p, mp)
+        upd_launch = update_launch(p, mp, x, r, rsq, stop, counters,
+                                    op.chains_last)
+
+        def iteration(it):
+            op_launch()
+            upd_launch(it)
+    done = iters = 0
+    while done < maxiter:
+        n = min(CHECK_EVERY, maxiter - done)
+        for it in range(done, done + n):
+            iteration(it)
+        done += n
+        iters, live = counters.tolist()
+        if live < done:
+            break
+    sol = op.unpack(x)
+    rel = rsq / torch.clamp_min(bsq, 1e-30)
+    if squeeze:
+        sol, rel = sol[0], rel[0]
+    return CGResult(sol, iters, rel, done)

@@ -1,0 +1,377 @@
+"""Two-flavour Schwinger model samplers with dynamical Wilson fermions:
+plain HMC and FT-HMC, single scale. Counterpart of
+``fthmc_tpu/schwinger.py``.
+
+A trajectory: momenta v0 ~ N(0, 1); pseudofermion heatbath phi = D^dag chi
+(eo: Dhat^dag chi on even sites), whose start action chi^dag chi needs no
+solve; integrate with the force dS/dx = gauge sin stencil (K1 on the card)
++ fermion force (torch.autograd of ``fermion.pf_action_lin`` around a CG
+solve at ``cg_tol_force``, warm-started from the last solve when
+``warm_start``); Metropolis with dH = dS_gauge (delta form) + S_pf(x1) -
+chi^dag chi + dK, the end S_pf from a solve at ``cg_tol_mh`` (also
+warm-started when ``warm_start``). Every draw comes from the caller's
+``torch.Generator``, in the order v0, Re chi, Im chi, u (the accept
+uniforms). FT-HMC runs the same dynamics in the latent field z with
+S_eff(z) = S(f(z)) - log|det df/dz|; the CG solve runs on the detached
+physical field and its force is pulled back through the flow (on the card:
+K7 over every layer, K1 plus the fermion force at y, K8 back).
+
+The CG is ``fermion.cg_solve`` on the process default backend
+(``fermion.set_cg_backend``; 'auto' unless set: K9 or K10 and K11 on the
+card, the torch CG on the CPU) with the configuration's ``cg_layout``
+('auto' and 'cf' for K9, 'cl' for K10). Not ported yet (ROADMAP queue
+1, "dynamical fermions, the rest"): the nested integrators (``n_inner >
+0``) and Hasenbusch (``hasenbusch_dm > 0``); both raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from fthmc_tpu_torch import fermion, lattice
+from fthmc_tpu_torch.config import FlowSpec
+from fthmc_tpu_torch.device import resolve_device
+from fthmc_tpu_torch.hmc import (OMELYAN_LAMBDA, _flow_and_force,
+                                 _kinetic_delta, _metrics, _normal,
+                                 _on_device, _stack, _uniform, run_blocks,
+                                 resolve_force_backend, resolve_remat)
+from fthmc_tpu_torch.models.flow import flow_forward
+from fthmc_tpu_torch.ops.conv import full_fp32
+from fthmc_tpu_torch.ops.coupling_vjp_kernels import flow_vjp_kernel
+
+__all__ = ["SchwingerConfig", "dyn_force", "leapfrog_aux", "omelyan_aux",
+           "hmc_step_dyn", "run_hmc_dyn", "run_hmc_dyn_chunked",
+           "ft_dyn_force", "fthmc_step_dyn", "run_fthmc_dyn",
+           "run_fthmc_dyn_chunked"]
+
+_NESTED_TODO = ("nested integrators (n_inner > 0) are not ported yet: "
+                "ROADMAP queue 1, 'dynamical fermions, the rest'")
+_HB_TODO = ("Hasenbusch preconditioning (hasenbusch_dm > 0) is not ported "
+            "yet: ROADMAP queue 1, 'dynamical fermions, the rest'")
+
+
+@dataclasses.dataclass(frozen=True)
+class SchwingerConfig:
+    """Dynamical-fermion run parameters: the JAX package's fields and
+    defaults (less Hasenbusch's n_mid), plus the CG's layout."""
+    L: int = 16
+    beta: float = 4.0
+    mass: float = 0.1
+    tau: float = 1.0
+    nstep: int = 20
+    n_chains: int = 64
+    ntraj: int = 256
+    integrator: str = "omelyan"
+    cg_tol_force: float = 1e-9   # on |r|^2 / |b|^2
+    cg_tol_mh: float = 1e-12     # the Metropolis solve
+    cg_maxiter: int = 1000
+    warm_start: bool = True      # chronological inverter
+    eo_precond: bool = True      # even-odd Schur solves
+    n_inner: int = 0             # nested integrators: not ported, raises
+    hasenbusch_dm: float = 0.0   # Hasenbusch: not ported, raises
+    cg_layout: str = "auto"      # 'auto' and 'cf': K9; 'cl': K10
+
+    @property
+    def dt(self) -> float:
+        return self.tau / self.nstep
+
+
+def _check(cfg: SchwingerConfig) -> None:
+    if cfg.n_inner > 0:
+        raise NotImplementedError(_NESTED_TODO)
+    if cfg.integrator not in ("leapfrog", "omelyan"):
+        raise ValueError(f"unknown integrator {cfg.integrator!r}")
+
+
+def _solve_kw(cfg: SchwingerConfig) -> dict:
+    return dict(maxiter=cfg.cg_maxiter, eo=cfg.eo_precond,
+                layout=cfg.cg_layout)
+
+
+# ---------------------------------------------------------------- plain HMC
+
+def dyn_force(x, phi, beta: float, mass: float, x_guess, tol: float,
+              maxiter: int, eo: bool = False, backend: str | None = None,
+              layout: str = "auto"):
+    """Total force dS/dx = gauge sin stencil (K1 on the card) + fermion
+    force. Returns (force, CGResult); JAX's returns the solution alone."""
+    res = fermion.cg_solve(x, phi, mass, x_guess, tol=tol, maxiter=maxiter,
+                           eo=eo, backend=backend, layout=layout)
+    ff = fermion.pf_force_at(x, phi, res.x, mass, eo)
+    return lattice.batch_force(x, beta) + ff, res
+
+
+def leapfrog_aux(x, v, dt: float, nstep: int, force_fn, aux):
+    """Position-Verlet leapfrog, one force a step; force_fn(x, aux) ->
+    (force, aux)."""
+    for _ in range(nstep):
+        x_half = x + 0.5 * dt * v
+        f, aux = force_fn(x_half, aux)
+        v = v - dt * f
+        x = x_half + 0.5 * dt * v
+    return x, v, aux
+
+
+def omelyan_aux(x, v, dt: float, nstep: int, force_fn, aux):
+    """2MN Omelyan, position first, two forces a step (the kicks of
+    adjacent steps are not merged); force_fn(x, aux) -> (force, aux)."""
+    lam = OMELYAN_LAMBDA
+    for _ in range(nstep):
+        x = x + lam * dt * v
+        f, aux = force_fn(x, aux)
+        v = v - 0.5 * dt * f
+        x = x + (1.0 - 2.0 * lam) * dt * v
+        f, aux = force_fn(x, aux)
+        v = v - 0.5 * dt * f
+        x = x + lam * dt * v
+    return x, v, aux
+
+
+def _draws(generator: torch.Generator, x: torch.Tensor):
+    """(v0, chi, u) of one trajectory of x (B, 2, L0, L1) from the
+    generator, in that order: v0 ~ N(0, 1) in x's dtype, chi ~ CN(0, 1)
+    complex64 (real parts, then imaginary), u ~ U(0, 1) (B,)."""
+    v0 = _normal(generator, x)
+    like = x.new_empty((x.shape[0],) + tuple(x.shape[2:]) + (2,),
+                       dtype=torch.float32)
+    re, im = _normal(generator, like), _normal(generator, like)
+    u = _uniform(generator, x[:, 0, 0, 0])
+    return v0, torch.complex(re, im) * math.sqrt(0.5), u
+
+
+def _accept(dh, u, new, old):
+    exp_mdh = torch.exp(-dh)
+    acc = u < exp_mdh
+    accb = acc[:, None, None, None]
+    return exp_mdh, acc, [torch.where(accb, n, o) for n, o in zip(new, old)]
+
+
+def _log(cg_log, kind, res):
+    if cg_log is not None:
+        cg_log.add(kind, res)
+
+
+@torch.no_grad()
+def _hmc_step_dyn(x, q_old, cfg: SchwingerConfig, draws, cg_log=None):
+    """hmc_step_dyn on the caller's draws (v0, chi, u)."""
+    v0, chi, u = draws
+    phi, s_pf0 = fermion.pf_refresh_from(chi, x, cfg.mass, cfg.eo_precond)
+    kw = _solve_kw(cfg)
+
+    def force_fn(xx, x_guess):
+        guess = x_guess if cfg.warm_start else torch.zeros_like(phi)
+        f, res = dyn_force(xx, phi, cfg.beta, cfg.mass, guess,
+                           cfg.cg_tol_force, **kw)
+        _log(cg_log, "force", res)
+        return f, res.x
+
+    integ = omelyan_aux if cfg.integrator == "omelyan" else leapfrog_aux
+    x1, v1, x_sol = integ(x, v0, cfg.dt, cfg.nstep, force_fn,
+                          torch.zeros_like(phi))
+    x1 = lattice.wrap(x1)
+    s_pf1, res = fermion.pf_action_exact(
+        x1, phi, cfg.mass, tol=cfg.cg_tol_mh,
+        x0=x_sol if cfg.warm_start else None, **kw)
+    _log(cg_log, "mh", res)
+    dh = (lattice.delta_action(x1, x, cfg.beta) + (s_pf1 - s_pf0)
+          + _kinetic_delta(v1, v0))
+    exp_mdh, acc, (x_new,) = _accept(dh, u, (x1,), (x,))
+    m = _metrics(dh, exp_mdh, acc, x_new, q_old)
+    return x_new, m.q, m
+
+
+def hmc_step_dyn(generator: torch.Generator, x: torch.Tensor,
+                 q_old: torch.Tensor, cfg: SchwingerConfig, device=None,
+                 cg_log: fermion.CGLog | None = None):
+    """One batched dynamical-fermion HMC trajectory of x (B, 2, L, L) on
+    ``device`` (the card by default). Returns (x', q', metrics)."""
+    if cfg.hasenbusch_dm > 0:
+        raise NotImplementedError(_HB_TODO)
+    _check(cfg)
+    device = resolve_device(device)
+    x, q_old = x.to(device), q_old.to(device)
+    return _hmc_step_dyn(x, q_old, cfg, _draws(generator, x), cg_log)
+
+
+def _setup(cfg, x0, generator, device):
+    """(device, generator, start) of a run: the caller's generator or one
+    on the device seeded with 0; x0, or a hot start from the generator."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    if x0 is None:
+        x0 = lattice.hot_start(generator, cfg.n_chains, cfg.L, device=device)
+    return device, generator, x0.to(device)
+
+
+def run_hmc_dyn(cfg: SchwingerConfig, x0: torch.Tensor | None = None,
+                generator: torch.Generator | None = None, *, device=None,
+                cg_log: fermion.CGLog | None = None):
+    """cfg.ntraj trajectories of dynamical HMC on ``device`` (the card by
+    default). Returns (x, TrajMetrics of (ntraj, B) tensors)."""
+    if cfg.hasenbusch_dm > 0:
+        raise NotImplementedError(_HB_TODO)
+    _check(cfg)
+    device, generator, x = _setup(cfg, x0, generator, device)
+    q = lattice.topo_charge(x)
+    history = []
+    for _ in range(cfg.ntraj):
+        x, q, m = _hmc_step_dyn(x, q, cfg, _draws(generator, x), cg_log)
+        history.append(m)
+    return x, _stack(history)
+
+
+def run_hmc_dyn_chunked(cfg: SchwingerConfig, *, block: int = 256,
+                        x0: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None,
+                        callback=None, device=None,
+                        cg_log: fermion.CGLog | None = None):
+    """run_hmc_dyn in blocks of ``block`` trajectories, one generator
+    throughout, histories on the host, ``callback(done, block_history)``
+    after each block. Returns (x, TrajMetrics of CPU tensors)."""
+    device, generator, x = _setup(cfg, x0, generator, device)
+
+    def run(n, x):
+        return run_hmc_dyn(dataclasses.replace(cfg, ntraj=n), x0=x,
+                           generator=generator, device=device, cg_log=cg_log)
+
+    return run_blocks(run, cfg.ntraj, block, x, callback)
+
+
+# ------------------------------------------------------------------ FT-HMC
+
+def ft_dyn_force(params, spec: FlowSpec, z, cfg: SchwingerConfig, phi,
+                 x_guess, remat: bool = False, backend: str = "kernel"):
+    """dS_eff/dz of the dynamical theory: one pull-back through the flow
+    carries the gauge and the fermion force; the CG runs on the detached
+    physical field. backend 'kernel': K7, then K1 + the fermion force at y,
+    then K8 with gl = -1 (their twins on the CPU); 'autograd': autograd
+    through the flow. Returns (force_z, CGResult)."""
+    kw = _solve_kw(cfg)
+    if backend == "kernel":
+        solved = []
+
+        def cotangent(y):
+            res = fermion.cg_solve(y, phi, cfg.mass, x_guess,
+                                   tol=cfg.cg_tol_force, **kw)
+            solved.append(res)
+            return (lattice.batch_force(y, cfg.beta)
+                    + fermion.pf_force_at(y, phi, res.x, cfg.mass,
+                                          cfg.eo_precond))
+
+        return flow_vjp_kernel(params, spec, z, cotangent), solved[0]
+    with torch.enable_grad(), full_fp32():
+        zz = z.detach().requires_grad_(True)
+        y, logj = flow_forward(params, zz, spec, remat=remat)
+        res = fermion.cg_solve(y.detach(), phi, cfg.mass, x_guess,
+                               tol=cfg.cg_tol_force, **kw)
+        s = (lattice.batch_action(y, cfg.beta)
+             + fermion.pf_action_lin(y, phi, res.x, cfg.mass, cfg.eo_precond)
+             - logj)
+        (g,) = torch.autograd.grad(s.sum(), zz)
+    return g, res
+
+
+@torch.no_grad()
+def _fthmc_step_dyn(params, spec, z, q_old, cfg, draws, remat, backend,
+                    flow, cg_log=None):
+    """fthmc_step_dyn on a resolved force backend and the caller's draws."""
+    v0, chi, u = draws
+    y0, logdet0 = flow(z)
+    phi, s_pf0 = fermion.pf_refresh_from(chi, y0, cfg.mass, cfg.eo_precond)
+
+    def force_fn(zz, x_guess):
+        guess = x_guess if cfg.warm_start else torch.zeros_like(phi)
+        f, res = ft_dyn_force(params, spec, zz, cfg, phi, guess, remat,
+                              backend)
+        _log(cg_log, "force", res)
+        return f, res.x
+
+    integ = omelyan_aux if cfg.integrator == "omelyan" else leapfrog_aux
+    z1, v1, x_sol = integ(z, v0, cfg.dt, cfg.nstep, force_fn,
+                          torch.zeros_like(phi))
+    z1 = lattice.wrap(z1)
+    y1, logdet1 = flow(z1)
+    s_pf1, res = fermion.pf_action_exact(
+        y1, phi, cfg.mass, tol=cfg.cg_tol_mh,
+        x0=x_sol if cfg.warm_start else None, **_solve_kw(cfg))
+    _log(cg_log, "mh", res)
+    dh = (lattice.delta_action(y1, y0, cfg.beta) + (s_pf1 - s_pf0)
+          - (logdet1 - logdet0) + _kinetic_delta(v1, v0))
+    exp_mdh, acc, (z_new, y_new) = _accept(dh, u, (z1, y1), (z, y0))
+    m = _metrics(dh, exp_mdh, acc, y_new, q_old)
+    return z_new, y_new, m.q, m
+
+
+def _ft_setup(params, spec, cfg, z, remat, force_backend, device):
+    """(z on the device, remat, force backend, energy flow) of an FT run;
+    refuses what JAX refuses and what is not ported."""
+    if cfg.hasenbusch_dm > 0:
+        raise ValueError("hasenbusch_dm is implemented for plain dynamical "
+                         "HMC only (hb_step_dyn); unset it for FT-HMC")
+    _check(cfg)
+    z = _on_device(device, z, params)
+    remat = resolve_remat(remat, z.shape)
+    backend = resolve_force_backend(force_backend, spec, z.shape, z.dtype,
+                                    device)
+    flow, _ = _flow_and_force(params, spec, cfg.beta, remat, backend)
+    return z, remat, backend, flow
+
+
+def fthmc_step_dyn(params, spec: FlowSpec, generator: torch.Generator,
+                   z: torch.Tensor, q_old: torch.Tensor,
+                   cfg: SchwingerConfig, remat="auto",
+                   force_backend: str = "auto", device=None,
+                   cg_log: fermion.CGLog | None = None):
+    """One batched dynamical FT-HMC trajectory in latent space z (B, 2, L,
+    L) on ``device`` (the card by default); the heatbath is on the physical
+    field y = f(z). Returns (z', y', q', metrics)."""
+    device = resolve_device(device)
+    z, remat, backend, flow = _ft_setup(params, spec, cfg, z, remat,
+                                        force_backend, device)
+    return _fthmc_step_dyn(params, spec, z, q_old.to(device), cfg,
+                           _draws(generator, z), remat, backend, flow,
+                           cg_log)
+
+
+def run_fthmc_dyn(params, spec: FlowSpec, cfg: SchwingerConfig, *,
+                  z0: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None, remat="auto",
+                  force_backend: str = "auto", device=None,
+                  cg_log: fermion.CGLog | None = None):
+    """cfg.ntraj dynamical FT-HMC trajectories from latent z0 (a hot start
+    from the generator if None) on ``device`` (the card by default).
+    Returns (z, TrajMetrics of (ntraj, B) tensors)."""
+    device, generator, z = _setup(cfg, z0, generator, device)
+    z, remat, backend, flow = _ft_setup(params, spec, cfg, z, remat,
+                                        force_backend, device)
+    with torch.no_grad():
+        q = lattice.topo_charge(flow(z)[0])
+    history = []
+    for _ in range(cfg.ntraj):
+        z, _, q, m = _fthmc_step_dyn(params, spec, z, q, cfg,
+                                     _draws(generator, z), remat, backend,
+                                     flow, cg_log)
+        history.append(m)
+    return z, _stack(history)
+
+
+def run_fthmc_dyn_chunked(params, spec: FlowSpec, cfg: SchwingerConfig, *,
+                          block: int = 128, z0: torch.Tensor | None = None,
+                          generator: torch.Generator | None = None,
+                          callback=None, remat="auto",
+                          force_backend: str = "auto", device=None,
+                          cg_log: fermion.CGLog | None = None):
+    """run_fthmc_dyn in blocks of ``block`` trajectories (see
+    run_hmc_dyn_chunked). Returns (z, TrajMetrics of CPU tensors)."""
+    device, generator, z = _setup(cfg, z0, generator, device)
+
+    def run(n, z):
+        return run_fthmc_dyn(params, spec, dataclasses.replace(cfg, ntraj=n),
+                             z0=z, generator=generator, remat=remat,
+                             force_backend=force_backend, device=device,
+                             cg_log=cg_log)
+
+    return run_blocks(run, cfg.ntraj, block, z, callback)

@@ -88,7 +88,8 @@ def test_kernels_match_plain_twins(card, spec, B, L):
                 2e-3 * max(1.0, float(gx_p.abs().max()))
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                        "K6": 8, "K7": 8, "K8": 8}
+                        "K6": 8, "K7": 8, "K8": 8, "K9": 0, "K10": 0,
+                        "K11": 0}
 
 
 def test_shared_memory_envelope(card):
@@ -195,7 +196,8 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
                zip(k4, lk.hmc_traj(x, seed, beta, dt, nstep)))
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 0, "K2": 1, "K3": int(cl), "K4": 2, "K5": 1,
-                        "K6": 0, "K7": 0, "K8": 0}
+                        "K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0,
+                        "K11": 0}
 
 
 def test_trajectory_kernels_refuse_what_they_do_not_take(card):
@@ -260,3 +262,109 @@ def test_fused_hostrng_follows_xla(card):
     (xa, _, ma), (xb, _, mb) = out["xla"], out["fused_hostrng"]
     _close_traj((xb, mb.dh, mb.acc), (xa, ma.dh, ma.acc), x, v0, u, 2.0,
                 0.1, 8)
+
+
+# ---------------------------------------------------------------------------
+# K9, K10, K11 (csrc/fermion.cu). K9 and K10 repeat their twins' arithmetic
+# op for op (explicit _rn intrinsics), so they are held to 1e-6 x max|ref|;
+# K11's two sums run in another order than torch's, so its outputs are held
+# to 1e-5 relative; CG solutions to 1e-4 relative in norm, iters within 1.
+# ---------------------------------------------------------------------------
+
+
+def _fermion_fields(card, B, L0, L1, eo, seed=0):
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    g = torch.Generator(device=card).manual_seed(seed)
+    theta = (torch.rand((B, 2, L0, L1), generator=g, device=card) * 2 - 1) \
+        * math.pi
+    psi = torch.complex(torch.randn((B, L0, L1, 2), generator=g, device=card),
+                        torch.randn((B, L0, L1, 2), generator=g, device=card))
+    if eo:
+        even, _ = fk.parity_masks(L0, L1, 1, card)
+        psi = psi * even
+    return theta, psi
+
+
+@pytest.mark.parametrize("B,L0,L1", [(4, 8, 8), (3, 8, 12), (2, 64, 64),
+                                     (2, 96, 96)])
+@pytest.mark.parametrize("eo", [False, True])
+def test_fermion_operators_match_plain_twins(card, B, L0, L1, eo):
+    """K9 (shared memory at <= 64^2, scratch at 96^2) and K10 against their
+    twins on the same planes."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    theta, psi = _fermion_fields(card, B, L0, L1, eo)
+    ur, ui = fk.link_planes(theta)
+    p4 = fk.pack_spinor(psi).contiguous()
+    before = dict(_build.LAUNCHES)
+    ref = fk.mdagm_plain(ur, ui, p4, 0.1, eo)
+    got = fk.mdagm(ur, ui, p4, 0.1, eo)
+    t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
+    got_cl = fk.mdagm_cl(t(ur), t(ui), t(p4), 0.1, eo)
+    torch.cuda.synchronize()
+    tol = 1e-6 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol
+    assert float((got_cl - t(ref)).abs().max()) <= tol
+    assert _build.LAUNCHES["K9"] == before["K9"] + 1
+    assert _build.LAUNCHES["K10"] == before["K10"] + 1
+
+
+@pytest.mark.parametrize("layout", ["cf", "cl"])
+def test_fused_cg_kernels_match_twins(card, layout):
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    from fthmc_tpu_torch import fermion as tf
+    theta, _ = _fermion_fields(card, 8, 16, 16, True, seed=3)
+    phi, _ = tf.pf_refresh(torch.Generator(device=card).manual_seed(4),
+                           theta, 0.1, eo=True)
+    _build.reset_counts()
+    got = fk.cg_solve_fused(theta, phi, 0.1, tol=1e-9, maxiter=500, eo=True,
+                            layout=layout)
+    kernel = "K10" if layout == "cl" else "K9"
+    assert _build.LAUNCHES["K11"] == got.launched
+    assert _build.LAUNCHES[kernel] == got.launched + 1
+    assert not any(_build.PLAIN_CALLS.values())
+    ref = tf.cg_solve(theta, phi, 0.1, tol=1e-9, maxiter=500, eo=True,
+                      backend="xla")
+    rel = float((got.x - ref.x).abs().norm() / ref.x.abs().norm())
+    assert rel < 1e-4 and abs(got.iters - ref.iters) <= 1
+    assert float(got.rsq.max()) <= 1e-9
+
+
+def test_cg_update_kernel_matches_twin(card):
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    g = torch.Generator(device=card).manual_seed(5)
+    for chains_last in (False, True):
+        shape = (4, 8, 8, 6) if chains_last else (6, 4, 8, 8)
+        p, x, r = (torch.randn(shape, generator=g, device=card)
+                   for _ in range(3))
+        # a positive <p, mp>, as a positive definite operator gives
+        mp = p * (1.5 + torch.rand(shape, generator=g, device=card))
+        dims = (0, 1, 2) if chains_last else (1, 2, 3)
+        rsq = (r * r).sum(dim=dims)
+        stop = rsq * torch.tensor([1e-3, 2, 1e-3, 1e-3, 2, 1e-3],
+                                  device=card)
+        bufs = [[t.clone() for t in (p, mp, x, r, rsq)] for _ in range(2)]
+        outs = []
+        for fn, (bp, bmp, bx, br, brsq) in zip(
+                (fk.cg_update, fk.cg_update_plain), bufs):
+            c = torch.zeros(2, dtype=torch.int32, device=card)
+            fn(bp, bmp, bx, br, brsq, stop, c, 3, chains_last)
+            outs.append((bp, bx, br, brsq, c))
+        torch.cuda.synchronize()
+        for a, b in zip(outs[0][:4], outs[1][:4]):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        assert torch.equal(outs[0][4], outs[1][4])
+
+
+def test_fermion_kernels_refuse_what_they_do_not_take(card):
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    from fthmc_tpu_torch import fermion as tf
+    theta, psi = _fermion_fields(card, 2, 8, 8, False)
+    ur, ui = fk.link_planes(theta)
+    p4 = fk.pack_spinor(psi).contiguous()
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError):
+        fk.mdagm(ur.double(), ui.double(), p4.double(), 0.1, True)
+    with pytest.raises(ValueError, match="even sides"):
+        th7, ps7 = _fermion_fields(card, 2, 8, 7, False)
+        tf.cg_solve(th7, ps7, 0.1, tol=1e-8, maxiter=10)   # 'auto': fused
+    assert dict(_build.LAUNCHES) == before

@@ -79,6 +79,39 @@ def test_entry_points_raise_without_cuda(no_cuda):
         th.ft_force(params, spec, z, 1.0, device="meta")
 
 
+def test_fermion_entry_points_raise_without_cuda(no_cuda):
+    """The dynamical-fermion samplers default to the card and raise
+    without one; with device='cpu' they run there."""
+    from fthmc_tpu_torch import fermion as tf
+    from fthmc_tpu_torch import schwinger as ts
+    spec = FlowSpec(n_layers=1, coupling="rncp", n_mixture=2,
+                    hidden_sizes=(4,))
+    params = init_flow_params(spec, torch.Generator().manual_seed(0),
+                              device="cpu")
+    cfg = ts.SchwingerConfig(L=4, beta=1.0, mass=0.5, tau=0.1, nstep=1,
+                             n_chains=2, ntraj=1, cg_maxiter=50)
+    x = torch.zeros((2, 2, 4, 4))
+    q = torch.zeros(2)
+    calls = [
+        lambda **kw: ts.hmc_step_dyn(torch.Generator(), x, q, cfg, **kw),
+        lambda **kw: ts.run_hmc_dyn(cfg, generator=torch.Generator(), **kw),
+        lambda **kw: ts.run_hmc_dyn_chunked(cfg, generator=torch.Generator(),
+                                            **kw),
+        lambda **kw: ts.fthmc_step_dyn(params, spec, torch.Generator(), x,
+                                       q, cfg, **kw),
+        lambda **kw: ts.run_fthmc_dyn(params, spec, cfg, z0=x,
+                                      generator=torch.Generator(), **kw),
+        lambda **kw: ts.run_fthmc_dyn_chunked(params, spec, cfg, z0=x,
+                                              generator=torch.Generator(),
+                                              **kw),
+        lambda **kw: tf.parity_mask((4, 4, 2), 0, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+
+
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):
     (tmp_path / "chip_smoke.py").write_text(
         (ROOT / "chip_smoke.py").read_text())

@@ -10,9 +10,11 @@ Phases, each printed on its own line:
   3. each kernel against its plain PyTorch twin on the card: K1, K6, K7, K8
      at the flagship FT-HMC shapes (16^2, 64 chains, 24-layer rncp, hidden
      (32, 32), 8 components, s_clip 3) on every layer of the flow (all eight
-     (mu, off) masks), TF32 off, then the whole kernel force chain against
-     the autograd force; K2, K4, K5 at the plain-HMC headline shapes (64^2,
-     1024 chains, beta=6, dt=0.04, 25 steps) and K3 at 32^2, 1024 chains;
+     (mu, off) masks), K6-K8 also at path C's (16^2, 128 chains) on every
+     layer and at 64^2, 8 chains on one, TF32 off, then the whole kernel
+     force chain against the autograd force; K2, K4, K5 at the plain-HMC
+     headline shapes (64^2, 1024 chains, beta=6, dt=0.04, 25 steps) and K3
+     at 32^2, 1024 chains;
      K5 also against hmc_step's 'xla' path on the same draws;
   4. the FT-HMC path: flagship FT-HMC with the trained flow at 16^2,
      beta=6, tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0),
@@ -25,7 +27,12 @@ Phases, each printed on its own line:
      (K5), and K3's 'pallas_cl' at 32^2; each run's launch counters (set to
      0 just before it) and physics checks;
   7. timings with CUDA events: every kernel and its plain twin, the kernel
-     force chain against the autograd force, K2 against K3 over L (the
+     force chain against the autograd force, K6-K8 at the three shapes of
+     phase 3 (launched on prepared pointers, and through their wrappers)
+     beside cuDNN running the same layer's convs (a yardstick) and the
+     host's microseconds a wrapper call, K6-K8 under every band plan at
+     those shapes (the "band_plans" line), the flagship FT-HMC's device
+     busy share over two trajectories, K2 against K3 over L (the
      'auto' rule), FT-HMC chain-steps/s, and the headline's chain-steps/s
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
@@ -58,6 +65,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fthmc_tpu_torch import fermion as tf
 from fthmc_tpu_torch import lattice
@@ -69,9 +77,13 @@ from fthmc_tpu_torch.ops import _build, rng
 from fthmc_tpu_torch.ops import fermion_kernels as fk
 from fthmc_tpu_torch.ops import lattice_kernels as lk
 from fthmc_tpu_torch.ops.conv import full_fp32
-from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
-                                                  coupling_forward_plain)
-from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
+from fthmc_tpu_torch.ops.coupling_kernels import (band_plan,
+                                                  coupling_forward,
+                                                  coupling_forward_plain,
+                                                  forward_call, launch_args,
+                                                  scratch_for, sm_count)
+from fthmc_tpu_torch.ops.coupling_vjp_kernels import (bwd_call,
+                                                      coupling_bwd,
                                                       coupling_bwd_plain,
                                                       coupling_fwd_res,
                                                       coupling_fwd_res_plain,
@@ -84,6 +96,11 @@ from fthmc_tpu_torch.weights import load_flow_npz
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
 N_THERM, N_MEAS = 32, 96
 TIMED_LAYER = 1               # the coupling layer the kernels are timed on
+# (chains, L, layers) at which K6-K8 are held against their twins and
+# timed: the flagship's shape and path C's on every layer of the flow, and
+# 64^2 (8-row bands) on the timed layer; each shape a band plan of its own
+COUPLING_SHAPES = {"flagship": (B, L, None), "path_C": (128, 16, None),
+                   "L64": (8, 64, (TIMED_LAYER,))}
 # The JAX package's own run of this configuration (trained flow, 16^2,
 # beta=6, tau=0.5, 8 Omelyan steps, 64 chains, cold start, 4608 measured
 # trajectories; artifacts/round3/tauint_b6_ft_t05n8.json) accepted 0.827
@@ -306,6 +323,122 @@ def traj_bounds(B: int, L: int, nstep: int) -> dict:
             "K5": (3 * field + 12 * B,         # x, v0, u in; x', dh, acc out
                    lf + sites * ENERGY_OPS)}
     return {k: _bound(nbytes, flops) for k, (nbytes, flops) in work.items()}
+
+
+def coupling_inputs(g: torch.Generator, B: int, L: int, dev):
+    """Uniform links x, cotangents gy (links) and gl (logJ) of B chains."""
+    x = (torch.rand((B, 2, L, L), generator=g, device=dev) * 2 - 1) * math.pi
+    gy = torch.randn((B, 2, L, L), generator=g, device=dev)
+    gl = torch.randn((B,), generator=g, device=dev)
+    return x, gy, gl
+
+
+def compare_coupling(params, spec, x, gy, gl, layers=None) -> dict:
+    """K6, K7, K8 against their twins on ``layers`` (default every layer,
+    so every (mu, off) of the path): (error, tolerance) pairs by kernel.
+    fx within 1e-4 wrapped, logJ 1e-4 x max(1, max|ref|), each residual
+    1e-4 x max(1, max|ref|), gx 2e-3 x max(1, max|ref|); K6's and K7's
+    logJ equal (one kernel, a fixed summation order)."""
+    pairs = {"K6": [], "K7": [], "K8": []}
+    for li in (range(len(params)) if layers is None else layers):
+        layer, (mu, off) = params[li], layer_mask_params(li)
+        fx, lj = coupling_forward(layer, x, mu, off, spec)
+        fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
+        lscale = max(1.0, float(lj_p.abs().max()))
+        pairs["K6"] += [(wrapped_err(fx, fx_p), 1e-4),
+                        (float((lj - lj_p).abs().max()), 1e-4 * lscale)]
+        fx7, lj7, res = coupling_fwd_res(layer, x, mu, off, spec)
+        fx7_p, lj7_p, res_p = coupling_fwd_res_plain(layer, x, mu, off, spec)
+        require(torch.equal(lj, lj7), f"K6 and K7 logJ differ, layer {li}")
+        pairs["K7"] += [(wrapped_err(fx7, fx7_p), 1e-4),
+                        (float((lj7 - lj7_p).abs().max()), 1e-4 * lscale)]
+        pairs["K7"] += [(float((r - r_p).abs().max()),
+                         1e-4 * max(1.0, float(r_p.abs().max())))
+                        for r, r_p in zip(res, res_p)]
+        gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+        gx_p = coupling_bwd_plain(layer, x, res_p, gy, gl, mu, off, spec)
+        pairs["K8"].append((float((gx - gx_p).abs().max()),
+                            2e-3 * max(1.0, float(gx_p.abs().max()))))
+    for k, pr in pairs.items():
+        require(all(e <= t for e, t in pr), f"{k} vs plain: {pr}")
+    return pairs
+
+
+def conv_chain_cudnn_ms(layer, B: int, L: int, dev) -> float:
+    """A yardstick only, never called by the port: one layer's convs as
+    cuDNN F.conv2d calls on circularly padded inputs, TF32 off, no
+    activations (no single library call computes K6-K8)."""
+    h = torch.randn((B, 2, L, L), device=dev)
+
+    def run():
+        a = h
+        for p in layer:
+            a = F.conv2d(F.pad(a, (1, 1, 1, 1), mode="circular"), p["w"],
+                         p["b"])
+        return a
+    with full_fp32():
+        return cuda_ms(run)
+
+
+def coupling_card_ms(layer, spec, x, gy, gl, mu: int, off: int,
+                     plan=None) -> dict:
+    """The card's time (ms) of K6, K7 and K8 on one layer under the band
+    plan ``plan`` (C, row0), by default band_plan's: each launched through
+    ``forward_call`` / ``bwd_call`` on outputs allocated once, as the FT
+    force and the energy flows launch them, so no wrapper's host time paces
+    the loop."""
+    a = launch_args("chip_smoke K6-K8 timing", layer, x, spec, plan)
+    fx, logj, gx = torch.empty_like(x), x.new_empty(a.B), torch.empty_like(x)
+    res = tuple(x.new_empty(s) for s in a.res_shapes)
+    _keep, scratch = scratch_for(a, x)
+    rp, stream = _build.ptr_array(res), _build.stream_handle(x)
+    ptrs = (x.data_ptr(), fx.data_ptr(), logj.data_ptr())
+    return {"K6": cuda_ms(lambda: forward_call(a, *ptrs, None, scratch, mu,
+                                               off, stream)),
+            "K7": cuda_ms(lambda: forward_call(a, *ptrs, rp, scratch, mu,
+                                               off, stream)),
+            "K8": cuda_ms(lambda: bwd_call(a, x.data_ptr(), gy.data_ptr(),
+                                           gl.data_ptr(), gx.data_ptr(), rp,
+                                           scratch, mu, off, stream))}
+
+
+def coupling_wrapper_ms(layer, spec, x, gy, gl, mu: int, off: int) -> dict:
+    """K6, K7 and K8 timed through their public wrappers (new outputs every
+    call, the host's time included where it exceeds the card's), as the
+    kernels' first CUDA versions were timed."""
+    _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
+    return {"K6": cuda_ms(lambda: coupling_forward(layer, x, mu, off, spec)),
+            "K7": cuda_ms(lambda: coupling_fwd_res(layer, x, mu, off, spec)),
+            "K8": cuda_ms(lambda: coupling_bwd(layer, x, res, gy, gl, mu, off,
+                                               spec))}
+
+
+def band_plan_sweep(layer, spec, cin, mu: int, off: int, n_sm: int) -> dict:
+    """coupling_card_ms under every band plan of C = 1, 2, 4, 8 even bands
+    (of at least 2 rows) at each shape of COUPLING_SHAPES, beside the C
+    band_plan picks: the measurement behind band_plan's rule."""
+    out = {}
+    for name, (cb, cl, _) in COUPLING_SHAPES.items():
+        row = {"chains": cb, "L": cl, "picked": band_plan(cl, cb, n_sm)[0]}
+        for C in (1, 2, 4, 8):
+            if cl // C >= 2:
+                plan = (C, tuple(r * cl // C for r in range(C + 1)))
+                row[C] = coupling_card_ms(layer, spec, *cin[name], mu, off,
+                                          plan)
+        out[name] = row
+    return out
+
+
+def host_us_per_call(fn, n: int = 200) -> float:
+    """Host time of one call (enqueue, no synchronize inside), over n."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def near_equilibrium(g: torch.Generator, B: int, L: int, beta: float,
@@ -840,38 +973,22 @@ def main() -> None:
     # 3. kernels against their plain twins, flagship shapes
     params, spec = load_flow_npz(device=dev)
     g = torch.Generator(device=dev).manual_seed(2026)
-    x = (torch.rand((B, 2, L, L), generator=g, device=dev) * 2 - 1) * math.pi
-    gy = torch.randn((B, 2, L, L), generator=g, device=dev)
-    gl = torch.randn((B,), generator=g, device=dev)
+    cin = {name: coupling_inputs(g, cb, cl, dev)
+           for name, (cb, cl, _) in COUPLING_SHAPES.items()}
+    x, gy, gl = cin["flagship"]
     errs, tols = {}, {}
     with full_fp32():
         f_ref = force_plain(x, BETA)
         errs["K1"] = float((force(x, BETA) - f_ref).abs().max())
         tols["K1"] = 1e-4 * max(1.0, float(f_ref.abs().max()))
-        e6, e7, e8 = [], [], []
-        for li, layer in enumerate(params):   # every (mu, off) of the path
-            mu, off = layer_mask_params(li)
-            fx, lj = coupling_forward(layer, x, mu, off, spec)
-            fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
-            lscale = max(1.0, float(lj_p.abs().max()))
-            e6 += [(wrapped_err(fx, fx_p), 1e-4),
-                   (float((lj - lj_p).abs().max()), 1e-4 * lscale)]
-            fx7, lj7, res = coupling_fwd_res(layer, x, mu, off, spec)
-            fx7_p, lj7_p, res_p = coupling_fwd_res_plain(layer, x, mu, off,
-                                                         spec)
-            e7 += [(wrapped_err(fx7, fx7_p), 1e-4),
-                   (float((lj7 - lj7_p).abs().max()), 1e-4 * lscale)]
-            e7 += [(float((r - r_p).abs().max()),
-                    1e-4 * max(1.0, float(r_p.abs().max())))
-                   for r, r_p in zip(res, res_p)]
-            gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
-            gx_p = coupling_bwd_plain(layer, x, res_p, gy, gl, mu, off, spec)
-            e8.append((float((gx - gx_p).abs().max()),
-                       2e-3 * max(1.0, float(gx_p.abs().max()))))
-        for k, pairs in (("K6", e6), ("K7", e7), ("K8", e8)):
-            errs[k] = max(e for e, _ in pairs)
-            require(all(e <= t for e, t in pairs), f"{k} vs plain: {pairs}")
-            tols[k] = min(t for _, t in pairs)
+        by_shape = {}
+        for name, (_, _, layers) in COUPLING_SHAPES.items():
+            pairs = compare_coupling(params, spec, *cin[name], layers)
+            by_shape[name] = {k: max(e for e, _ in pr)
+                              for k, pr in pairs.items()}
+            for k, pr in pairs.items():
+                errs[k] = max(errs.get(k, 0.0), max(e for e, _ in pr))
+                tols[k] = min(tols.get(k, math.inf), min(t for _, t in pr))
         require(errs["K1"] <= tols["K1"], f"K1 vs plain: {errs['K1']}")
         f_k = ft_force_kernel(params, spec, x, BETA)
         f_a = ft_force(params, spec, x, BETA, device=dev)
@@ -881,6 +998,8 @@ def main() -> None:
         require(bool(torch.isfinite(f_k).all()), "kernel force not finite")
         require(chain_err <= chain_tol, f"force chain: {chain_err}")
     say("compare", max_abs_err=errs, tolerance=tols,
+        coupling_max_abs_err_by_shape=by_shape,
+        coupling_shapes=COUPLING_SHAPES,
         ft_force_kernel_vs_autograd={"max_abs_err": chain_err,
                                      "tolerance": chain_tol})
     e_h, t_h, info, (xh, vh, uh, seed, x3, v3) = \
@@ -946,12 +1065,8 @@ def main() -> None:
     _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
     with full_fp32():
         ms = {"K1": cuda_ms(lambda: force(x, BETA)),
-              "K6": cuda_ms(lambda: coupling_forward(layer, x, mu, off,
-                                                     spec)),
-              "K7": cuda_ms(lambda: coupling_fwd_res(layer, x, mu, off,
-                                                     spec)),
-              "K8": cuda_ms(lambda: coupling_bwd(layer, x, res, gy, gl, mu,
-                                                 off, spec))}
+              **coupling_card_ms(layer, spec, x, gy, gl, mu, off)}
+        wrapper_ms = coupling_wrapper_ms(layer, spec, x, gy, gl, mu, off)
         plain_ms = {
             "K1": cuda_ms(lambda: force_plain(x, BETA)),
             "K6": cuda_ms(lambda: coupling_forward_plain(layer, x, mu, off,
@@ -962,6 +1077,9 @@ def main() -> None:
                                                      mu, off, spec))}
         force_kernel_ms = cuda_ms(
             lambda: ft_force_kernel(params, spec, x, BETA), reps=3)
+        # the host's share: a force's enqueue time, no synchronize inside
+        force_host_ms = host_us_per_call(
+            lambda: ft_force_kernel(params, spec, x, BETA), n=10) / 1e3
         force_autograd_ms = cuda_ms(
             lambda: ft_force(params, spec, x, BETA, device=dev), reps=3)
     t0 = time.perf_counter()
@@ -970,11 +1088,43 @@ def main() -> None:
               generator=gen, integrator="omelyan", device=dev)
     torch.cuda.synchronize()
     t_traj = (time.perf_counter() - t0) / n_timed
-    say("timing", kernel_ms=ms, plain_ms=plain_ms,
+    ft_busy = profile_busy(
+        lambda: run_fthmc(params, spec, lf, beta=BETA, ntraj=2, z0=z,
+                          generator=gen, integrator="omelyan", device=dev),
+        2, t_traj)
+    coupling_ms = {}
+    for name, (cb, cl, _) in COUPLING_SHAPES.items():
+        cx, cgy, cgl = cin[name]
+        _, _, cres = coupling_fwd_res(layer, cx, mu, off, spec)
+        with full_fp32():
+            coupling_ms[name] = {
+                "chains": cb, "L": cl,
+                **coupling_card_ms(layer, spec, cx, cgy, cgl, mu, off),
+                "wrapper_ms": coupling_wrapper_ms(layer, spec, cx, cgy, cgl,
+                                                  mu, off),
+                "conv_chain_cudnn_ms": conv_chain_cudnn_ms(layer, cb, cl,
+                                                           dev),
+                "host_us_per_call": {
+                    "K6": host_us_per_call(lambda: coupling_forward(
+                        layer, cx, mu, off, spec)),
+                    "K7": host_us_per_call(lambda: coupling_fwd_res(
+                        layer, cx, mu, off, spec)),
+                    "K8": host_us_per_call(lambda: coupling_bwd(
+                        layer, cx, cres, cgy, cgl, mu, off, spec))}}
+    with full_fp32():
+        plans = band_plan_sweep(layer, spec, cin, mu, off,
+                                sm_count(torch.cuda.current_device()))
+    say("band_plans", layer=TIMED_LAYER, kernel_ms_by_plan=plans)
+    say("timing", kernel_ms=ms, kernel_wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms,
         ft_force_kernel_ms=force_kernel_ms,
+        ft_force_kernel_host_ms=force_host_ms,
+        ft_force_host_us_per_launch=force_host_ms * 1e3 / (
+            2 * spec.n_layers + 1),
         ft_force_autograd_ms=force_autograd_ms,
         s_per_trajectory=t_traj,
-        fthmc_chain_steps_per_s=B * NSTEP / t_traj)
+        fthmc_chain_steps_per_s=B * NSTEP / t_traj,
+        coupling_by_shape=coupling_ms, fthmc_device_busy=ft_busy)
     hc = HMC_CFG
     hargs = (hc.beta, hc.dt, hc.nstep)
     ms.update({"K2": cuda_ms(lambda: lk.leapfrog(xh, vh, *hargs)),

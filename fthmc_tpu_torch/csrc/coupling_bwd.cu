@@ -5,208 +5,320 @@
 // pre-activations and the raw conditioner output), the cotangent gy of the
 // layer output and gl of its logJ, it returns gx. No parameter gradients and
 // no conv recompute: the activation gates come from the stored
-// pre-activations. One block per chain, in three stages:
-//   A. per site: the link-lift and mixture-transform backward, giving the
-//      cotangents of the conditioner outputs (s, r, t) and the direct part
-//      of the plaquette cotangent. It keeps the value path's +-30 hard clip
-//      (zero gradient outside), logJ's detached |s| and the s_clip chain
-//      rule (d/ds c*tanh(s/c) = 1 - (s_clipped/c)^2).
-//   B. the transposed 3x3 conv chain, last conv first, each hidden cotangent
-//      gated by act'(pre); the first conv's (cos, sin) cotangents fold into
-//      the plaquette cotangent on the frozen stripe.
-//   C. the plaquette-stencil transpose:
-//      gx0(i,j) = gy0 + gp(i,j) - gp(i,j-1), gx1(i,j) = gy1 + gp(i-1,j) - gp(i,j).
+// pre-activations. One cluster a chain, a band of rows a CTA, as K7
+// (coupling_common.cuh), in three stages:
+//   A. per own site: the link-lift and mixture-transform backward, giving
+//      the cotangents of the conditioner outputs (s, r, t), which land in
+//      the band planes, and the direct part of the plaquette cotangent gp.
+//      It keeps the value path's +-30 hard clip (zero gradient outside),
+//      logJ's detached |s| and the s_clip chain rule (d/ds c*tanh(s/c) =
+//      1 - (s_clipped/c)^2).
+//   B. the transposed 3x3 conv chain, last conv first, the cotangent
+//      staying in the band planes (halo rows from the neighbours between
+//      convs); each hidden cotangent is gated by act'(pre), the
+//      pre-activations loaded from K7's residuals before the sums start;
+//      the first conv's (cos, sin) cotangents fold into gp on the frozen
+//      stripe.
+//   C. the plaquette-stencil transpose, gp's row above the band read from
+//      the band above:
+//      gx0(i,j) = gy0 + gp(i,j) - gp(i,j-1),
+//      gx1(i,j) = gy1 + gp(i-1,j) - gp(i,j).
 // Bound: the transposed conv chain's flops, as K7's.
 #include "coupling_common.cuh"
 
-// Stage A at one active site: writes the conditioner-output cotangents
-// (channel stride LL) and returns the cotangent of the active plaquette
-// through the transform (including the rncp identity term).
-__device__ float transform_site_grad(const float* raw, float* g_out, int LL,
-                                     float p, float g_f, float g_lj,
-                                     const Layer& ly) {
+// Stage A at one site, its components m = sub, sub + tps, ... taken by
+// lane sub of a group of tps lanes (every lane of the warp calls it; active
+// is the same for a group): on the active stripe, writes the
+// conditioner-output cotangents of its components (channel stride gs) and
+// returns, on every lane of the group, the cotangent of the active
+// plaquette through the transform (including the rncp identity term); the
+// t channel is the caller's. raw has channel stride cs.
+__device__ float transform_site_grad(const float* raw, int cs, float* g_out,
+                                     int gs, float p, float g_f, float g_lj,
+                                     bool active, const Layer& ly, int sub,
+                                     int tps) {
   const int M = ly.M;
   const float inv_m = 1.f / static_cast<float>(M);
   // pass 1: the logsumexp of the component log-Jacobians
   float mx = -INFINITY, se = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const float s = clipped_s(raw[m * LL], ly.s_clip);
-    const float y = ly.rncp ? wrap_pi(p - raw[(M + m) * LL]) : p;
-    const float l = tan_logj(s, cosf(0.5f * y), sinf(0.5f * y));
-    if (l > mx) {
-      se = se * expf(mx - l) + 1.f;
-      mx = l;
-    } else {
-      se += expf(l - mx);
+  if (active) {
+    for (int m = sub; m < M; m += tps) {
+      const float s = clipped_s(raw[m * cs], ly.s_clip);
+      const float y = ly.rncp ? wrap_pi(p - raw[(M + m) * cs]) : p;
+      lse_add(tan_logj(s, cosf(0.5f * y), sinf(0.5f * y)), mx, se);
     }
   }
+  group_lse(mx, se, tps);
   // pass 2: per-component cotangents
-  float g_xa = ly.rncp ? g_f : 0.f;
+  float g_xa = 0.f;
   const float g_hy = g_f * inv_m;
-  for (int m = 0; m < M; ++m) {
-    const float s = clipped_s(raw[m * LL], ly.s_clip);
-    const float y = ly.rncp ? wrap_pi(p - raw[(M + m) * LL]) : p;
-    const float cy = cosf(0.5f * y), sy = sinf(0.5f * y);
-    const float sc = fminf(fmaxf(s, -HARD_CLIP), HARD_CLIP);
-    const float gate = fabsf(s) < HARD_CLIP ? 1.f : 0.f;
-    const float e = expf(sc);
-    const float dh_dy = e / (cy * cy + (e * e) * (sy * sy));
-    const float dh_ds = (2.f * sy * cy) * dh_dy * gate;
-    const float mabs = fabsf(s);
-    const float ep = expf(s - mabs), en = expf(-s - mabs);
-    const float inner = en * cy * cy + ep * sy * sy;
-    const float l = -(mabs + logf(inner + TINY));
-    const float inv_inner = 1.f / (inner + TINY);
-    const float dlj_dy = -(sy * cy) * (ep - en) * inv_inner;
-    const float dlj_ds = (en * cy * cy - ep * sy * sy) * inv_inner;
-    const float g_l = g_lj * (expf(l - mx) / se);
-    float g_y = g_hy * dh_dy + g_l * dlj_dy;
-    if (ly.rncp) g_y -= g_hy;  // the mixture sums h(y) - y
-    float g_s = g_hy * dh_ds + g_l * dlj_ds;
-    g_xa += g_y;
-    if (ly.rncp) g_out[(M + m) * LL] = -g_y;
-    if (ly.s_clip > 0.f) {
-      const float u = s / ly.s_clip;
-      g_s *= 1.f - u * u;
+  if (active) {
+    for (int m = sub; m < M; m += tps) {
+      const float s = clipped_s(raw[m * cs], ly.s_clip);
+      const float y = ly.rncp ? wrap_pi(p - raw[(M + m) * cs]) : p;
+      const float cy = cosf(0.5f * y), sy = sinf(0.5f * y);
+      const float sc = fminf(fmaxf(s, -HARD_CLIP), HARD_CLIP);
+      const float gate = fabsf(s) < HARD_CLIP ? 1.f : 0.f;
+      const float e = expf(sc);
+      const float dh_dy = e / (cy * cy + (e * e) * (sy * sy));
+      const float dh_ds = (2.f * sy * cy) * dh_dy * gate;
+      const float mabs = fabsf(s);
+      const float ep = expf(s - mabs), en = expf(-s - mabs);
+      const float inner = en * cy * cy + ep * sy * sy;
+      const float l = -(mabs + logf(inner + TINY));
+      const float inv_inner = 1.f / (inner + TINY);
+      const float dlj_dy = -(sy * cy) * (ep - en) * inv_inner;
+      const float dlj_ds = (en * cy * cy - ep * sy * sy) * inv_inner;
+      const float g_l = g_lj * (expf(l - mx) / se);
+      float g_y = g_hy * dh_dy + g_l * dlj_dy;
+      if (ly.rncp) g_y -= g_hy;  // the mixture sums h(y) - y
+      float g_s = g_hy * dh_ds + g_l * dlj_ds;
+      g_xa += g_y;
+      if (ly.rncp) g_out[(M + m) * gs] = -g_y;
+      if (ly.s_clip > 0.f) {
+        const float u = s / ly.s_clip;
+        g_s *= 1.f - u * u;
+      }
+      g_out[m * gs] = g_s;
     }
-    g_out[m * LL] = g_s;
   }
-  g_out[(ly.rncp ? 2 * M : M) * LL] = g_f;  // t
-  return g_xa;
+  g_xa = group_sum(g_xa, tps);
+  return ly.rncp ? g_f + g_xa : g_xa;
 }
 
+template <bool SM>
+__device__ __forceinline__ float load_peer(const float* p) {
+  if constexpr (SM) {
+    return *p;
+  } else {  // written by another SM: past L1
+    return __ldcg(p);
+  }
+}
+
+// The epilogue of a hidden transposed conv: the cotangent gated by
+// act'(pre) into the output planes, pre loaded before the sums start.
+struct GateEpi {
+  float* out;         // output planes
+  const float* pre;   // this chain's pre-activations of the conv's input
+  int rout, L, r0, rs, plane, act;
+
+  __device__ __forceinline__ void gate(int o0, int r, int j0,
+                                       float (&g)[KO][KS]) const {
+    const int i = r0 + r;
+#pragma unroll
+    for (int k = 0; k < KO; ++k)
+#pragma unroll
+      for (int q = 0; q < KS / 4; ++q) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (o0 + k < rout)
+          v = __ldg(reinterpret_cast<const float4*>(
+              pre + ((o0 + k) * L + i) * L + j0 + 4 * q));
+        g[k][4 * q] = v.x;
+        g[k][4 * q + 1] = v.y;
+        g[k][4 * q + 2] = v.z;
+        g[k][4 * q + 3] = v.w;
+      }
+  }
+
+  __device__ __forceinline__ void store(int o0, int r, int j0,
+                                        const float (&acc)[KO][KS],
+                                        const float (&g)[KO][KS]) const {
+#pragma unroll
+    for (int k = 0; k < KO; ++k) {
+      const int o = o0 + k;
+      if (o < rout) {
+        float a[KS];
+#pragma unroll
+        for (int s = 0; s < KS; ++s) a[s] = acc[k][s] * act_grad(act, g[k][s]);
+        float* row = out + o * plane + (r + 1) * rs + COL0;
+#pragma unroll
+        for (int q = 0; q < KS / 4; ++q)
+          *reinterpret_cast<float4*>(row + j0 + 4 * q) =
+              make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+        if (j0 == 0) row[L] = a[0];
+        if (j0 + KS == L) row[-1] = a[KS - 1];
+      }
+    }
+  }
+};
+
+// The epilogue of the first conv's transpose: d/dx2 of (cos x2, sin x2),
+// x2 = p on the frozen stripe, added to gp.
+struct FeatureEpi {
+  float* gp;          // (R + 2) x L, own rows 1..R
+  const float* xb;    // this chain's links
+  int L, r0, mu, off;
+
+  __device__ __forceinline__ void gate(int, int, int,
+                                       float (&)[KO][KS]) const {}
+
+  __device__ __forceinline__ void store(int o0, int r, int j0,
+                                        const float (&acc)[KO][KS],
+                                        const float (&)[KO][KS]) const {
+    if (o0 != 0) return;
+    const int i = r0 + r;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int j = j0 + s;
+      const int st = stripe(i, j, mu, off);
+      if (st == 1 || st == 2) {
+        const float p = plaq_at(xb, i, j, L);
+        gp[(r + 1) * L + j] += -sinf(p) * acc[0][s] + cosf(p) * acc[1][s];
+      }
+    }
+  }
+};
+
+template <bool SM>
 __global__ void __launch_bounds__(THREADS)
     coupling_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ gy,
                         const float* __restrict__ gl, float* __restrict__ gx,
-                        Net net, Bufs res, float* __restrict__ scratch0,
-                        float* __restrict__ scratch1, float* __restrict__ gp,
-                        int cmax, Layer ly) {
+                        Net net, Bufs res, Layer ly, Bands bands,
+                        SmemLayout sl, float* scratch) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const SmemLayout sl = smem_layout(net, ly.TW);
-  float* w_s = smem + sl.w;
-  float* b_s = smem + sl.b;
-  float* tile = smem + sl.tile;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Band bd = band_of<SM>(bands, sl, smem, scratch);
+  const int L = ly.L, LL = L * L, n = net.n_convs;
+  const int cn = net.width[n];
+  const float* xb = x + static_cast<size_t>(bd.b) * 2 * LL;
+  const float* gyb = gy + static_cast<size_t>(bd.b) * 2 * LL;
+  const float* rawb = res.act[n - 1] + static_cast<size_t>(bd.b) * cn * LL;
+  float* const buf0 = bd.region;
+  float* const buf1 = bd.region + sl.cmax * sl.plane;
+  float* gp = bd.region + sl.gp;  // (R + 2) x L: own rows 1..R, 0 above
+  const float glb = gl[bd.b];
 
-  const int L = ly.L, LL = L * L;
-  const int b = blockIdx.x;
-  const int n = net.n_convs;
-  const float* xb = x + static_cast<size_t>(b) * 2 * LL;
-  const float* gyb = gy + static_cast<size_t>(b) * 2 * LL;
-  const float* raw = res.act[n - 1] + static_cast<size_t>(b) * net.width[n] * LL;
-  float* gin = scratch0 + static_cast<size_t>(b) * cmax * LL;
-  float* gnext = scratch1 + static_cast<size_t>(b) * cmax * LL;
-  float* gpb = gp + static_cast<size_t>(b) * LL;
-  const float glb = gl[b];
-
-  // A: transform and link-lift backward
-  for (int s = threadIdx.x; s < LL; s += blockDim.x) {
-    const int i = s / L, j = s - (s / L) * L;
-    const bool active = stripe(i, j, ly.mu, ly.off) == 0;
-    float gpart = 0.f;
-    if (active) {
-      // fx_mu = wrap(x_mu +- delta): the cotangent of delta
-      const float g_delta = ly.mu == 0 ? gyb[s] : -gyb[LL + s];
-      const float p = plaq_at(xb, i, j, L);
-      const float g_xa =
-          transform_site_grad(raw + s, gin + s, LL, p, g_delta, glb, ly);
-      gpart = -g_delta + g_xa;
-    } else {
-      for (int c = 0; c < net.width[n]; ++c) gin[c * LL + s] = 0.f;
-    }
-    gpb[s] = gpart;
-  }
-
-  // B: transposed conv chain
-  for (int l = n - 1; l >= 0; --l) {
-    const int rin = net.width[l + 1], rout = net.width[l];
-    __syncthreads();  // stage A / the previous conv is done
-    stage_weights(net.w[l], nullptr, rin, rout, true, w_s, b_s);
-    const float* g = gin;
-    auto load = [&](int c, int i, int j) { return g[c * LL + i * L + j]; };
-    if (l > 0) {
-      const float* pre = res.act[l - 1] + static_cast<size_t>(b) * rout * LL;
-      float* o = gnext;
-      auto store = [&](int o0, int i, int j, const float(&acc)[OC]) {
-        const int s = i * L + j;
-#pragma unroll
-        for (int k = 0; k < OC; ++k)
-          if (o0 + k < rout)
-            o[(o0 + k) * LL + s] =
-                acc[k] * act_grad(ly.act, pre[(o0 + k) * LL + s]);
-      };
-      conv3x3(rin, rout, w_s, b_s, tile, ly, load, store);
-      float* tmp = gin;
-      gin = gnext;
-      gnext = tmp;
-    } else {
-      // d/dx2 of (cos x2, sin x2), x2 = p on the frozen stripe
-      auto store = [&](int o0, int i, int j, const float(&acc)[OC]) {
-        const int st = stripe(i, j, ly.mu, ly.off);
-        if (o0 == 0 && (st == 1 || st == 2)) {
-          const float p = plaq_at(xb, i, j, L);
-          gpb[i * L + j] += -sinf(p) * acc[0] + cosf(p) * acc[1];
-        }
-      };
-      conv3x3(rin, rout, w_s, b_s, tile, ly, load, store);
+  stage_weights(net.w[n - 1], packed_floats(cn, net.width[n - 1]), smem);
+  // A: transform and link-lift backward on the own rows, tps threads a
+  // site, every lane in every pass (the group's shuffles)
+  const int sites = bd.R * L, tps = site_threads(sites);
+  const int sub = threadIdx.x % tps;
+  for (int base = 0; base < sites; base += THREADS / tps) {
+    const int s = base + threadIdx.x / tps;
+    const bool valid = s < sites;
+    const int r = valid ? s / L : 0, j = valid ? s - r * L : 0;
+    const int i = bd.r0 + r, q = i * L + j;
+    float* g = buf0 + (r + 1) * sl.rs + COL0 + j;
+    const bool active = valid && stripe(i, j, ly.mu, ly.off) == 0;
+    // fx_mu = wrap(x_mu +- delta): the cotangent of delta
+    const float g_delta = active ? (ly.mu == 0 ? gyb[q] : -gyb[LL + q]) : 0.f;
+    const float p = active ? plaq_at(xb, i, j, L) : 0.f;
+    const float g_xa = transform_site_grad(rawb + q, LL, g, sl.plane, p,
+                                           g_delta, glb, active, ly, sub,
+                                           tps);
+    if (valid && !active)
+      for (int c = sub; c < cn; c += tps) g[c * sl.plane] = 0.f;
+    if (valid && sub == 0) {
+      if (active) g[(ly.rncp ? 2 * ly.M : ly.M) * sl.plane] = g_delta;  // t
+      gp[(r + 1) * L + j] = active ? -g_delta + g_xa : 0.f;
     }
   }
   __syncthreads();
+  pad_columns(sl, buf0, cn, bd.R, L);
+
+  // B: transposed conv chain
+  for (int k = 0; k < n; ++k) {
+    const int l = n - 1 - k;
+    const int rin = net.width[l + 1], rout = net.width[l];
+    float* in = (k & 1) ? buf1 : buf0;
+    float* out = (k & 1) ? buf0 : buf1;
+    // the neighbours' own rows of this conv's input are written, and every
+    // CTA is done with the previous conv
+    cluster.sync();
+    if (k > 0) stage_weights(net.w[l], packed_floats(rin, rout), smem);
+    exchange_halos<SM>(bd, sl, in, rin);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    if (l > 0) {
+      GateEpi epi;
+      epi.out = out;
+      epi.pre = res.act[l - 1] + static_cast<size_t>(bd.b) * rout * LL;
+      epi.rout = rout;
+      epi.L = L;
+      epi.r0 = bd.r0;
+      epi.rs = sl.rs;
+      epi.plane = sl.plane;
+      epi.act = ly.act;
+      conv_band(rin, rout, smem, in, sl, bd.R, L, epi);
+    } else {
+      // few items (two output channels): the input channels are split
+      // between threads, the partial sums in the unused output planes
+      FeatureEpi epi;
+      epi.gp = gp;
+      epi.xb = xb;
+      epi.L = L;
+      epi.r0 = bd.r0;
+      epi.mu = ly.mu;
+      epi.off = ly.off;
+      conv_band(rin, rout, smem, in, sl, bd.R, L, epi, out,
+                sl.cmax * sl.plane);
+    }
+  }
 
   // C: plaquette-stencil transpose
-  float* gxb = gx + static_cast<size_t>(b) * 2 * LL;
-  for (int s = threadIdx.x; s < LL; s += blockDim.x) {
-    const int i = s / L, j = s - (s / L) * L;
-    const int im = (i == 0) ? L - 1 : i - 1;
+  cluster.sync();  // every band's gp is final
+  const float* gp_up = peer<SM>(bd, sl, gp, bd.up) + bd.R_up * L;
+  for (int j = threadIdx.x; j < L; j += THREADS)
+    gp[j] = load_peer<SM>(gp_up + j);
+  __syncthreads();
+  float* gxb = gx + static_cast<size_t>(bd.b) * 2 * LL;
+  for (int s = threadIdx.x; s < bd.R * L; s += THREADS) {
+    const int r = s / L, j = s - r * L;
+    const int q = (bd.r0 + r) * L + j;
     const int jm = (j == 0) ? L - 1 : j - 1;
-    gxb[s] = gyb[s] + gpb[s] - gpb[i * L + jm];
-    gxb[LL + s] = gyb[LL + s] + gpb[im * L + j] - gpb[s];
+    const float* row = gp + (r + 1) * L;
+    gxb[q] = gyb[q] + row[j] - row[jm];
+    gxb[LL + q] = gyb[LL + q] + row[j - L] - row[j];
   }
+  cluster.sync();  // no CTA leaves while its band may be read
 }
 
+static int g_bwd_smem[2][64];  // opt-in set so far, by layout and device
+
 // x, gy, gx: (B, 2, L, L); gl: (B,); res[l]: K7's residuals
-// (B, widths[l+1], L, L); scratch0/scratch1: (B, cmax, L, L) with cmax the
-// widest conv width; gp: (B, L, L). All fp32, contiguous, on the device.
+// (B, widths[l+1], L, L); scratch: B * C * ft_band_floats(...) floats of
+// device memory, or null where that is 0; (C, row0[C + 1]): the band plan;
+// limit: the card's opt-in shared memory a block, bytes; w[l]: conv l
+// packed transposed (Net). All fp32, contiguous, on the device.
 extern "C" int k8_coupling_bwd(const float* x, const float* gy,
                                const float* gl, float* gx,
-                               void* const* res, float* scratch0,
-                               float* scratch1, float* gp, int B, int L,
-                               int n_convs, const int* widths,
+                               void* const* res, float* scratch, int B,
+                               int L, int n_convs, const int* widths,
                                const void* const* w, int rncp, int M,
                                float s_clip, int activation, int mu, int off,
+                               int C, const int* row0, int limit,
                                void* stream) {
-  if (n_convs < 1 || n_convs > MAX_CONVS || L % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  Bands bands;
   Net net;
+  int R = 0;
+  if (B < 1 || !bands_from(C, row0, L, &R, &bands) ||
+      !net_from(n_convs, widths, L, R, &net))
+    return static_cast<int>(cudaErrorInvalidValue);
   Bufs bufs;
-  net.n_convs = n_convs;
-  int cmax = 0;
-  for (int l = 0; l <= n_convs; ++l) {
-    net.width[l] = widths[l];
-    cmax = widths[l] > cmax ? widths[l] : cmax;
-  }
-  for (int l = 0; l < n_convs; ++l) {
-    net.w[l] = static_cast<const float*>(w[l]);
-    net.b[l] = nullptr;
-    bufs.act[l] = static_cast<float*>(res[l]);
+  for (int l = 0; l < MAX_CONVS; ++l) {
+    net.w[l] = l < n_convs ? static_cast<const float*>(w[l]) : nullptr;
+    bufs.act[l] = l < n_convs ? static_cast<float*>(res[l]) : nullptr;
   }
   Layer ly;
   ly.L = L;
-  ly.TW = tile_edge(L);
   ly.rncp = rncp;
   ly.M = M;
   ly.act = activation;
   ly.mu = mu;
   ly.off = off;
   ly.s_clip = s_clip;
-  const size_t bytes = sizeof(float) * smem_layout(net, ly.TW).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      coupling_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  const SmemLayout sl = choose_layout(net, L, R, limit);
+  const int bytes = static_cast<int>(sizeof(float)) * sl.total;
+  if (bytes > limit || (!sl.act_smem && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sl.act_smem ? &coupling_bwd_kernel<true>
+                            : &coupling_bwd_kernel<false>;
+  cudaError_t err = ensure_smem(kernel, bytes, g_bwd_smem[sl.act_smem]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  coupling_bwd_kernel<<<B, THREADS, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, gy, gl, gx, net, bufs, scratch0, scratch1, gp, cmax, ly);
-  return static_cast<int>(cudaGetLastError());
+  err = launch_clusters(kernel, B, C, bytes, stream, x, gy, gl, gx, net,
+                        bufs, ly, bands, sl, scratch);
+  return static_cast<int>(err);
 }

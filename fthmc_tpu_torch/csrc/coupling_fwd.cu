@@ -7,124 +7,207 @@
 // hidden pre-activation and the raw conditioner output (s_raw, r, t), so
 // that K8 needs no conv recompute.
 //
-// Both are one launch of coupling_fwd_kernel, one block per chain: the
-// plaquettes, the frozen-stripe cos/sin features, the circular 3x3 conv
-// chain (coupling_common.cuh), the mixture transform with its logsumexp
-// log-Jacobian, the link update on the active stripe and the per-chain
-// logJ sum as a block reduction. The conv chain writes its activations to
-// the buffers the caller passes: K7's residual outputs, or K6's two
-// ping-pong scratch buffers. Bound: the conv flops the layer's outputs
-// depend on (the last conv on the active stripe, the one before on its
-// one-site halo: 285 MFLOP per flagship launch at 16^2 x 64 chains; the
-// kernel runs all 481 MFLOP of the dense chain); bytes are far below.
+// Both are one cluster launch of coupling_fwd_kernel: a cluster of C CTAs a
+// chain, each owning a band of rows (coupling_common.cuh). A CTA computes
+// the conv input (cos, sin of the frozen plaquettes) of its rows and their
+// halo rows itself, then runs the circular 3x3 conv chain with its
+// activations in its band planes: the activation is applied once, as a
+// conv's output lands there, and between convs the halo rows come from the
+// neighbours' planes after a cluster barrier. K7 also stores every
+// pre-activation to its residual outputs as it lands (float4 stores of four
+// consecutive sites). Then the mixture transform with its logsumexp
+// log-Jacobian and the link update on the own rows, and logJ summed in a
+// fixed order: per CTA, then by rank 0 over the cluster in rank order
+// through distributed shared memory. Two launches on one input are
+// bit-equal, and K6's logJ equals K7's.
+//
+// Bound: the conv flops the layer's outputs depend on (the last conv on the
+// active stripe, the one before on its one-site halo: 285 MFLOP per
+// flagship launch at 16^2 x 64 chains; the kernel runs all 481 MFLOP of
+// the dense chain on fp32 CUDA cores); bytes are far below.
 #include "coupling_common.cuh"
 
-__global__ void __launch_bounds__(THREADS)
-    coupling_fwd_kernel(const float* __restrict__ x, float* __restrict__ fx,
-                        float* __restrict__ logj, Net net, Bufs bufs,
-                        Layer ly) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const SmemLayout sl = smem_layout(net, ly.TW);
-  float* w_s = smem + sl.w;
-  float* b_s = smem + sl.b;
-  float* tile = smem + sl.tile;
-  float* red = smem + sl.red;
+// The epilogue of forward conv l: the pre-activations to K7's residuals,
+// the activation (none after the last conv) into the output planes.
+struct FwdEpi {
+  float* out;         // output planes
+  float* res;         // this chain's residual of conv l, or null (K6)
+  int cout, L, r0, rs, plane, act;
+  bool last;
 
-  const int L = ly.L, LL = L * L;
-  const int b = blockIdx.x;
-  const float* xb = x + static_cast<size_t>(b) * 2 * LL;
+  __device__ __forceinline__ void gate(int, int, int,
+                                       float (&)[KO][KS]) const {}
 
-  for (int l = 0; l < net.n_convs; ++l) {
-    const int cin = net.width[l], cout = net.width[l + 1];
-    float* outb = bufs.act[l] + static_cast<size_t>(b) * cout * LL;
-    __syncthreads();  // the previous conv is done with the weights
-    stage_weights(net.w[l], net.b[l], cin, cout, false, w_s, b_s);
-    auto store = [&](int o0, int i, int j, const float(&acc)[OC]) {
+  __device__ __forceinline__ void store(int o0, int r, int j0,
+                                        const float (&acc)[KO][KS],
+                                        const float (&)[KO][KS]) const {
+    const int i = r0 + r;
 #pragma unroll
-      for (int k = 0; k < OC; ++k)
-        if (o0 + k < cout) outb[(o0 + k) * LL + i * L + j] = acc[k];
-    };
-    if (l == 0) {
-      // (cos, sin) of the frozen plaquettes; 0 elsewhere -> (1, 0)
-      auto load = [&](int c, int i, int j) {
-        const int st = stripe(i, j, ly.mu, ly.off);
-        const float x2 = (st == 1 || st == 2) ? plaq_at(xb, i, j, L) : 0.f;
-        return c == 0 ? cosf(x2) : sinf(x2);
-      };
-      conv3x3(cin, cout, w_s, b_s, tile, ly, load, store);
-    } else {
-      const float* inb =
-          bufs.act[l - 1] + static_cast<size_t>(b) * cin * LL;
-      auto load = [&](int c, int i, int j) {
-        return act_fn(ly.act, inb[c * LL + i * L + j]);
-      };
-      conv3x3(cin, cout, w_s, b_s, tile, ly, load, store);
+    for (int k = 0; k < KO; ++k) {
+      const int o = o0 + k;
+      if (o < cout) {
+        float a[KS];
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          a[s] = last ? acc[k][s] : act_fn(act, acc[k][s]);
+        float* row = out + o * plane + (r + 1) * rs + COL0;
+#pragma unroll
+        for (int q = 0; q < KS / 4; ++q) {
+          if (res != nullptr)
+            *reinterpret_cast<float4*>(res + (o * L + i) * L + j0 + 4 * q) =
+                make_float4(acc[k][4 * q], acc[k][4 * q + 1],
+                            acc[k][4 * q + 2], acc[k][4 * q + 3]);
+          *reinterpret_cast<float4*>(row + j0 + 4 * q) =
+              make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+        }
+        if (j0 == 0) row[L] = a[0];
+        if (j0 + KS == L) row[-1] = a[KS - 1];
+      }
     }
   }
-  __syncthreads();  // the last conv's outputs are visible to the block
+};
 
-  const int clast = net.width[net.n_convs];
-  const float* raw =
-      bufs.act[net.n_convs - 1] + static_cast<size_t>(b) * clast * LL;
-  float* fxb = fx + static_cast<size_t>(b) * 2 * LL;
-  float lsum = 0.f;
-  for (int s = threadIdx.x; s < LL; s += blockDim.x) {
-    const int i = s / L, j = s - (s / L) * L;
-    const bool active = stripe(i, j, ly.mu, ly.off) == 0;
-    const float p = plaq_at(xb, i, j, L);
-    float lj;
-    const float delta = transform_site(raw + s, LL, p, active, ly, &lj);
-    lsum += lj;
-    const float x0 = xb[s], x1 = xb[LL + s];
-    fxb[s] = (active && ly.mu == 0) ? wrap_pi(delta + x0) : x0;
-    fxb[LL + s] = (active && ly.mu == 1) ? wrap_pi(-delta + x1) : x1;
+template <bool SM>
+__global__ void __launch_bounds__(THREADS)
+    coupling_fwd_kernel(const float* __restrict__ x, float* __restrict__ fx,
+                        float* __restrict__ logj, Net net, Bufs res,
+                        Layer ly, Bands bands, SmemLayout sl,
+                        float* scratch) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const Band bd = band_of<SM>(bands, sl, smem, scratch);
+  const int L = ly.L, LL = L * L, n = net.n_convs;
+  const float* xb = x + static_cast<size_t>(bd.b) * 2 * LL;
+  float* red = smem + sl.red;
+  float* const buf0 = bd.region;
+  float* const buf1 = bd.region + sl.cmax * sl.plane;
+  const bool keep = res.act[0] != nullptr;
+
+  stage_weights(net.w[0], packed_floats(net.width[0], net.width[1]), smem);
+  // conv 0's input: (cos, sin) of the frozen plaquettes, 0 elsewhere ->
+  // (1, 0), on the own rows, both halo rows and the column images
+  for (int e = threadIdx.x; e < (bd.R + 2) * (L + 2); e += THREADS) {
+    const int rb = e / (L + 2), jj = e - rb * (L + 2);
+    const int i = (bd.r0 + rb - 1 + L) % L, j = (jj - 1 + L) % L;
+    const int st = stripe(i, j, ly.mu, ly.off);
+    const float x2 = (st == 1 || st == 2) ? plaq_at(xb, i, j, L) : 0.f;
+    float* p = buf0 + rb * sl.rs + COL0 - 1 + jj;
+    p[0] = cosf(x2);
+    p[sl.plane] = sinf(x2);
   }
-  const float total = block_sum(lsum, red);
-  if (threadIdx.x == 0) logj[b] = total;
+
+  for (int l = 0; l < n; ++l) {
+    const int cin = net.width[l], cout = net.width[l + 1];
+    float* in = (l & 1) ? buf1 : buf0;
+    if (l > 0) {
+      // the neighbours' own rows of this conv's input are written, and
+      // every CTA is done with conv l - 1 (its weights, its input planes)
+      cluster.sync();
+      stage_weights(net.w[l], packed_floats(cin, cout), smem);
+      exchange_halos<SM>(bd, sl, in, cin);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    FwdEpi epi;
+    epi.out = (l & 1) ? buf0 : buf1;
+    epi.res = keep ? res.act[l] + static_cast<size_t>(bd.b) * cout * LL
+                   : nullptr;
+    epi.cout = cout;
+    epi.L = L;
+    epi.r0 = bd.r0;
+    epi.rs = sl.rs;
+    epi.plane = sl.plane;
+    epi.act = ly.act;
+    epi.last = l == n - 1;
+    conv_band(cin, cout, smem, in, sl, bd.R, L, epi);
+  }
+  __syncthreads();  // the raw conditioner output is in its planes
+
+  const float* raw = (n & 1) ? buf1 : buf0;
+  float* fxb = fx + static_cast<size_t>(bd.b) * 2 * LL;
+  // the transform, tps threads a site, every lane in every pass (the
+  // group's shuffles)
+  const int sites = bd.R * L, tps = site_threads(sites);
+  const int sub = threadIdx.x % tps;
+  float lsum = 0.f;
+  for (int base = 0; base < sites; base += THREADS / tps) {
+    const int s = base + threadIdx.x / tps;
+    const bool valid = s < sites;
+    const int r = valid ? s / L : 0, j = valid ? s - r * L : 0;
+    const int i = bd.r0 + r, q = i * L + j;
+    const bool active = valid && stripe(i, j, ly.mu, ly.off) == 0;
+    const float p = active ? plaq_at(xb, i, j, L) : 0.f;
+    float lj;
+    const float delta = transform_site(raw + (r + 1) * sl.rs + COL0 + j,
+                                       sl.plane, p, active, ly, sub, tps,
+                                       &lj);
+    if (valid && sub == 0) {
+      lsum += lj;
+      const float x0 = xb[q], x1 = xb[LL + q];
+      fxb[q] = (active && ly.mu == 0) ? wrap_pi(delta + x0) : x0;
+      fxb[LL + q] = (active && ly.mu == 1) ? wrap_pi(-delta + x1) : x1;
+    }
+  }
+  const float t = cta_sum(lsum, red);
+  if (threadIdx.x == 0) red[NRED - 1] = t;
+  cluster.sync();  // every CTA's sum is in place
+  if (bd.rank == 0 && threadIdx.x == 0) {
+    float total = 0.f;
+    for (int r = 0; r < bd.C; ++r)
+      total += *cluster.map_shared_rank(red + NRED - 1, r);
+    logj[bd.b] = total;
+  }
+  cluster.sync();  // no CTA leaves while its shared memory may be read
 }
 
-// The one C entry of K6 and K7; the two differ only in the buffers passed.
-// x, fx: (B, 2, L, L); logj: (B,); widths: n_convs + 1 ints (host);
-// w[l]: (widths[l+1], widths[l], 3, 3), bias[l]: (widths[l+1],);
-// act[l]: (B, widths[l+1], L, L) device buffers. All fp32, contiguous.
-// K6: act holds scratch (any two alternating buffers of the widest size).
-// K7: act[l] are the residual outputs (hidden pre-activations, then the raw
-// conditioner output).
+static int g_fwd_smem[2][64];  // opt-in set so far, by layout and device
+
+// The one C entry of K6 and K7; the two differ only in `res`.
+// x, fx: (B, 2, L, L); logj: (B,); res: null (K6) or n_convs device
+// buffers (B, widths[l+1], L, L) for the pre-activations (K7); scratch:
+// B * C * ft_band_floats(...) floats of device memory, or null where that
+// is 0; widths: n_convs + 1 ints (host); w[l]: (widths[l+1], widths[l], 3,
+// 3) and bias[l] packed forward (Net); (C, row0[C + 1]): the band plan;
+// limit: the card's opt-in shared memory a block, bytes. All fp32,
+// contiguous.
 extern "C" int ft_coupling_forward(const float* x, float* fx, float* logj,
-                                   void* const* act, int B, int L,
-                                   int n_convs, const int* widths,
-                                   const void* const* w,
-                                   const void* const* bias, int rncp, int M,
+                                   void* const* res, float* scratch, int B,
+                                   int L, int n_convs, const int* widths,
+                                   const void* const* w, int rncp, int M,
                                    float s_clip, int activation, int mu,
-                                   int off, void* stream) {
-  if (n_convs < 1 || n_convs > MAX_CONVS || L % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                   int off, int C, const int* row0,
+                                   int limit, void* stream) {
+  Bands bands;
   Net net;
+  int R = 0;
+  if (B < 1 || !bands_from(C, row0, L, &R, &bands) ||
+      !net_from(n_convs, widths, L, R, &net))
+    return static_cast<int>(cudaErrorInvalidValue);
   Bufs bufs;
-  net.n_convs = n_convs;
-  for (int l = 0; l <= n_convs; ++l) net.width[l] = widths[l];
-  for (int l = 0; l < n_convs; ++l) {
-    net.w[l] = static_cast<const float*>(w[l]);
-    net.b[l] = static_cast<const float*>(bias[l]);
-    bufs.act[l] = static_cast<float*>(act[l]);
+  for (int l = 0; l < MAX_CONVS; ++l) {
+    net.w[l] = l < n_convs ? static_cast<const float*>(w[l]) : nullptr;
+    bufs.act[l] = res != nullptr && l < n_convs ? static_cast<float*>(res[l])
+                                                : nullptr;
   }
   Layer ly;
   ly.L = L;
-  ly.TW = tile_edge(L);
   ly.rncp = rncp;
   ly.M = M;
   ly.act = activation;
   ly.mu = mu;
   ly.off = off;
   ly.s_clip = s_clip;
-  const size_t bytes = sizeof(float) * smem_layout(net, ly.TW).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      coupling_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  const SmemLayout sl = choose_layout(net, L, R, limit);
+  const int bytes = static_cast<int>(sizeof(float)) * sl.total;
+  if (bytes > limit || (!sl.act_smem && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sl.act_smem ? &coupling_fwd_kernel<true>
+                            : &coupling_fwd_kernel<false>;
+  cudaError_t err = ensure_smem(kernel, bytes, g_fwd_smem[sl.act_smem]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  coupling_fwd_kernel<<<B, THREADS, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(x, fx, logj, net,
-                                                             bufs, ly);
-  return static_cast<int>(cudaGetLastError());
+  err = launch_clusters(kernel, B, C, bytes, stream, x, fx, logj, net, bufs,
+                        ly, bands, sl, scratch);
+  return static_cast<int>(err);
 }

@@ -26,7 +26,7 @@ import torch
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
            "build_all", "library", "bind", "check", "smem_limit",
            "stream_handle",
-           "require_fp32_contiguous", "ptr_array", "int_array"]
+           "require_fp32_contiguous", "ptr_array", "int_ptrs", "int_array"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -49,14 +49,18 @@ _TRAJ = [_I, _I, _F, _F, _F, _I, _P]
 # ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
     "force": {"k1_force": [_P, _P, _I, _I, _F, _P]},
-    "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _I, _I, _I, _IP,
-                                             _PP, _PP, _I, _I, _F, _I, _I, _I,
-                                             _P],
-                     # shared-memory need (csrc/coupling_common.cuh)
-                     "ft_smem_bytes": [_I, _IP, _I]},
-    "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _P, _P, _I,
-                                         _I, _I, _IP, _PP, _I, _I, _F, _I, _I,
-                                         _I, _P]},
+    # ... (C, row0, limit, stream) ending the coupling entries: the band
+    # plan and the card's shared-memory limit
+    "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _P, _I, _I, _I,
+                                             _IP, _PP, _I, _I, _F, _I, _I,
+                                             _I, _I, _IP, _I, _P],
+                     # a CTA's shared memory and device scratch
+                     # (csrc/coupling_common.cuh)
+                     "ft_smem_bytes": [_I, _IP, _I, _I, _I],
+                     "ft_band_floats": [_I, _IP, _I, _I, _I]},
+    "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _I, _I, _I,
+                                         _IP, _PP, _I, _I, _F, _I, _I, _I,
+                                         _I, _IP, _I, _P]},
     "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ,
                  "k3_leapfrog_cl": [_P] * 4 + _TRAJ,
                  "k3_chains_per_block": [],
@@ -169,8 +173,12 @@ def check(rc: int, what: str, lib: ctypes.CDLL) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """Handle of the current CUDA stream of ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of the current CUDA stream of ``t``'s device, by the raw query
+    torch's own generated kernels use: every wrapper call pays for this,
+    and ``torch.cuda.current_stream`` builds a Stream object each time."""
+    index = t.device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def require_fp32_contiguous(what: str, *tensors: torch.Tensor) -> None:
@@ -187,7 +195,12 @@ def require_fp32_contiguous(what: str, *tensors: torch.Tensor) -> None:
 
 def ptr_array(tensors) -> ctypes.Array:
     """A C array of the tensors' device pointers (``void* const*``)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    return int_ptrs([t.data_ptr() for t in tensors])
+
+
+def int_ptrs(addresses) -> ctypes.Array:
+    """A C array of device addresses given as ints (``void* const*``)."""
+    return (ctypes.c_void_p * len(addresses))(*addresses)
 
 
 def int_array(values) -> ctypes.Array:

@@ -1,18 +1,31 @@
-"""K6, the fused coupling-layer forward, its plain twin, and the kernels'
-support envelope.
+"""K6, the fused coupling-layer forward, its plain twin, the kernels' band
+plan and support envelope, and the launch path K6/K7/K8 share.
 
 Replaces the TPU kernel ``fthmc_tpu/ops/pallas_coupling.py::_ncp_kernel``
 (``pallas_link_coupling_forward``, driven by ``pallas_flow_forward``).
-CUDA source: ``csrc/coupling_fwd.cu`` (with ``csrc/coupling_common.cuh``),
-one block per chain for the whole layer. Bound on the card: the conv flops
-the layer's outputs depend on (the last conv on the active stripe, the one
+CUDA source: ``csrc/coupling_fwd.cu`` (with ``csrc/coupling_common.cuh``):
+a thread-block cluster per chain, each CTA a band of rows (``band_plan``),
+the conv chain's activations kept in the bands' shared memory with halo
+rows exchanged between neighbours. Bound on the card: the conv flops the
+layer's outputs depend on (the last conv on the active stripe, the one
 before on its one-site halo: 285 MFLOP per launch at the flagship's widths,
 16^2 and 64 chains, of the dense chain's 481); the bytes it must move are
 ~100x smaller. The energy flows of FT-HMC (y = f(z) before and after a
 trajectory) run through it.
+
+The launch path is made once per (layer, shape, dtype, device): the full
+envelope check, the ctypes arguments (widths, band plan, pointers) and the
+layer's convs packed in the kernels' staging order (``pack_conv``) are
+cached (``launch_args``) for as long as the layer's tensors live and stay
+as they were, so a new input of any kind is checked again. Every K6/K7
+launch goes through ``forward_call``, which counts it: the wrappers (one
+output buffer a call), the flow forward of the energies and the FT force
+(one workspace a flow, raw pointers).
 """
 from __future__ import annotations
 
+import weakref
+from dataclasses import dataclass
 from functools import lru_cache
 
 import torch
@@ -24,18 +37,56 @@ from fthmc_tpu_torch.models.masks import layer_mask_params
 from fthmc_tpu_torch.ops import _build
 
 __all__ = ["coupling_forward", "coupling_forward_plain",
-           "kernel_flow_forward", "kernel_fits"]
+           "kernel_flow_forward", "kernel_fits", "band_plan", "smem_bytes",
+           "launch_args", "forward_call", "pack_conv"]
 
 ACT_CODES = {"relu": 0, "silu": 1, "swish": 1, "leaky_relu": 2, "tanh": 3}
+MAX_BANDS = 8            # CTAs a chain's cluster (csrc/coupling_common.cuh)
+
+
+def band_plan(L: int, B: int, n_sm: int) -> tuple[int, tuple[int, ...]]:
+    """The cluster one chain runs on: (C, row0), CTA r of the C owning rows
+    [row0[r], row0[r + 1]) of the lattice for every channel, so B x C CTAs
+    make the grid. C is a power of two up to MAX_BANDS: bands of 8 rows
+    (an item for each of a CTA's threads in a 32-channel conv at 16^2),
+    then twice the bands while B x C is under half the card's ``n_sm`` SMs
+    and the bands keep 2 rows; bands differ by at most one row (L = 20 at
+    C = 8: 2 and 3 rows in turn). chip_smoke.py times K6-K8 under every
+    plan at the paths' shapes (its ``band_plans`` line; PERF.md)."""
+    C = 1
+    while 2 * C <= min(MAX_BANDS, L // 8):
+        C *= 2
+    while B * C < n_sm // 2 and 2 * C <= min(MAX_BANDS, L // 2):
+        C *= 2
+    return C, tuple(r * L // C for r in range(C + 1))
 
 
 @lru_cache(maxsize=None)
-def smem_bytes(widths: tuple[int, ...], L: int) -> int:
-    """Dynamic shared memory of one K6/K7/K8 block, as the kernels' own
-    ``smem_layout`` reckons it (csrc/coupling_common.cuh); -1 for a
-    conditioner the kernels do not take (more than their MAX_CONVS convs)."""
-    return _build.library("coupling_fwd").ft_smem_bytes(
-        len(widths) - 1, _build.int_array(widths), L)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@lru_cache(maxsize=None)
+def band_layout(widths: tuple[int, ...], L: int, rows: int,
+                limit: int) -> tuple[int, int]:
+    """(bytes of dynamic shared memory, floats of device scratch) of one
+    K6/K7/K8 CTA with bands of at most ``rows`` rows under a shared-memory
+    limit of ``limit`` bytes, as the kernels' own ``choose_layout`` reckons
+    it (csrc/coupling_common.cuh): band planes in shared memory where they
+    fit, else in the scratch. Bytes -1 for a conditioner the kernels do not
+    take (more than their MAX_CONVS convs); bytes over ``limit`` where no
+    layout fits."""
+    lib = _build.library("coupling_fwd")
+    w = _build.int_array(widths)
+    n = len(widths) - 1
+    return (lib.ft_smem_bytes(n, w, L, rows, limit),
+            lib.ft_band_floats(n, w, L, rows, limit))
+
+
+def smem_bytes(widths: tuple[int, ...], L: int, rows: int,
+               limit: int) -> int:
+    """Dynamic shared memory of one K6/K7/K8 CTA (``band_layout``)."""
+    return band_layout(tuple(widths), L, rows, limit)[0]
 
 
 def _conv_widths(spec: FlowSpec) -> list[int]:
@@ -47,10 +98,10 @@ def _conv_widths(spec: FlowSpec) -> list[int]:
 def kernel_fits(spec: FlowSpec, L: int, B: int) -> bool:
     """The kernels' envelope in the spec and shape alone: ncp/rncp with fp32
     3x3 convs and a ported activation, L a multiple of 4 (the closed-form
-    stripe masks), any chain count B (one block per chain). This covers the
+    stripe masks), any chain count B (a cluster per chain). This covers the
     JAX package's envelope (L <= 8 or B <= 128, for L a multiple of 4) and
     the flagship's 16^2 and 64^2 shapes. On the card a launch also needs
-    one block's weights and haloed tile within the device's shared memory;
+    one CTA's weights within the device's shared memory;
     ``check_kernel_call`` asks the kernels' library for that and refuses a
     conditioner too wide or too deep. The CPU's plain twins take any."""
     return (spec.coupling in ("ncp", "rncp") and spec.conv_dtype == "float32"
@@ -58,9 +109,33 @@ def kernel_fits(spec: FlowSpec, L: int, B: int) -> bool:
             and L % 4 == 0 and L >= 4 and B >= 1)
 
 
-def check_kernel_call(what: str, layer, x: torch.Tensor,
-                      spec: FlowSpec) -> None:
-    """Refuse, loudly, what the kernels do not take."""
+def pack_conv(w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """One conv in the kernels' staging order (csrc/coupling_common.cuh,
+    Net): for the routine's input channel c, tap t = 3 dy + dx and output
+    channel o, element (c * 9 + t) * cpad + o, cpad = outputs rounded up to
+    4, then cpad biases, zeros past the outputs. Forward (K6/K7) with its
+    bias: w (Cout, Cin, 3, 3) as is; the transposed conv of K8 (b None):
+    inputs Cout, outputs Cin, element w[c][o][8 - t], zero bias."""
+    if b is None:
+        w = w.flip(2, 3).transpose(0, 1)
+        b = w.new_zeros(w.shape[0])
+    rout, rin = w.shape[:2]
+    cpad = -(-rout // 4) * 4
+    out = w.new_zeros((rin * 9 + 1, cpad))
+    out[:rin * 9, :rout] = w.permute(1, 2, 3, 0).reshape(rin * 9, rout)
+    out[rin * 9, :rout] = b
+    return out.reshape(-1)
+
+
+def _device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def check_kernel_call(what: str, layer, x: torch.Tensor, spec: FlowSpec,
+                      plan: tuple[int, tuple[int, ...]] | None = None):
+    """Refuse, loudly, what the kernels do not take under the band plan
+    ``plan`` (C, row0), by default ``band_plan``'s; returns the plan."""
     if x.ndim != 4 or x.shape[1] != 2 or x.shape[2] != x.shape[3]:
         raise ValueError(f"{what}: links must be (B, 2, L, L), got "
                          f"{tuple(x.shape)}")
@@ -74,43 +149,136 @@ def check_kernel_call(what: str, layer, x: torch.Tensor,
         raise ValueError(f"{what}: conv widths {widths} do not match spec")
     _build.require_fp32_contiguous(what, x, *[t for p in layer
                                               for t in (p["w"], p["b"])])
-    need = smem_bytes(tuple(widths), L)
-    limit = _build.smem_limit(x.device.index if x.device.index is not None
-                       else torch.cuda.current_device())
+    dev = _device_index(x)
+    if plan is None:
+        plan = band_plan(L, B, sm_count(dev))
+    rows = max(b - a for a, b in zip(plan[1], plan[1][1:]))
+    limit = _build.smem_limit(dev)
+    need = smem_bytes(tuple(widths), L, rows, limit)
     if not 0 < need <= limit:
         raise ValueError(f"{what}: conv widths {widths} at L={L} need "
-                         f"{need} bytes of shared memory a block (-1: too "
+                         f"{need} bytes of shared memory a CTA (-1: too "
                          f"many convs); the card allows {limit}")
+    return plan
 
 
-def net_args(layer, spec: FlowSpec):
-    """(n_convs, widths, w pointers, b pointers, rncp, M, s_clip,
-    activation) of the C entries."""
-    widths = _conv_widths(spec)
-    return (len(layer), _build.int_array(widths),
-            _build.ptr_array([p["w"] for p in layer]),
-            _build.ptr_array([p["b"] for p in layer]),
-            int(spec.coupling == "rncp"), spec.n_mixture,
-            float(spec.s_clip) if spec.s_clip is not None else 0.0,
-            ACT_CODES[spec.activation])
+@dataclass(frozen=True)
+class LaunchArgs:
+    """The ctypes arguments of one layer's K6/K7/K8 launches at one shape,
+    and where the wrappers put their outputs in one buffer: fx (B, 2, L, L)
+    first, then K7's residuals (each a multiple of 16 floats, so each starts
+    16-byte aligned for the kernels' float4 stores), logJ (B,) last."""
+    B: int
+    L: int
+    n: int
+    widths: object          # int[n + 1]
+    w_fwd: object           # void*[n], the convs packed forward
+    w_bwd: object           # void*[n], the convs packed transposed
+    packed: tuple           # the packed tensors, kept alive
+    rncp: int
+    M: int
+    s_clip: float
+    act: int
+    C: int
+    row0: object            # int[C + 1]
+    limit: int
+    scratch: int            # floats of device scratch for all the CTAs
+    res_shapes: tuple
+    split: tuple            # floats of fx, each residual, logJ
 
 
-def launch_forward(layer, x: torch.Tensor, mu: int, off: int,
-                   spec: FlowSpec, bufs):
-    """Run the coupling forward entry of K6 and K7 with activation buffers
-    ``bufs`` (one per conv: K6's scratch, K7's residuals); returns
-    (fx, logJ)."""
-    lib = _build.library("coupling_fwd")
+# layer tensors' ids, x's shape, dtype, device, spec, plan ->
+# (LaunchArgs, the tensors' state when it was made, weakrefs to them)
+_LAUNCH_ARGS: dict = {}
+_LAUNCH_ARGS_MAX = 4096
+
+
+def launch_args(what: str, layer, x: torch.Tensor, spec: FlowSpec,
+                plan: tuple[int, tuple[int, ...]] | None = None) -> LaunchArgs:
+    """The launch arguments of ``layer`` at x's shape under the band plan
+    ``plan`` (C, row0), by default ``band_plan``'s; made (after the full
+    ``check_kernel_call``) the first time these tensors meet this shape,
+    dtype and device, and made again when one of them has changed since:
+    its pointer, version (an in-place update), shape, dtype, device or
+    contiguity. An entry is keyed on the tensors themselves and dropped as
+    soon as one of them is freed, so a later tensor at a freed address (the
+    next flow of the same spec) never finds it. A write through ``.data``
+    bumps no version and is not seen: give the kernels new tensors instead.
+    x's contiguity is checked every call."""
+    tensors = [t for p in layer for t in (p["w"], p["b"])]
+    key = (tuple(map(id, tensors)), x.shape, x.dtype, x.device, spec, plan)
+    state = tuple([(t.data_ptr(), t._version, t.shape, t.dtype, t.device,
+                    t.is_contiguous()) for t in tensors])
+    hit = _LAUNCH_ARGS.get(key)
+    if hit is not None and hit[1] == state:
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: kernels take contiguous tensors")
+        return hit[0]
+    C, row0 = check_kernel_call(what, layer, x, spec, plan)
     B, _, L, _ = x.shape
-    fx = torch.empty_like(x)
-    logj = torch.empty(B, dtype=x.dtype, device=x.device)
-    n, widths, w, b, rncp, M, s_clip, act = net_args(layer, spec)
-    rc = lib.ft_coupling_forward(x.data_ptr(), fx.data_ptr(),
-                                 logj.data_ptr(), _build.ptr_array(bufs), B,
-                                 L, n, widths, w, b, rncp, M, s_clip, act, mu,
-                                 off, _build.stream_handle(x))
+    widths = _conv_widths(spec)
+    rows = max(b - a for a, b in zip(row0, row0[1:]))
+    limit = _build.smem_limit(_device_index(x))
+    floats = band_layout(tuple(widths), L, rows, limit)[1]
+    with torch.no_grad():
+        fwd = [pack_conv(p["w"], p["b"]) for p in layer]
+        bwd = [pack_conv(p["w"], None) for p in layer]
+    args = LaunchArgs(
+        B=B, L=L, n=len(layer), widths=_build.int_array(widths),
+        w_fwd=_build.ptr_array(fwd), w_bwd=_build.ptr_array(bwd),
+        packed=(*fwd, *bwd),
+        rncp=int(spec.coupling == "rncp"), M=spec.n_mixture,
+        s_clip=float(spec.s_clip) if spec.s_clip is not None else 0.0,
+        act=ACT_CODES[spec.activation], C=C,
+        row0=_build.int_array(row0), limit=limit, scratch=B * C * floats,
+        res_shapes=tuple(torch.Size((B, c, L, L)) for c in widths[1:]),
+        split=(2 * B * L * L, *(B * c * L * L for c in widths[1:]), B))
+
+    def drop(_ref, key=key):
+        _LAUNCH_ARGS.pop(key, None)
+    if len(_LAUNCH_ARGS) >= _LAUNCH_ARGS_MAX:
+        _LAUNCH_ARGS.clear()
+    _LAUNCH_ARGS[key] = (args, state,
+                         tuple(weakref.ref(t, drop) for t in tensors))
+    return args
+
+
+def scratch_for(a: LaunchArgs, x: torch.Tensor):
+    """Device scratch of the band planes where they do not fit in shared
+    memory (a tensor to keep alive over the launch, and its pointer), or
+    (None, None)."""
+    if a.scratch == 0:
+        return None, None
+    s = torch.empty(a.scratch, dtype=x.dtype, device=x.device)
+    return s, s.data_ptr()
+
+
+def forward_call(a: LaunchArgs, x: int, fx: int, logj: int, res,
+                 scratch, mu: int, off: int, stream: int) -> None:
+    """One launch of the coupling forward entry on device pointers, counted:
+    K6 (``res`` None) or K7 (``res`` a C array of the residual outputs).
+    Every K6 and K7 launch of the port goes through here."""
+    lib = _build.library("coupling_fwd")
+    rc = lib.ft_coupling_forward(x, fx, logj, res, scratch, a.B, a.L, a.n,
+                                 a.widths, a.w_fwd, a.rncp, a.M, a.s_clip,
+                                 a.act, mu, off, a.C, a.row0, a.limit, stream)
     _build.check(rc, "ft_coupling_forward", lib)
-    return fx, logj
+    _build.LAUNCHES["K6" if res is None else "K7"] += 1
+
+
+def launch_forward(a: LaunchArgs, x: torch.Tensor, mu: int, off: int,
+                   residuals: bool):
+    """The forward entry into one new buffer (``LaunchArgs``): K6, or K7
+    with ``residuals``. Returns (fx, logJ, residuals or ())."""
+    split = a.split if residuals else (a.split[0], a.B)
+    parts = torch.empty(sum(split), dtype=x.dtype, device=x.device) \
+        .split(split)
+    res = tuple(p.view(s) for p, s in zip(parts[1:-1], a.res_shapes))
+    _scratch, scratch = scratch_for(a, x)
+    forward_call(a, x.data_ptr(), parts[0].data_ptr(), parts[-1].data_ptr(),
+                 _build.ptr_array(res) if residuals else None, scratch, mu,
+                 off, _build.stream_handle(x))
+    return parts[0].view(x.shape), parts[-1], res
 
 
 def coupling_forward_plain(layer, x: torch.Tensor, mu: int, off: int,
@@ -129,23 +297,49 @@ def coupling_forward(layer, x: torch.Tensor, mu: int, off: int,
         return coupling_forward_plain(layer, x, mu, off, spec)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    check_kernel_call("K6 coupling forward", layer, x, spec)
-    B, _, L, _ = x.shape
-    cmax = max(_conv_widths(spec))
-    ping, pong = torch.empty((2, B * cmax * L * L), dtype=x.dtype,
-                             device=x.device)
-    bufs = [ping if i % 2 == 0 else pong for i in range(len(layer))]
-    fx, logj = launch_forward(layer, x, mu, off, spec, bufs)
-    _build.LAUNCHES["K6"] += 1
+    a = launch_args("K6 coupling forward", layer, x, spec)
+    fx, logj, _ = launch_forward(a, x, mu, off, False)
     return CouplingOut(fx, logj)
 
 
 def kernel_flow_forward(params, x: torch.Tensor, spec: FlowSpec):
     """Whole flow forward through K6, one launch per layer (the plain twin
     on the CPU): x (B, 2, L, L) -> (y, logdet (B,)). Not differentiable."""
+    if x.device.type == "cuda" and params:
+        return _flow_forward_cuda(params, x, spec)
     logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     for i, layer in enumerate(params):
         mu, off = layer_mask_params(i)
         x, logJ = coupling_forward(layer, x, mu, off, spec)
         logdet = logdet + logJ
     return x, logdet
+
+
+def _flow_forward_cuda(params, x: torch.Tensor, spec: FlowSpec):
+    """kernel_flow_forward on the card through one workspace: two fields
+    the layers write in turn, the band scratch (both 16-byte aligned) and
+    every layer's logJ, so a launch costs the host the layer's cached
+    arguments and one ctypes call. logdet adds the layers' logJ in their
+    order, as the CPU path does."""
+    args = [launch_args("K6 coupling forward", layer, x, spec)
+            for layer in params]
+    n, B, field = len(params), args[0].B, args[0].split[0]
+    scratch = args[0].scratch        # the same for every layer
+    lj0 = 2 * field + scratch
+    ws = torch.empty(lj0 + n * B, dtype=x.dtype, device=x.device)
+    base = ws.data_ptr()
+    sp = base + 4 * 2 * field if scratch else None
+    stream = _build.stream_handle(x)
+    src = x.data_ptr()
+    for i in range(n):
+        mu, off = layer_mask_params(i)
+        dst = base + 4 * field * (i & 1)
+        forward_call(args[i], src, dst, base + 4 * (lj0 + B * i), None, sp,
+                     mu, off, stream)
+        src = dst
+    last = (n - 1) & 1
+    logj = ws[lj0:].view(n, B)
+    logdet = torch.zeros(B, dtype=x.dtype, device=x.device)
+    for i in range(n):
+        logdet = logdet + logj[i]
+    return ws[field * last:field * (last + 1)].view(x.shape), logdet

@@ -1,4 +1,6 @@
-"""Plain twins of K6, K7 and K8 against fthmc_tpu's XLA coupling layer.
+"""Plain twins of K6, K7 and K8 against fthmc_tpu's XLA coupling layer,
+and what surrounds the kernels: their band plan, weight packing and a
+banded mirror of their halo and wrap indexing.
 
 The JAX side is the plain reference (link_coupling_forward and jax.vjp of
 it), never interpret-mode Pallas. Float64, bound 1e-10: the twins and the
@@ -17,12 +19,21 @@ from fthmc_tpu.models import coupling as jc
 from fthmc_tpu.models import masks as jm
 from fthmc_tpu.ops import conv as jconv
 from fthmc_tpu_torch.config import FlowSpec as TSpec
+from fthmc_tpu_torch.models.coupling import (_masks, plaq_of_links,
+                                             stack_cos_sin)
 from fthmc_tpu_torch.ops import _build
-from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
+from fthmc_tpu_torch.ops.conv import ACTIVATIONS
+from fthmc_tpu_torch.ops.coupling_kernels import (MAX_BANDS, band_plan,
+                                                  coupling_forward,
                                                   kernel_fits,
-                                                  kernel_flow_forward)
-from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
-                                                      coupling_fwd_res)
+                                                  kernel_flow_forward,
+                                                  pack_conv)
+from fthmc_tpu_torch.ops.coupling_vjp_kernels import (ACT_GRADS,
+                                                      coupling_bwd,
+                                                      coupling_bwd_plain,
+                                                      coupling_fwd_res,
+                                                      coupling_fwd_res_plain,
+                                                      transform_bwd_plain)
 from fthmc_tpu_torch.weights import flow_params_from_numpy
 
 TOL = 1e-10
@@ -209,3 +220,268 @@ def test_kernel_flow_forward_plain_chain():
     assert wrapped_diff(y.numpy(), y_ref.detach().numpy()) < TOL
     np.testing.assert_allclose(ld.numpy(), ld_ref.detach().numpy(),
                                atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The band geometry of K6/K7/K8 (csrc/coupling_common.cuh): a cluster of C
+# CTAs a chain, CTA r owning rows [row0[r], row0[r + 1]), the planes of a
+# band holding its rows, a halo row above and below and the column images
+# (column j at index j + 4, j = -1 and j = L at 3 and L + 4). The plan is
+# chosen in Python; the mirror below repeats the kernels' halo and wrap
+# indexing in float64 and must reproduce the twins to 1e-12 (the same sums
+# in another order).
+# ---------------------------------------------------------------------------
+
+N_SM = 132                                   # H100 SXM
+
+
+@pytest.mark.parametrize("L", [4, 8, 12, 16, 20, 24, 32, 36, 64, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 64, 128, 1024])
+def test_band_plan_covers_every_row_once(L, B):
+    C, row0 = band_plan(L, B, N_SM)
+    assert 1 <= C <= MAX_BANDS and C & (C - 1) == 0     # a power of two
+    assert len(row0) == C + 1 and row0[0] == 0 and row0[-1] == L
+    rows = [b - a for a, b in zip(row0, row0[1:])]
+    assert sum(rows) == L and max(rows) - min(rows) <= 1
+    covered = sorted(i for a, b in zip(row0, row0[1:]) for i in range(a, b))
+    assert covered == list(range(L))
+    assert min(rows) >= 2
+    # 8-row bands, split further only while B x C is under half the SMs
+    if C > 1 and 8 * C > L:
+        assert B * (C // 2) < N_SM // 2
+
+
+def test_band_plans_of_the_paths():
+    # (B, L) -> (C, rows): the flagship, path C, 32 chains at 16^2, 64^2,
+    # ragged 20^2, 8^2, 4^2
+    assert band_plan(16, 64, N_SM) == (2, (0, 8, 16))
+    assert band_plan(16, 128, N_SM) == (2, (0, 8, 16))
+    assert band_plan(16, 32, N_SM) == (4, (0, 4, 8, 12, 16))
+    assert band_plan(64, 8, N_SM) == (8, tuple(range(0, 65, 8)))
+    assert band_plan(20, 3, N_SM) == (8, (0, 2, 5, 7, 10, 12, 15, 17, 20))
+    assert band_plan(8, 4, N_SM) == (4, (0, 2, 4, 6, 8))
+    assert band_plan(4, 4096, N_SM) == (1, (0, 4))
+
+
+COL0 = 4
+
+
+def _band_conv(w, b, band, R):
+    """One band's conv, as conv_band indexes it: out[o](r, j) = b[o] +
+    sum w[o][c][dy][dx] * in[c](plane row r + dy, index COL0 - 1 + j + dx)
+    for the R own rows r (plane rows r + 1)."""
+    L = band.shape[-1] - 8
+    out = b[None, :, None, None].expand(band.shape[0], -1, R, L).clone()
+    for dy in range(3):
+        for dx in range(3):
+            win = band[:, :, dy:dy + R, COL0 - 1 + dx:COL0 - 1 + dx + L]
+            out = out + torch.einsum("oc,bcrj->borj", w[:, :, dy, dx], win)
+    return out
+
+
+def _planes(B, ch, R, L, dtype):
+    return torch.full((B, ch, R + 2, L + 8), float("nan"), dtype=dtype)
+
+
+def _land(plane, v):
+    """Write v (B, ch, R, L) as a band's own rows with its column images."""
+    R, L = v.shape[2], v.shape[3]
+    plane[:, :v.shape[1], 1:R + 1, COL0:COL0 + L] = v
+    plane[:, :v.shape[1], 1:R + 1, COL0 - 1] = v[..., L - 1]
+    plane[:, :v.shape[1], 1:R + 1, COL0 + L] = v[..., 0]
+
+
+def _exchange(planes, row0, ch):
+    """exchange_halos: row 0 from the band above's last own row, row R + 1
+    from the band below's first, whole padded rows, C - 1 <-> 0 wrapping."""
+    C = len(planes)
+    rows = [b - a for a, b in zip(row0, row0[1:])]
+    for r in range(C):
+        up, dn = (r - 1) % C, (r + 1) % C
+        planes[r][:, :ch, 0] = planes[up][:, :ch, rows[up]]
+        planes[r][:, :ch, rows[r] + 1] = planes[dn][:, :ch, 1]
+
+
+def banded_layer(layer, x, gy, gl, mu, off, spec, C, row0):
+    """The forward chain (K7's residuals) and the input cotangent (K8) of
+    one coupling layer, band by band as the kernels compute them."""
+    B, _, L, _ = x.shape
+    act, act_grad = ACTIVATIONS[spec.activation], ACT_GRADS[spec.activation]
+    frozen = _masks((L, L), mu, off, x.dtype, x.device)[0]
+    plaq = plaq_of_links(x)
+    feat = stack_cos_sin(frozen * plaq)
+    rows = [b - a for a, b in zip(row0, row0[1:])]
+    R = max(rows)
+    widths = [2] + [int(p["w"].shape[0]) for p in layer]
+    cmax = max(widths)
+    # conv 0's input: own rows, halo rows and images computed by the band
+    planes = []
+    for r in range(C):
+        p = _planes(B, cmax, R, L, x.dtype)
+        idx = [(row0[r] + k - 1) % L for k in range(rows[r] + 2)]
+        cols = [(j - 1) % L for j in range(L + 2)]
+        p[:, :2, :rows[r] + 2, COL0 - 1:COL0 + L + 1] = \
+            feat[:, :, idx][:, :, :, cols]
+        planes.append(p)
+    res = [torch.empty((B, c, L, L), dtype=x.dtype) for c in widths[1:]]
+    for li, prm in enumerate(layer):
+        if li > 0:
+            _exchange(planes, row0, widths[li])
+        nxt = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
+        for r in range(C):
+            pre = _band_conv(prm["w"], prm["b"], planes[r][:, :widths[li]],
+                             rows[r])
+            res[li][:, :, row0[r]:row0[r + 1]] = pre
+            _land(nxt[r], pre if li == len(layer) - 1 else act(pre))
+        planes = nxt
+    # K8: stage A per site, the transposed chain band by band, stage C
+    g, g_p = transform_bwd_plain(x, res[-1], gy, gl, mu, off, spec)
+    planes = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
+    for r in range(C):
+        _land(planes[r], g[:, :, row0[r]:row0[r + 1]])
+    for li in range(len(layer) - 1, -1, -1):
+        _exchange(planes, row0, widths[li + 1])
+        wt = layer[li]["w"].flip(2, 3).transpose(0, 1)
+        zero = torch.zeros(widths[li], dtype=x.dtype)
+        nxt = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
+        for r in range(C):
+            band = slice(row0[r], row0[r + 1])
+            gc = _band_conv(wt, zero, planes[r][:, :widths[li + 1]], rows[r])
+            if li > 0:
+                _land(nxt[r], gc * act_grad(res[li - 1][:, :, band]))
+            else:
+                x2 = (frozen * plaq)[:, band]
+                g_p[:, band] += frozen[band] * (-torch.sin(x2) * gc[:, 0]
+                                                + torch.cos(x2) * gc[:, 1])
+        planes = nxt
+    # stage C: a band's rows and, above them, the band above's last row
+    gx = torch.empty_like(x)
+    for r in range(C):
+        up, band = (r - 1) % C, slice(row0[r], row0[r + 1])
+        rows_gp = torch.cat([g_p[:, row0[up + 1] - 1:row0[up + 1]],
+                             g_p[:, band]], dim=1)
+        own = rows_gp[:, 1:]
+        gx[:, 0, band] = gy[:, 0, band] + own - torch.roll(own, 1, dims=2)
+        gx[:, 1, band] = gy[:, 1, band] + rows_gp[:, :-1] - own
+    return res, gx
+
+
+@pytest.mark.parametrize("L,B", [(8, 2), (16, 2), (16, 64), (20, 3),
+                                 (64, 2)])
+def test_banded_mirror_reproduces_the_twins(L, B):
+    kw = dict(coupling="rncp", n_mixture=2, hidden_sizes=(4, 4), s_clip=3.0,
+              activation="tanh")
+    _, x, gy, gl, _, tspec, tnet = case(kw, seed=5, B=B, L=L)
+    xt, gyt, glt = (torch.as_tensor(a) for a in (x, gy, gl))
+    C, row0 = band_plan(L, B, N_SM)
+    for mu, off in ((0, 1), (1, 2)):
+        res, gx = banded_layer(tnet, xt, gyt, glt, mu, off, tspec, C, row0)
+        _, _, res_p = coupling_fwd_res_plain(tnet, xt, mu, off, tspec)
+        gx_p = coupling_bwd_plain(tnet, xt, res_p, gyt, glt, mu, off, tspec)
+        for r, r_p in zip(res, res_p):
+            assert float((r - r_p).abs().max()) < 1e-12
+        assert float((gx - gx_p).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("co,ci", [(32, 32), (17, 32), (32, 2), (3, 5)])
+def test_pack_conv_is_the_staging_order(co, ci):
+    """pack_conv lays a conv out as the kernels stage it: element
+    (c * 9 + t) * cpad + o, then cpad biases; transposed w[c][o][8 - t]."""
+    g = torch.Generator().manual_seed(co * 100 + ci)
+    w = torch.randn((co, ci, 3, 3), generator=g, dtype=torch.float64)
+    b = torch.randn((co,), generator=g, dtype=torch.float64)
+    for transposed in (False, True):
+        p = pack_conv(w, None if transposed else b)
+        rin, rout = (co, ci) if transposed else (ci, co)
+        cpad = -(-rout // 4) * 4
+        assert p.shape == ((rin * 9 + 1) * cpad,)
+        for c in range(rin):
+            for t in range(9):
+                for o in range(cpad):
+                    got = float(p[(c * 9 + t) * cpad + o])
+                    if o >= rout:
+                        want = 0.0
+                    elif transposed:
+                        want = float(w[c, o].reshape(9)[8 - t])
+                    else:
+                        want = float(w[o, c].reshape(9)[t])
+                    assert got == want
+        bias = p[rin * 9 * cpad:]
+        want_b = torch.zeros(cpad, dtype=torch.float64)
+        if not transposed:
+            want_b[:co] = b
+        assert torch.equal(bias, want_b)
+
+
+# ---------------------------------------------------------------------------
+# launch_args, the cache of a layer's packed weights and ctypes arguments.
+# The card's queries (SM count, shared-memory limit, the kernels' layout)
+# are stubbed, so the cache's own rules run on the CPU: an entry is found
+# again only for the same live tensors in the same state, and goes when one
+# of them is freed, so the next flow of the same spec is packed anew even
+# where its tensors take the freed addresses.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cpu_launch_args(monkeypatch):
+    from fthmc_tpu_torch.ops import coupling_kernels as ck
+    monkeypatch.setattr(ck, "_device_index", lambda x: 0)
+    monkeypatch.setattr(ck, "sm_count", lambda index: N_SM)
+    monkeypatch.setattr(ck, "band_layout", lambda *a: (4096, 0))
+    monkeypatch.setattr(_build, "smem_limit", lambda index: 232448)
+    monkeypatch.setattr(ck, "_LAUNCH_ARGS", {})
+    return ck
+
+
+def _flow(seed):
+    from fthmc_tpu_torch.models.flow import init_flow_params
+    spec = TSpec(n_layers=2, coupling="rncp", n_mixture=2, hidden_sizes=(4,),
+                 s_clip=3.0)
+    return spec, init_flow_params(spec, torch.Generator().manual_seed(seed),
+                                  device="cpu")
+
+
+def _packed_is(args, layer):
+    want = [pack_conv(p["w"], p["b"]) for p in layer] + \
+        [pack_conv(p["w"], None) for p in layer]
+    return all(torch.equal(a, b) for a, b in zip(args.packed, want))
+
+
+@pytest.mark.parametrize("change", ["none", "in_place", "freed", "shape",
+                                    "plan"])
+def test_launch_args_cache(cpu_launch_args, change):
+    import gc
+    ck = cpu_launch_args
+    spec, params = _flow(1)
+    x = torch.zeros((4, 2, 8, 8))
+    live = params[0]
+    first = ck.launch_args("K6", live, x, spec)
+    assert (first.C, tuple(first.row0)) == band_plan(8, 4, N_SM)
+    assert _packed_is(first, live) and len(ck._LAUNCH_ARGS) == 1
+    if change == "none":
+        assert ck.launch_args("K7", live, x, spec) is first
+    elif change == "in_place":
+        with torch.no_grad():
+            live[1]["w"].mul_(2.0)
+        again = ck.launch_args("K6", live, x, spec)
+        assert again is not first and _packed_is(again, live)
+        assert len(ck._LAUNCH_ARGS) == 1          # replaced, not added
+    elif change == "freed":
+        del params, live
+        gc.collect()
+        assert not ck._LAUNCH_ARGS                # dropped with its tensors
+        live = _flow(2)[1][0]
+        again = ck.launch_args("K6", live, x, spec)
+        assert again is not first and _packed_is(again, live)
+    elif change == "shape":
+        again = ck.launch_args("K6", live, torch.zeros((4, 2, 16, 16)), spec)
+        assert again is not first and again.L == 16
+        assert len(ck._LAUNCH_ARGS) == 2
+    else:
+        plan = (2, (0, 4, 8))
+        again = ck.launch_args("K6", live, x, spec, plan)
+        assert (again.C, tuple(again.row0)) == plan
+        assert ck.launch_args("K6", live, x, spec) is first
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.launch_args("K6", live, x.transpose(2, 3), spec)

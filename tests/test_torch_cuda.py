@@ -24,7 +24,8 @@ from fthmc_tpu_torch.ops import _build, rng
 from fthmc_tpu_torch.ops import lattice_kernels as lk
 from fthmc_tpu_torch.ops._build import smem_limit
 from fthmc_tpu_torch.ops.conv import full_fp32
-from fthmc_tpu_torch.ops.coupling_kernels import (coupling_forward,
+from fthmc_tpu_torch.ops.coupling_kernels import (band_layout, band_plan,
+                                                  coupling_forward,
                                                   coupling_forward_plain,
                                                   smem_bytes)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
@@ -53,8 +54,13 @@ def _wrapped(a, b):
                   - math.pi).abs().max())
 
 
+# one shape for each band plan (coupling_kernels.band_plan on 132 SMs):
+# (64, 16) 2 bands of 8 rows, the flagship; (128, 16) path C's; (32, 16) 4
+# of 4 rows; (2, 64) 8 of 8 rows; (3, 20) 8 ragged bands of 2 and 3 rows;
+# (4, 8) 4 of 2 rows
 @pytest.mark.parametrize("spec", SPECS)
-@pytest.mark.parametrize("B,L", [(4, 8), (3, 20)])
+@pytest.mark.parametrize("B,L", [(4, 8), (3, 20), (64, 16), (128, 16),
+                                 (32, 16), (2, 64)])
 def test_kernels_match_plain_twins(card, spec, B, L):
     g = torch.Generator(device=card).manual_seed(0)
     params = init_flow_params(spec, torch.Generator().manual_seed(1),
@@ -93,13 +99,29 @@ def test_kernels_match_plain_twins(card, spec, B, L):
 
 
 def test_shared_memory_envelope(card):
-    # one flagship block: 32x32 conv weights + bias + a 32-channel 18^2
-    # haloed tile + 256 reduction floats, as the kernels' smem_layout says
-    assert smem_bytes((2, 32, 32, 17), 16) == 4 * (9216 + 32 + 10368 + 256)
-    assert smem_bytes(tuple([2] + [4] * 8 + [3]), 8) == -1   # 9 convs
-    assert smem_bytes((2, 32, 32, 17), 64) <= smem_limit(card.index or 0)
+    limit = smem_limit(card.index or 0)
+    # one flagship CTA (8-row band at 16^2): a 32x32 conv's weights + bias,
+    # 32 reduction floats, two 32-channel activation buffers of 10 x 24
+    # planes and K8's 10 x 16 plaquette cotangents, as the kernels'
+    # smem_layout says; and a 4-row band's
+    flagship = (2, 32, 32, 17)
+    assert smem_bytes(flagship, 16, 8, limit) == \
+        4 * (9216 + 32 + 32 + 2 * 32 * 10 * 24 + 10 * 16)
+    assert smem_bytes(flagship, 16, 4, limit) == \
+        4 * (9216 + 32 + 32 + 2 * 32 * 6 * 24 + 6 * 16)
+    assert band_layout(flagship, 16, 8, limit)[1] == 0      # no scratch
+    # 64^2, 8-row bands: the planes still fit
+    assert smem_bytes(flagship, 64, 8, limit) == \
+        4 * (9216 + 32 + 32 + 2 * 32 * 10 * 72 + 10 * 64)
+    assert band_layout(flagship, 64, 8, limit)[1] == 0
+    # 128^2: the planes go to device scratch
+    assert smem_bytes(flagship, 128, 16, limit) == 4 * (9216 + 32 + 32)
+    assert band_layout(flagship, 128, 16, limit)[1] == \
+        2 * 32 * 18 * 136 + 18 * 128
+    assert smem_bytes(tuple([2] + [4] * 8 + [3]), 8, 2, limit) == -1
+    # past the limit even with one weight buffer and the planes in scratch
     wide = FlowSpec(n_layers=1, hidden_sizes=(128, 128))
-    assert smem_bytes((2, 128, 128, 3), 16) > smem_limit(card.index or 0)
+    assert smem_bytes((2, 128, 128, 3), 16, 4, limit) > limit
     params = init_flow_params(wide, torch.Generator().manual_seed(1),
                               device=card)
     z = torch.zeros((2, 2, 16, 16), device=card)
@@ -115,6 +137,197 @@ def test_shared_memory_envelope(card):
     with pytest.raises(ValueError):
         th.fthmc_step(params, wide, gen, z.double(), q, 2.0, 0.1, 2)
     assert dict(_build.LAUNCHES) == before
+
+
+def _layer_inputs(card, spec, B, L, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    params = init_flow_params(spec, torch.Generator().manual_seed(seed + 1),
+                              device=card)
+    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
+    gy = torch.randn((B, 2, L, L), generator=g, device=card)
+    gl = torch.randn((B,), generator=g, device=card)
+    return params, x, gy, gl
+
+
+@pytest.mark.parametrize("B,L", [(64, 16), (3, 20)])
+def test_two_launches_are_bit_equal(card, B, L):
+    """The kernels sum in a fixed order (no float atomics): a second launch
+    on the same input gives the same bits, and K6's logJ is K7's."""
+    spec = SPECS[1]
+    params, x, gy, gl = _layer_inputs(card, spec, B, L)
+    for li, layer in enumerate(params):
+        mu, off = li % 2, li
+        with full_fp32():
+            runs = []
+            for _ in range(2):
+                fx6, lj6 = coupling_forward(layer, x, mu, off, spec)
+                fx7, lj7, res = coupling_fwd_res(layer, x, mu, off, spec)
+                gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+                runs.append((fx6, lj6, fx7, lj7, *res, gx))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        assert torch.equal(runs[0][1], runs[0][3])
+        assert torch.equal(runs[0][0], runs[0][2])
+
+
+# (spec, B, L) of the lean launch paths: the planes in shared memory, and
+# (48 channels at 64^2, an odd chain count) in device scratch
+LEAN_CASES = {
+    "smem": (FlowSpec(n_layers=4, coupling="rncp", n_mixture=8,
+                      hidden_sizes=(32, 32), s_clip=3.0), 6, 20),
+    "scratch": (FlowSpec(n_layers=3, coupling="rncp", n_mixture=4,
+                         hidden_sizes=(48, 48), s_clip=3.0,
+                         activation="tanh"), 3, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(LEAN_CASES))
+def test_force_launch_path_equals_the_wrappers(card, case):
+    """flow_vjp_kernel's lean launch path (one workspace, raw pointers) and
+    the per-layer wrappers run the same kernels on the same inputs: equal
+    bits, and one K7 and one K8 launch a layer."""
+    from fthmc_tpu_torch.models.masks import layer_mask_params
+    from fthmc_tpu_torch.ops.coupling_vjp_kernels import flow_vjp_kernel
+    spec, B, L = LEAN_CASES[case]
+    params, x, gy, _ = _layer_inputs(card, spec, B, L, seed=7)
+    before = dict(_build.LAUNCHES)
+    with full_fp32():
+        got = flow_vjp_kernel(params, spec, x, lambda y: y * gy)
+        xs, res, y = [], [], x
+        for i, layer in enumerate(params):
+            mu, off = layer_mask_params(i)
+            xs.append(y)
+            y, _, r = coupling_fwd_res(layer, y, mu, off, spec)
+            res.append(r)
+        g = y * gy
+        gl = torch.full((B,), -1.0, device=card)
+        for i in range(len(params) - 1, -1, -1):
+            mu, off = layer_mask_params(i)
+            g = coupling_bwd(params[i], xs[i], res[i], g, gl, mu, off, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, g)
+    assert _build.LAUNCHES["K7"] - before["K7"] == 2 * spec.n_layers
+    assert _build.LAUNCHES["K8"] - before["K8"] == 2 * spec.n_layers
+
+
+def test_stream_handle_is_the_current_stream(card):
+    x = torch.zeros(1, device=card)
+    assert _build.stream_handle(x) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(x) == side.cuda_stream
+
+
+def test_next_flow_of_a_spec_gets_its_own_weights(card):
+    """A flow freed and the next flow of the same spec made at the same
+    shape (its tensors may take the freed addresses): K6, K7, K8, the flow
+    forward and the force run on the new flow's weights, as its twins do."""
+    import gc
+    from fthmc_tpu_torch.models.masks import layer_mask_params
+    from fthmc_tpu_torch.ops.coupling_kernels import kernel_flow_forward
+    from fthmc_tpu_torch.ops.coupling_vjp_kernels import flow_vjp_kernel
+    spec = SPECS[1]
+    B, L = 16, 16
+    first, x, gy, gl = _layer_inputs(card, spec, B, L, seed=4)
+    with full_fp32():
+        for i, layer in enumerate(first):
+            mu, off = layer_mask_params(i)
+            _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
+            coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+        kernel_flow_forward(first, x, spec)
+        flow_vjp_kernel(first, spec, x, lambda y: y * gy)
+    del first, layer, res
+    gc.collect()
+    torch.cuda.synchronize()
+    params = init_flow_params(spec, torch.Generator().manual_seed(9),
+                              device=card)
+    with full_fp32():
+        y, logdet = kernel_flow_forward(params, x, spec)
+        y_p, ld_p = x, torch.zeros(B, device=card)
+        for i, layer in enumerate(params):
+            mu, off = layer_mask_params(i)
+            fx, lj = coupling_forward(layer, x, mu, off, spec)
+            fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
+            fx7, _, res = coupling_fwd_res(layer, x, mu, off, spec)
+            _, _, res_p = coupling_fwd_res_plain(layer, x, mu, off, spec)
+            gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+            gx_p = coupling_bwd_plain(layer, x, res_p, gy, gl, mu, off, spec)
+            torch.cuda.synchronize()
+            assert _wrapped(fx, fx_p) < 1e-4 and _wrapped(fx7, fx_p) < 1e-4
+            assert float((lj - lj_p).abs().max()) < \
+                1e-4 * max(1.0, float(lj_p.abs().max()))
+            for r, r_p in zip(res, res_p):
+                assert float((r - r_p).abs().max()) < \
+                    1e-4 * max(1.0, float(r_p.abs().max()))
+            assert float((gx - gx_p).abs().max()) < \
+                2e-3 * max(1.0, float(gx_p.abs().max()))
+            y_p, lj_p = coupling_forward_plain(layer, y_p, mu, off, spec)
+            ld_p = ld_p + lj_p
+        assert _wrapped(y, y_p) < 1e-4
+        assert float((logdet - ld_p).abs().max()) < \
+            1e-4 * max(1.0, float(ld_p.abs().max()))
+        # the whole chain on the new flow against its twins' chain (CPU)
+        got = flow_vjp_kernel(params, spec, x, lambda y: y * gy)
+        cpu = [[{k: v.cpu() for k, v in c.items()} for c in layer]
+               for layer in params]
+        want = flow_vjp_kernel(cpu, spec, x.cpu(), lambda y: y * gy.cpu())
+    assert float((got.cpu() - want).abs().max()) < \
+        2e-3 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", sorted(LEAN_CASES))
+def test_flow_forward_launch_path_equals_the_wrappers(card, case):
+    """kernel_flow_forward's lean launch path (one workspace, raw pointers)
+    and the per-layer K6 wrapper: equal bits, logdet summed in the layers'
+    order, and one K6 launch a layer."""
+    from fthmc_tpu_torch.models.masks import layer_mask_params
+    from fthmc_tpu_torch.ops.coupling_kernels import kernel_flow_forward
+    spec, B, L = LEAN_CASES[case]
+    params, x, _, _ = _layer_inputs(card, spec, B, L, seed=8)
+    before = _build.LAUNCHES["K6"]
+    with full_fp32():
+        y, logdet = kernel_flow_forward(params, x, spec)
+        assert _build.LAUNCHES["K6"] - before == spec.n_layers
+        ref, ld = x, torch.zeros(B, device=card)
+        for i, layer in enumerate(params):
+            mu, off = layer_mask_params(i)
+            ref, lj = coupling_forward(layer, ref, mu, off, spec)
+            ld = ld + lj
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref) and torch.equal(logdet, ld)
+
+
+def test_band_planes_in_device_scratch_match_twins(card):
+    """A conditioner whose band planes do not fit in shared memory (48
+    channels, 8-row bands of 64^2) keeps them in device scratch: the same
+    results as the twins."""
+    spec = FlowSpec(n_layers=2, coupling="rncp", n_mixture=4,
+                    hidden_sizes=(48, 48), s_clip=3.0, activation="tanh")
+    B, L = 2, 64
+    C, row0 = band_plan(L, B, torch.cuda.get_device_properties(card)
+                        .multi_processor_count)
+    assert (C, row0[1]) == (8, 8)
+    assert band_layout((2, 48, 48, 9), L, 8, smem_limit(card.index or 0))[1] \
+        > 0
+    params, x, gy, gl = _layer_inputs(card, spec, B, L, seed=3)
+    with full_fp32():
+        for mu, off in ((0, 1), (1, 2)):
+            layer = params[mu]
+            fx, lj = coupling_forward(layer, x, mu, off, spec)
+            fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
+            fx7, lj7, res = coupling_fwd_res(layer, x, mu, off, spec)
+            _, _, res_p = coupling_fwd_res_plain(layer, x, mu, off, spec)
+            gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+            gx_p = coupling_bwd_plain(layer, x, res_p, gy, gl, mu, off, spec)
+            torch.cuda.synchronize()
+            assert _wrapped(fx, fx_p) < 1e-4 and _wrapped(fx7, fx_p) < 1e-4
+            assert float((lj - lj_p).abs().max()) < \
+                1e-4 * max(1.0, float(lj_p.abs().max()))
+            assert torch.equal(lj, lj7)
+            for r, r_p in zip(res, res_p):
+                assert float((r - r_p).abs().max()) < \
+                    1e-4 * max(1.0, float(r_p.abs().max()))
+            assert float((gx - gx_p).abs().max()) < \
+                2e-3 * max(1.0, float(gx_p.abs().max()))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -36,18 +36,22 @@ Phases, each printed on its own line:
      'auto' rule), FT-HMC chain-steps/s, and the headline's chain-steps/s
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
-  8. dynamical fermions: K9 (64^2, 64 chains) and K10 (16^2, 128 chains)
-     against their twins, eo and not; K11's update against its twin; the
-     fused CG on the kernels against the same CG on the twins and the torch
-     'xla' CG, cold and warm; then paths A (plain dynamical HMC, 64^2, K9 +
+  8. dynamical fermions: K9 (64^2, 64 chains; 16^2, 128 chains) and K10
+     (16^2, 128 chains) against their twins, eo and not; K11's update
+     against its twin; the fused CG on the kernels against the same CG on
+     the twins and the torch 'xla' CG, cold and warm; K9 and K10 under
+     every band plan and chain tile at the three paths' shapes, each held
+     against its twin (the "fermion_band_plans" line); then paths A
+     (plain dynamical HMC, 64^2, K9 +
      K11 + K1), B (16^2, K10 by name + K11 + K1) and C (FT-HMC with the
      trained flow, 16^2, K6-K8 + K1 + the 'auto' layout's operator + K11)
      through run_hmc_dyn / run_fthmc_dyn at the JAX package's production
      configurations, each with its launch counters (set to 0 just before
      it) and its physics against the JAX package's reading (DYN_READING);
-     timings of K9-K11, their twins, a CG iteration, K9 against K10 over L
-     (the 'auto' layout rule), s/trajectory, chain-steps/s, CG iterations a
-     solve, and path A's device busy share;
+     timings of K9-K11 (the card's time, a CUDA graph of launches
+     replayed; events beside), their twins, a CG iteration, K9 against K10
+     over L (the 'auto' layout rule), s/trajectory, chain-steps/s, CG
+     iterations a solve, and path A's device busy share;
   9. a {"kernels": [...]} JSON line, K1-K11;
   10. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
@@ -184,8 +188,12 @@ DYN_READING = {"A": (0.95458984375, 0.999826192855835, 0.9147999286651611),
                      0.9148625135421753),
                "C": (0.6754817962646484, 0.884468674659729,
                      0.914852499961853)}
-# (chains, L, chains-last) of the kernel comparisons: paths A's and B's
-FERMION_SHAPES = {"A": (64, 64, False), "B": (128, 16, True)}
+# (chains, L, chains-last) of the kernel comparisons: the paths' shapes
+# and operators (C's 'auto' operator, K9 at 16^2)
+FERMION_SHAPES = {"A": (64, 64, False), "B": (128, 16, True),
+                  "C": (128, 16, False)}
+# K10's chain tiles in the band-plan sweep
+K10_TILES = (8, 16, 32)
 # K9 against K10 (the 'auto' layout rule): these L, this many chains
 LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
 # (thermalizing, measured) trajectories, sized against the time limit
@@ -222,6 +230,27 @@ def cuda_ms(fn, reps: int = 20, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
+
+
+def graph_ms(make, reps: int = 20, repeats: int = 5) -> float:
+    """The card's time of one launch, the host's pacing left out: a CUDA
+    graph of ``reps`` launches, each bound by ``make()`` on the capturing
+    stream, replayed and timed as cuda_ms times a call (median of
+    ``repeats`` replays after one warm-up), over reps. A bound launch a
+    call costs the host ~10 us (ctypes), as long as the fermion kernels at
+    16^2 take, so cuda_ms of back-to-back calls times the host there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        make()()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch = make()
+        for _ in range(reps):
+            launch()
+    return cuda_ms(graph.replay, reps=1, repeats=repeats) / reps
 
 
 def _dilate(m: np.ndarray) -> np.ndarray:
@@ -653,6 +682,11 @@ def device_busy(dev, backend: str, s_per_traj: float) -> dict:
 # dynamical fermions: K9, K10, K11 and paths A, B, C
 # ---------------------------------------------------------------------------
 
+# the kernels' wrapper and plain twin
+OPERATORS = {"K9": (fk.mdagm, fk.mdagm_plain),
+             "K10": (fk.mdagm_cl, fk.mdagm_cl_plain)}
+
+
 def _complex_field(g: torch.Generator, B: int, L: int, dev) -> torch.Tensor:
     return torch.complex(torch.randn((B, L, L, 2), generator=g, device=dev),
                          torch.randn((B, L, L, 2), generator=g, device=dev))
@@ -667,8 +701,9 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def fermion_inputs(dev):
-    """Near-equilibrium links at beta=6 for path A's shape (64^2, B=64) and
-    path B's (16^2, B=128), their link planes and even-masked planes."""
+    """Near-equilibrium links at beta=6 at each shape of FERMION_SHAPES,
+    their link planes and planes (even-masked for eo), in the shape's
+    layout."""
     g = torch.Generator(device=dev).manual_seed(2028)
     out = {}
     for key, (B, L, chains_last) in FERMION_SHAPES.items():
@@ -703,8 +738,9 @@ def _worst(pairs):
 
 
 def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
-    """K9 (path A's shape) and K10 (path B's) against their twins, eo and
-    not: 1e-6 x max|ref| (they repeat the twins' arithmetic op for op);
+    """K9 (paths A's and C's shapes) and K10 (path B's) against their
+    twins, eo and not: 1e-6 x max|ref| (they repeat the twins' arithmetic
+    op for op);
     K11's update against its twin, 1e-5 x max|ref| (its sums run in
     another order) and the same counters; the whole fused CG on the
     kernels against the same on the twins (cg_solve_fused_plain) and
@@ -714,9 +750,9 @@ def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
     ~30), iters within 1 (rsq may cross its stop one iteration apart),
     rsq <= tol."""
     errs, tols, info = {}, {}, {}
-    for k, key, op, plain in (("K9", "A", fk.mdagm, fk.mdagm_plain),
-                              ("K10", "B", fk.mdagm_cl, fk.mdagm_cl_plain)):
-        d = inp[key]
+    for key, d in inp.items():
+        k = "K10" if d["cl"] else "K9"
+        op, plain = OPERATORS[k]
         pairs = []
         for eo in (True, False):
             got = op(d["ur"], d["ui"], d["p4"][eo], MASS, eo)
@@ -724,9 +760,11 @@ def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
             torch.cuda.synchronize()
             pairs.append((float((got - ref).abs().max()),
                           1e-6 * float(ref.abs().max())))
-        errs[k], tols[k] = _worst(pairs)
-        info[k] = pairs
-        require(all(e <= t for e, t in pairs), f"{k} vs plain: {pairs}")
+        info[f"{k}_{key}"] = pairs
+        require(all(e <= t for e, t in pairs), f"{k} {key} vs plain: "
+                f"{pairs}")
+        errs[k], tols[k] = _worst(pairs + ([(errs[k], tols[k])]
+                                           if k in errs else []))
     pairs = []
     for key in ("A", "B"):
         d = inp[key]
@@ -770,6 +808,55 @@ def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
             require(max(r["rsq_max"]) <= 1e-9, f"CG rsq {r}")
     info["cg"] = cg
     return errs, tols, info
+
+
+def fermion_plan_sweep(inp, n_sm: int) -> dict:
+    """K9 and K10 under every band plan of C = 1, 2, 4, 8 even bands of >= 2
+    rows (K10 under each chain tile of K10_TILES too; a band over the
+    shared-memory limit runs from device scratch) at each shape of
+    FERMION_SHAPES, eo: the card's ms of a launch (graph_ms), beside the
+    plan and tile the wrappers pick; each plan's output held against the
+    twin within 1e-6 x max|ref| first."""
+    out = {}
+    for key, d in inp.items():
+        B, n, _ = FERMION_SHAPES[key]
+        planes = {d["cl"]: (d["ur"], d["ui"], d["p4"][True])}
+        other = ((lambda t: t.permute(3, 0, 1, 2).contiguous()) if d["cl"]
+                 else _cl)
+        planes[not d["cl"]] = tuple(other(t) for t in planes[d["cl"]])
+        C9 = fk.fermion_band_plan(n, B, n_sm)[0]
+        C10 = fk.fermion_band_plan(n, B, n_sm, fk.K10_TILE)[0]
+        row = {"chains": B, "L": n, "picked": {"K9": C9,
+                                               "K10": [fk.K10_TILE, C10]},
+               "K9": {}, "K10": {}}
+        worst = 0.0
+        for cl in (False, True):
+            k = "K10" if cl else "K9"
+            ur, ui, p4 = planes[cl]
+            ref = OPERATORS[k][1](ur, ui, p4, MASS, True)
+            tol = 1e-6 * float(ref.abs().max())
+            for C in (1, 2, 4, 8):
+                if n // C < 2:
+                    continue
+                plan = (C, tuple(r * n // C for r in range(C + 1)))
+                for tile in (K10_TILES if cl else (None,)):
+                    def make(plan=plan, tile=tile):
+                        return fk.operator_launch(cl, ur, ui, p4, MASS, True,
+                                                  None, None, plan, tile)[0]
+                    launch, got = fk.operator_launch(cl, ur, ui, p4, MASS,
+                                                     True, None, None, plan,
+                                                     tile)
+                    launch()
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    require(err <= tol, f"{k} {key} plan {plan} tile {tile}"
+                            f": {err} > {tol}")
+                    worst = max(worst, err / tol)
+                    name = f"{tile}x{C}" if cl else str(C)
+                    row[k][name] = graph_ms(make)
+        row["max_err_over_tol"] = worst
+        out[key] = row
+    return out
 
 
 def _solve_launches(log: tf.CGLog) -> int:
@@ -882,33 +969,56 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
 
 
 def fermion_timings(dev, inp) -> dict:
-    """CUDA-event times (ms) of K9 at path A's shape, K10 at path B's, K11
-    at both, each a launch bound once as the CG's loop binds it (so the
-    time is the card's, not the Python wrapper's), and their twins; one CG
-    iteration (operator and update) at each shape; and K9 against K10 at L
-    in LAYOUT_RULE_L, LAYOUT_RULE_B chains, which sets the 'auto' layout
-    rule."""
-    out = {"kernel_ms": {}, "plain_ms": {}}
-    for key, k, plain in (("A", "K9", fk.mdagm_plain),
-                          ("B", "K10", fk.mdagm_cl_plain)):
-        d = inp[key]
-        op, _ = fk.operator_launch(d["cl"], d["ur"], d["ui"], d["p4"][True],
-                                   MASS, True, None, None)
-        out["kernel_ms"][k] = cuda_ms(op)
-        out["plain_ms"][k] = cuda_ms(lambda: plain(d["ur"], d["ui"],
-                                                   d["p4"][True], MASS,
-                                                   True), reps=3)
+    """Times (ms) of K9 at paths A's and C's shapes and K10 at path B's
+    (``operator_by_shape``, each beside its bound), K11 at A's and B's, and
+    one CG iteration (operator and update) at A and B: the card's
+    (graph_ms of launches bound as the CG's loop binds them) and, as PRs
+    3-4 timed them, CUDA events over back-to-back bound launches
+    (``event_ms``, host-paced where a launch is shorter than the host's
+    ctypes call); their twins; and K9 against K10 at L in LAYOUT_RULE_L,
+    LAYOUT_RULE_B chains, the card's times in turns (K9, K10, K10, K9),
+    which set the 'auto' layout rule. ``kernel_ms`` holds K9 at A and K10
+    at B."""
+    out = {"kernel_ms": {}, "plain_ms": {}, "operator_by_shape": {}}
+    for key, d in inp.items():
+        B, n, _ = FERMION_SHAPES[key]
+        k = "K10" if d["cl"] else "K9"
+        plain = OPERATORS[k][1]
+
+        def make(d=d):
+            return fk.operator_launch(d["cl"], d["ur"], d["ui"],
+                                      d["p4"][True], MASS, True, None,
+                                      None)[0]
+        row = {"kernel": k, "chains": B, "L": n, "kernel_ms": graph_ms(make),
+               "event_ms": cuda_ms(make()),
+               "plain_ms": cuda_ms(lambda: plain(d["ur"], d["ui"],
+                                                 d["p4"][True], MASS, True),
+                                   reps=3),
+               **fermion_bounds(B, n)[k]}
+        out["operator_by_shape"][key] = row
+        if key == "C":
+            continue
+        out["kernel_ms"][k] = row["kernel_ms"]
+        out["plain_ms"][k] = row["plain_ms"]
         p, mp, x, r, rsq, stop = _update_inputs(d)
         stop = torch.full_like(stop, math.inf)    # keep the values fixed
         c = torch.zeros(2, dtype=torch.int32, device=dev)
-        upd = fk.update_launch(p, mp, x, r, rsq, stop, c, d["cl"])
-        it_op, _ = fk.operator_launch(d["cl"], d["ur"], d["ui"], p, MASS,
-                                      True, mp, None)
+
+        def make_upd(p=p, mp=mp, x=x, r=r, rsq=rsq, stop=stop, c=c, d=d):
+            upd = fk.update_launch(p, mp, x, r, rsq, stop, c, d["cl"])
+            return lambda: upd(0)
+
+        def make_it(p=p, mp=mp, d=d, make_upd=make_upd):
+            op = fk.operator_launch(d["cl"], d["ur"], d["ui"], p, MASS, True,
+                                    mp, None)[0]
+            upd = make_upd()
+            return lambda: (op(), upd())
         out[f"K11_{key}"] = {
-            "kernel_ms": cuda_ms(lambda: upd(0)),
+            "kernel_ms": graph_ms(make_upd), "event_ms": cuda_ms(make_upd()),
             "plain_ms": cuda_ms(lambda: fk.cg_update_plain(
                 p, mp, x, r, rsq, stop, c, 0, d["cl"]), reps=3),
-            "cg_iteration_ms": cuda_ms(lambda: (it_op(), upd(0)))}
+            "cg_iteration_ms": graph_ms(make_it),
+            "cg_iteration_event_ms": cuda_ms(make_it())}
     g = torch.Generator(device=dev).manual_seed(6)
     rule = {}
     for n in LAYOUT_RULE_L:
@@ -917,10 +1027,17 @@ def fermion_timings(dev, inp) -> dict:
         even, _ = fk.parity_masks(n, n, 1, dev)
         p4 = fk.pack_spinor(_complex_field(g, LAYOUT_RULE_B, n, dev) * even) \
             .contiguous()
-        k9, _ = fk.operator_launch(False, ur, ui, p4, MASS, True, None, None)
-        k10, _ = fk.operator_launch(True, _cl(ur), _cl(ui), _cl(p4), MASS,
-                                    True, None, None)
-        rule[n] = {"K9": cuda_ms(k9), "K10": cuda_ms(k10),
+        lay = {"K9": (False, ur, ui, p4),
+               "K10": (True, _cl(ur), _cl(ui), _cl(p4))}
+        times = {"K9": [], "K10": []}
+        for k in ("K9", "K10", "K10", "K9"):
+            cl, *planes = lay[k]
+            times[k].append(graph_ms(lambda cl=cl, planes=planes:
+                                     fk.operator_launch(cl, *planes, MASS,
+                                                        True, None,
+                                                        None)[0]))
+        rule[n] = {"K9": min(times["K9"]), "K10": min(times["K10"]),
+                   "readings": times,
                    "auto": fk.resolve_layout("auto", n, n)}
     out["k9_vs_k10_ms_by_L"] = rule
     return out
@@ -1161,6 +1278,8 @@ def main() -> None:
     errs.update(e_f)
     tols.update(t_f)
     say("compare_fermion", max_abs_err=e_f, tolerance=t_f, details=info_f)
+    say("fermion_band_plans", eo=True, kernel_ms_by_plan=fermion_plan_sweep(
+        inp, sm_count(torch.cuda.current_device())))
     dyn = {"A": dyn_path("A", dev, near_equilibrium(
                torch.Generator(device=dev).manual_seed(51), 64, 64, 6.0,
                dev)),

@@ -318,7 +318,7 @@ extern "C" int k8_coupling_bwd(const float* x, const float* gy,
                             : &coupling_bwd_kernel<false>;
   cudaError_t err = ensure_smem(kernel, bytes, g_bwd_smem[sl.act_smem]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_clusters(kernel, B, C, bytes, stream, x, gy, gl, gx, net,
-                        bufs, ly, bands, sl, scratch);
+  err = launch_clusters(kernel, B, C, THREADS, bytes, stream, x, gy, gl,
+                        gx, net, bufs, ly, bands, sl, scratch);
   return static_cast<int>(err);
 }

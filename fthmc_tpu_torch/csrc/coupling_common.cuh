@@ -5,8 +5,8 @@
 //
 // Geometry. A chain is one thread-block cluster of C CTAs (C <= 8, the
 // portable cluster limit); CTA rank r owns rows [row0[r], row0[r+1]) of the
-// lattice, for every channel (the band plan is chosen by the Python wrapper,
-// ops/coupling_kernels.band_plan, so the CPU tests reach it). A band's
+// lattice, for every channel (common.cuh's Bands; the band plan is chosen
+// by the Python wrapper, ops/coupling_kernels.band_plan). A band's
 // activations stay put for the whole conv chain: each channel is a plane
 // of (R + 2) rows (the own rows 1..R, a halo row above and below) by
 // L + 8 columns (column j at index j + 4, its periodic images j = -1 and
@@ -45,14 +45,11 @@
 
 #include <cooperative_groups.h>
 
-#include <utility>
-
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
 constexpr int MAX_CONVS = 8;   // conv layers per conditioner
-constexpr int MAX_BANDS = 8;   // CTAs a chain's cluster (portable limit)
 constexpr int KO = 4;          // output channels a thread item
 constexpr int KS = 4;          // consecutive sites of a row a thread item
 constexpr int THREADS = 256;   // threads a CTA
@@ -89,13 +86,6 @@ struct Layer {
   int act;      // Activation
   int mu, off;  // mask parameters of this layer
   float s_clip; // <= 0: no smooth clip
-};
-
-// The band plan of every chain: C CTAs, rank r owning rows
-// [row0[r], row0[r + 1]); row0[0] = 0, row0[C] = L.
-struct Bands {
-  int C;
-  int row0[MAX_BANDS + 1];
 };
 
 __host__ __device__ inline int round_up(int v, int m) {
@@ -190,69 +180,6 @@ extern "C" int ft_band_floats(int n_convs, const int* widths, int L, int R,
   return s.act_smem ? 0 : s.region;
 }
 
-// Sets the kernel's dynamic shared-memory opt-in when a launch needs more
-// than was set on this device before (not on every launch), and, the first
-// time, the largest shared-memory carveout (the default may hold fewer CTAs
-// an SM than their shared memory allows).
-template <class Kernel>
-cudaError_t ensure_smem(Kernel kernel, int bytes, int* set_bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (bytes <= set_bytes[dev]) return cudaSuccess;
-  if (set_bytes[dev] == 0) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) set_bytes[dev] = bytes;
-  return err;
-}
-
-// A cluster launch of B * C CTAs, C a cluster; a refused launch returns its
-// error (and clears it from cudaGetLastError).
-template <class... Params, class... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), int B, int C,
-                            int bytes, void* stream, Args&&... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? err : last;
-}
-
-__host__ inline bool bands_from(int C, const int* row0, int L, int* R,
-                                Bands* bands) {
-  if (C < 1 || C > MAX_BANDS || row0[0] != 0 || row0[C] != L) return false;
-  bands->C = C;
-  *R = 0;
-  for (int r = 0; r <= C; ++r) {
-    bands->row0[r] = row0[r];
-    if (r > 0) {
-      const int h = row0[r] - row0[r - 1];
-      if (h < 1) return false;
-      *R = h > *R ? h : *R;
-    }
-  }
-  return true;
-}
-
 __device__ __forceinline__ float act_fn(int a, float v) {
   switch (a) {
     case ACT_RELU: return fmaxf(v, 0.f);
@@ -275,15 +202,6 @@ __device__ __forceinline__ float act_grad(int a, float v) {
       return 1.f - t * t;
     }
   }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Floats of one conv's packed weights and biases (rin inputs, rout

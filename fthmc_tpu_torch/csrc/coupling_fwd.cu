@@ -207,7 +207,7 @@ extern "C" int ft_coupling_forward(const float* x, float* fx, float* logj,
                             : &coupling_fwd_kernel<false>;
   cudaError_t err = ensure_smem(kernel, bytes, g_fwd_smem[sl.act_smem]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_clusters(kernel, B, C, bytes, stream, x, fx, logj, net, bufs,
-                        ly, bands, sl, scratch);
+  err = launch_clusters(kernel, B, C, THREADS, bytes, stream, x, fx, logj,
+                        net, bufs, ly, bands, sl, scratch);
   return static_cast<int>(err);
 }

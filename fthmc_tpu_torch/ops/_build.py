@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
            "build_all", "library", "bind", "check", "smem_limit",
-           "stream_handle",
+           "sm_count", "stream_handle",
            "require_fp32_contiguous", "ptr_array", "int_ptrs", "int_array"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -69,11 +69,15 @@ _SIGNATURES = {
     "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ,
                  "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ,
                  "traj_smem_bytes": [_I, _I]},
-    # (pointers, B, L0, L1, a, b, eo, stream) of the operators
-    "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _P],
-                "k10_mdagm_cl": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _P],
+    # (pointers, B, L0, L1, a, b, eo, C, row0, [tile,] stream) of the
+    # operators: the band plan, and K10's chain tile
+    "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,
+                                        _P],
+                "k10_mdagm_cl": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,
+                                            _I, _P],
                 "k11_cg_update": [_P] * 7 + [_I] * 5 + [_P],
-                "k9_smem_bytes": [_I, _I]},
+                # a CTA's band (csrc/fermion.cu, OpLayout)
+                "fermion_smem_bytes": [_I] * 5},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -162,6 +166,13 @@ def smem_limit(device_index: int) -> int:
         raise RuntimeError(f"cannot read the shared memory limit of "
                            f"cuda:{device_index}")
     return limit
+
+
+@lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (the band plans fill
+    them)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(rc: int, what: str, lib: ctypes.CDLL) -> None:

@@ -61,9 +61,7 @@ def band_plan(L: int, B: int, n_sm: int) -> tuple[int, tuple[int, ...]]:
     return C, tuple(r * L // C for r in range(C + 1))
 
 
-@lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+sm_count = _build.sm_count
 
 
 @lru_cache(maxsize=None)

@@ -9,8 +9,12 @@ built on them: the counterpart of ``fthmc_tpu/ops/pallas_fermion.py``.
 
 K9 and K10 apply the normal operator D^dag D, or the even-odd Schur
 Dhat^dag Dhat, to packed real planes [Re s0, Im s0, Re s1, Im s1]: K9 on
-chains-first (B, 4, L0, L1), K10 on chains-last (4, L0, L1, B). K11 is one
-CG iteration's vector update on the same layout. ``cg_solve_fused`` is a
+chains-first (B, 4, L0, L1), K10 on chains-last (4, L0, L1, B), each in
+one launch an operator. A chain (K9) or a tile of ``K10_TILE`` chains
+(K10) is split into C bands of rows, a CTA each (``fermion_band_plan``),
+the band's planes with four halo rows a side and every intermediate in
+shared memory, so the CTAs need nothing of each other. K11 is one CG
+iteration's vector update on the same layout. ``cg_solve_fused`` is a
 host loop of one operator launch and one K11 launch an iteration, which
 reads the device's "any chain still active" flag every ``CHECK_EVERY``
 iterations only.
@@ -20,9 +24,10 @@ The twins' math has one source, ``hop_planes`` and ``normal_op_planes``
 for the layout, as in the JAX package. A CPU tensor takes the twin; a CUDA
 tensor launches the kernel, or raises for what the kernels do not take:
 other dtypes, odd sides or sides under 4 (``check_sides``). There is no
-upper limit: a K9 block keeps its chain in shared memory where it fits
-(L0 L1 <= 4,842 sites on an H100, so up to 64^2) and in a scratch buffer
-the wrapper allocates beyond.
+upper limit: a band lives in shared memory where it fits (on an H100, K9
+under ``fermion_band_plan``'s plans to 96^2 at least, K10's 8-chain tiles
+to 32^2) and in a scratch buffer the wrapper allocates beyond
+(``operator_plan``).
 """
 from __future__ import annotations
 
@@ -37,13 +42,19 @@ __all__ = ["pack_spinor", "unpack_spinor", "link_planes", "parity_masks",
            "hop_planes", "normal_op_planes", "mdagm_plain", "mdagm_cl_plain",
            "cg_update_plain", "mdagm", "mdagm_cl", "cg_update",
            "check_sides", "resolve_layout", "fused_mdagm", "CGResult",
-           "cg_solve_fused", "cg_solve_fused_plain", "operator_launch",
-           "update_launch", "CHECK_EVERY"]
+           "cg_solve_fused", "cg_solve_fused_plain", "fermion_band_plan",
+           "operator_plan", "operator_launch", "update_launch",
+           "CHECK_EVERY", "K10_TILE"]
 
 # iterations between two reads of the device's convergence flag: each read
 # stalls the host until the card drains; the iterations after the last
 # chain converged (half of this on average) are launched for nothing
 CHECK_EVERY = 8
+MAX_BANDS = 8            # bands a group (csrc/common.cuh)
+HALO_ROWS = 4            # halo rows a side of a band (csrc/fermion.cu)
+# chains a K10 tile (a power of two): the chains-last layout's coalesced
+# axis; chip_smoke.py's fermion_band_plans line times 8, 16 and 32
+K10_TILE = 8
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +266,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return (t.device.index if t.device.index is not None
+def _device_index_of(device) -> int:
+    return (device.index if device.index is not None
             else torch.cuda.current_device())
 
 
@@ -298,30 +309,69 @@ def _ab(mass: float) -> tuple[float, float]:
     return a, 0.25 / a
 
 
+def fermion_band_plan(L: int, B: int, n_sm: int,
+                      tile: int = 1) -> tuple[int, tuple[int, ...]]:
+    """The bands a group of K9 / K10 work is split into: (C, row0), CTA r
+    of the C owning rows [row0[r], row0[r + 1]) of the L rows, a group being
+    a chain (K9, ``tile`` 1) or a tile of ``tile`` chains (K10), so
+    ceil(B / tile) x C CTAs make the grid. C is a power of two up to
+    MAX_BANDS, doubled while the grid is under the card's ``n_sm`` SMs and
+    the bands keep HALO_ROWS rows: a band computes its four halo rows a
+    side again, so thinner bands cost more than the SMs they fill (the
+    H100 times of every plan, chip_smoke.py's ``fermion_band_plans`` line;
+    PERF.md). Bands differ by at most one row."""
+    groups = -(-B // tile)
+    C = 1
+    while groups * C < n_sm and 2 * C <= min(MAX_BANDS, L // HALO_ROWS):
+        C *= 2
+    return C, tuple(r * L // C for r in range(C + 1))
+
+
 @lru_cache(maxsize=None)
-def _k9_fits(L0: int, L1: int, device_index: int) -> bool:
-    need = _build.library("fermion").k9_smem_bytes(L0, L1)
-    return 0 < need <= _build.smem_limit(device_index)
+def _band_bytes(L0: int, L1: int, C: int, rows: int, tile: int) -> int:
+    return _build.library("fermion").fermion_smem_bytes(L0, L1, C, rows,
+                                                        tile)
 
 
-def k9_scratch_floats(B: int, L0: int, L1: int, device) -> int:
-    """Scratch K9 needs: none where a chain's 12 planes fit one block's
-    shared memory, else two 4-plane buffers a chain."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    return 0 if _k9_fits(L0, L1, index) else 8 * B * L0 * L1
+def operator_plan(cl: bool, B: int, L0: int, L1: int, device, plan=None,
+                  tile: int | None = None):
+    """(C, row0, tile, scratch floats) of a K9 (``cl`` False) or K10
+    launch: the band plan ``plan`` (C, row0), by default
+    ``fermion_band_plan``'s, K10's chain tile (``K10_TILE`` by default; 1
+    for K9), and the device scratch the bands take where one does not fit
+    in shared memory (0 where it does), as the kernels' own count
+    ``fermion_smem_bytes`` says. Raises for a plan the kernels do not
+    take. ``plan`` and ``tile`` other than the defaults are for timing and
+    tests."""
+    index = _device_index_of(device)
+    tile = (K10_TILE if tile is None else int(tile)) if cl else 1
+    if plan is None:
+        plan = fermion_band_plan(L0, B, _build.sm_count(index), tile)
+    C, row0 = int(plan[0]), tuple(int(r) for r in plan[1])
+    rows = [b - a for a, b in zip(row0, row0[1:])]
+    need = -1
+    if len(row0) == C + 1 and row0[0] == 0 and row0[-1] == L0 \
+            and min(rows) >= 1:
+        need = _band_bytes(L0, L1, C, max(rows), tile)
+    if need < 0:
+        raise ValueError(f"the fermion kernels do not take the band plan "
+                         f"{plan} with tile {tile} at L0={L0}, L1={L1}")
+    fits = need <= _build.smem_limit(index)
+    return C, row0, tile, 0 if fits else -(-B // tile) * C * need // 4
 
 
 class _Launch:
     """A kernel entry with its arguments bound after one validation: a call
     launches the kernel (one ctypes call), checks the launch and counts it.
     The CG keeps one of each a solve, so an iteration costs two ctypes
-    calls on the host."""
-    __slots__ = ("name", "fn", "lib", "args", "stream")
+    calls on the host. ``keep`` holds the tensors behind the bound
+    pointers, so a launch made again later never writes freed memory."""
+    __slots__ = ("name", "fn", "lib", "args", "stream", "keep")
 
-    def __init__(self, name: str, fn, lib, args: tuple, stream: int):
+    def __init__(self, name: str, fn, lib, args: tuple, stream: int,
+                 keep: tuple):
         self.name, self.fn, self.lib = name, fn, lib
-        self.args, self.stream = args, stream
+        self.args, self.stream, self.keep = args, stream, keep
 
     def __call__(self, *mid) -> None:
         rc = self.fn(*self.args, *mid, self.stream)
@@ -331,52 +381,60 @@ class _Launch:
 
 
 def operator_launch(cl: bool, ur, ui, p4, mass: float, eo: bool, out,
-                     scratch):
+                    scratch, plan=None, tile: int | None = None):
     """(K9 or K10 launch of p4 -> out, out) after refusing what the kernel
-    does not take; allocates out and scratch when not given."""
+    does not take; allocates out, and the scratch ``operator_plan`` asks
+    for, when not given. ``plan``, ``tile``: see ``operator_plan``."""
     name = "K10" if cl else "K9"
     what = "K10 mdagm_cl" if cl else "K9 mdagm"
     B, L0, L1 = _check_planes(what, ur, ui, p4, cl)
     _build.require_fp32_contiguous(what, ur, ui, p4)
     out = _out(what, out, p4)
-    n_scratch = 8 * B * L0 * L1 if cl else k9_scratch_floats(B, L0, L1,
-                                                              p4.device)
+    C, row0, tile, n_scratch = operator_plan(cl, B, L0, L1, p4.device, plan,
+                                             tile)
     if n_scratch and (scratch is None or scratch.numel() < n_scratch):
         scratch = torch.empty(n_scratch, dtype=torch.float32,
                               device=p4.device)
     lib = _build.library("fermion")
     args = (ur.data_ptr(), ui.data_ptr(), p4.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if n_scratch else None, B, L0, L1,
-            *_ab(mass), int(eo))
+            *_ab(mass), int(eo), C, _build.int_array(row0))
     fn = lib.k10_mdagm_cl if cl else lib.k9_mdagm
-    return _Launch(name, fn, lib, args, _build.stream_handle(p4)), out
+    if cl:
+        args += (tile,)
+    return _Launch(name, fn, lib, args, _build.stream_handle(p4),
+                   (ur, ui, p4, out, scratch)), out
 
 
-def mdagm(ur, ui, p4, mass: float, eo: bool, out=None, scratch=None):
+def mdagm(ur, ui, p4, mass: float, eo: bool, out=None, scratch=None,
+          plan=None):
     """Normal operator of chains-first planes p4 (B, 4, L0, L1) with links
     (B, 2, L0, L1) through K9 (its twin on the CPU), into ``out`` if
-    given. ``scratch``: K9's buffer beyond shared memory
-    (``k9_scratch_floats``), allocated here when needed and not given."""
+    given. ``scratch``: the bands' device buffer where they do not fit in
+    shared memory (``operator_plan``), allocated here when needed and not
+    given; ``plan``: another band plan (timing and tests)."""
     _check_planes("K9 mdagm", ur, ui, p4, False)
     if _on_cpu(p4):
         res = mdagm_plain(ur, ui, p4, mass, eo)
         return res if out is None else out.copy_(res)
-    launch, out = operator_launch(False, ur, ui, p4, mass, eo, out, scratch)
+    launch, out = operator_launch(False, ur, ui, p4, mass, eo, out, scratch,
+                                  plan)
     launch()
     return out
 
 
-def mdagm_cl(urt, uit, p4t, mass: float, eo: bool, out=None, scratch=None):
+def mdagm_cl(urt, uit, p4t, mass: float, eo: bool, out=None, scratch=None,
+             plan=None, tile: int | None = None):
     """Normal operator of chains-last planes p4t (4, L0, L1, B) with links
     (2, L0, L1, B) through K10 (its twin on the CPU), into ``out`` if
-    given. ``scratch``: 8 L0 L1 B floats for K10's intermediates,
-    allocated here when not given."""
+    given, in one launch. ``scratch``, ``plan``: as for ``mdagm``;
+    ``tile``: another chain tile (timing and tests)."""
     _check_planes("K10 mdagm_cl", urt, uit, p4t, True)
     if _on_cpu(p4t):
         res = mdagm_cl_plain(urt, uit, p4t, mass, eo)
         return res if out is None else out.copy_(res)
     launch, out = operator_launch(True, urt, uit, p4t, mass, eo, out,
-                                   scratch)
+                                  scratch, plan, tile)
     launch()
     return out
 
@@ -407,7 +465,8 @@ def update_launch(p, mp, x, r, rsq, stop, counters, chains_last):
             rsq.data_ptr(), stop.data_ptr(), counters.data_ptr(), B, n_elem,
             stride_e, stride_c)
     return _Launch("K11", lib.k11_cg_update, lib, args,
-                   _build.stream_handle(p))
+                   _build.stream_handle(p), (p, mp, x, r, rsq, stop,
+                                             counters))
 
 
 def cg_update(p, mp, x, r, rsq, stop, counters, it: int,
@@ -430,13 +489,16 @@ LAYOUTS = ("auto", "cf", "cl")
 
 
 def resolve_layout(layout: str, L0: int, L1: int) -> str:
-    """'cf' (K9) or 'cl' (K10). 'auto' is K9 at every size: on an H100 it
-    was faster than K10 at every L from 8 to 64 with 128 chains (PERF.md,
-    the 'auto' layout rule), where the JAX package picks chains-last below
-    32 sites a side for its TPU's lanes."""
+    """'cf' (K9) or 'cl' (K10). 'auto' is K10 up to 8^2 sites and K9 above:
+    on an H100 with 128 chains K10 took 6.5 us against K9's 7.4 at 8^2,
+    and K9 was faster at 16^2, 32^2 and 64^2 (PERF.md, the 'auto' layout
+    rule), where the JAX package picks chains-last below 32 sites a side
+    for its TPU's lanes."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
-    return "cf" if layout == "auto" else layout
+    if layout != "auto":
+        return layout
+    return "cl" if L0 * L1 <= 64 else "cf"
 
 
 class _PackedOperator:
@@ -450,20 +512,15 @@ class _PackedOperator:
         self.mass, self.eo, self.chains_last = mass, eo, layout == "cl"
         self.plain = plain
         ur, ui = link_planes(theta)
-        self.scratch = None
-        on_card = theta.device.type == "cuda" and not plain
         if self.chains_last:
             ur, ui = (t.permute(1, 2, 3, 0).contiguous() for t in (ur, ui))
-            if on_card:
-                self.scratch = torch.empty(8 * B * L0 * L1,
-                                           dtype=torch.float32,
-                                           device=theta.device)
-        elif on_card:
-            n = k9_scratch_floats(B, L0, L1, theta.device)
+        self.ur, self.ui = ur, ui
+        self.scratch = None
+        if theta.device.type == "cuda" and not plain:
+            n = operator_plan(self.chains_last, B, L0, L1, theta.device)[3]
             if n:
                 self.scratch = torch.empty(n, dtype=torch.float32,
                                            device=theta.device)
-        self.ur, self.ui = ur, ui
 
     def pack(self, psi):
         p4 = pack_spinor(psi)

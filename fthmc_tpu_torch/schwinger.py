@@ -19,9 +19,10 @@ K7 over every layer, K1 plus the fermion force at y, K8 back).
 The CG is ``fermion.cg_solve`` on the process default backend
 (``fermion.set_cg_backend``; 'auto' unless set: K9 or K10 and K11 on the
 card, the torch CG on the CPU) with the configuration's ``cg_layout``
-('auto' and 'cf' for K9, 'cl' for K10). Not ported yet (ROADMAP queue
-1, "dynamical fermions, the rest"): the nested integrators (``n_inner >
-0``) and Hasenbusch (``hasenbusch_dm > 0``); both raise.
+('cf' for K9, 'cl' for K10, 'auto' by fermion_kernels.resolve_layout).
+Not ported yet (ROADMAP queue 1, "dynamical fermions, the rest"): the
+nested integrators (``n_inner > 0``) and Hasenbusch (``hasenbusch_dm >
+0``); both raise.
 """
 from __future__ import annotations
 
@@ -71,7 +72,8 @@ class SchwingerConfig:
     eo_precond: bool = True      # even-odd Schur solves
     n_inner: int = 0             # nested integrators: not ported, raises
     hasenbusch_dm: float = 0.0   # Hasenbusch: not ported, raises
-    cg_layout: str = "auto"      # 'auto' and 'cf': K9; 'cl': K10
+    cg_layout: str = "auto"      # 'cf': K9; 'cl': K10; 'auto': K10 at
+    #                              8^2, K9 above (resolve_layout)
 
     @property
     def dt(self) -> float:

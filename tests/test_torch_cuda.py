@@ -498,27 +498,90 @@ def _fermion_fields(card, B, L0, L1, eo, seed=0):
     return theta, psi
 
 
+def _band_plans(L):
+    """None (the wrappers' own plan) and every plan of C = 1, 2, 4, 8 even
+    bands of at least 2 rows."""
+    return [None] + [(C, tuple(r * L // C for r in range(C + 1)))
+                     for C in (1, 2, 4, 8) if L // C >= 2]
+
+
 @pytest.mark.parametrize("B,L0,L1", [(4, 8, 8), (3, 8, 12), (2, 64, 64),
-                                     (2, 96, 96)])
+                                     (2, 96, 96), (128, 16, 16)])
 @pytest.mark.parametrize("eo", [False, True])
 def test_fermion_operators_match_plain_twins(card, B, L0, L1, eo):
-    """K9 (shared memory at <= 64^2, scratch at 96^2) and K10 against their
-    twins on the same planes."""
+    """K9 and K10 against their twins on the same planes under every band
+    plan, K10 also under every chain tile (4 to 32 chains; B = 3 leaves a
+    ragged tile): bands in shared memory, and in device scratch where one
+    does not fit (K9's one band of 96 rows, K10's wide tiles at 96^2 and
+    at 16^2 with one band). Two launches bit-equal; each operator one
+    launch."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
     theta, psi = _fermion_fields(card, B, L0, L1, eo)
     ur, ui = fk.link_planes(theta)
     p4 = fk.pack_spinor(psi).contiguous()
-    before = dict(_build.LAUNCHES)
     ref = fk.mdagm_plain(ur, ui, p4, 0.1, eo)
-    got = fk.mdagm(ur, ui, p4, 0.1, eo)
-    t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
-    got_cl = fk.mdagm_cl(t(ur), t(ui), t(p4), 0.1, eo)
-    torch.cuda.synchronize()
     tol = 1e-6 * float(ref.abs().max())
-    assert float((got - ref).abs().max()) <= tol
-    assert float((got_cl - t(ref)).abs().max()) <= tol
-    assert _build.LAUNCHES["K9"] == before["K9"] + 1
-    assert _build.LAUNCHES["K10"] == before["K10"] + 1
+    t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
+    urt, uit, p4t, ref_t = t(ur), t(ui), t(p4), t(ref)
+    for plan in _band_plans(L0):
+        before = dict(_build.LAUNCHES)
+        runs = [fk.mdagm(ur, ui, p4, 0.1, eo, plan=plan) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert float((runs[0] - ref).abs().max()) <= tol, plan
+        assert torch.equal(runs[0], runs[1])
+        assert _build.LAUNCHES["K9"] == before["K9"] + 2
+        for tile in (None, 4, 8, 16, 32):
+            before = _build.LAUNCHES["K10"]
+            runs = [fk.mdagm_cl(urt, uit, p4t, 0.1, eo, plan=plan, tile=tile)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert float((runs[0] - ref_t).abs().max()) <= tol, (plan, tile)
+            assert torch.equal(runs[0], runs[1])
+            assert _build.LAUNCHES["K10"] == before + 2
+
+
+def test_fermion_operators_are_one_kernel_launch(card):
+    """The profiler sees one CUDA kernel an operator, K9 or K10, at the
+    paths' shapes, eo and not (no intermediate passes, no copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
+    for B, L, cl in ((64, 64, False), (128, 16, True), (128, 16, False)):
+        theta, psi = _fermion_fields(card, B, L, L, True)
+        ur, ui = fk.link_planes(theta)
+        p4 = fk.pack_spinor(psi).contiguous()
+        if cl:
+            ur, ui, p4 = t(ur), t(ui), t(p4)
+        for eo in (False, True):
+            launch, _ = fk.operator_launch(cl, ur, ui, p4, 0.1, eo, None,
+                                           None)
+            # a first session warms the profiler up, and is not read
+            with profile(activities=[ProfilerActivity.CUDA]):
+                launch()
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    launch()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type.name == "CUDA"]
+            assert len(kernels) == 3 and all("op_kernel" in k
+                                             for k in kernels), kernels
+
+
+def test_fermion_band_bytes_are_the_layout(card):
+    """fermion_smem_bytes, the one count of a K9 / K10 CTA's band: S and T
+    (4 planes of rows + 8 rows), the links (4 planes of rows + 7), of L1 x
+    tile floats, and 4 floats for the load's mbarrier; -1 for what the
+    kernels do not take."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    for L0, L1, C, rows, tile in ((64, 64, 2, 32, 1), (16, 16, 8, 2, 8),
+                                  (96, 96, 1, 96, 1), (20, 12, 8, 3, 32)):
+        assert fk._band_bytes(L0, L1, C, rows, tile) == \
+            4 * ((8 * (rows + 8) + 4 * (rows + 7)) * L1 * tile + 4)
+    for bad in ((7, 8, 1, 7, 1), (8, 8, 2, 3, 1), (8, 8, 16, 1, 1),
+                (8, 8, 2, 4, 3), (8, 8, 1, 9, 1)):
+        assert fk._band_bytes(*bad) == -1
 
 
 @pytest.mark.parametrize("layout", ["cf", "cl"])

@@ -237,9 +237,15 @@ def test_wrappers_run_twins_on_the_cpu_and_check_shapes():
 
 
 def test_resolve_layout():
+    """'auto' follows the H100 times at 128 chains: K10 at 8^2, K9 from
+    16^2 (paths A and C) up."""
+    assert fk.resolve_layout("auto", 8, 8) == "cl"
+    assert fk.resolve_layout("auto", 4, 8) == "cl"
+    assert fk.resolve_layout("auto", 8, 12) == "cf"
     assert fk.resolve_layout("auto", 16, 16) == "cf"
     assert fk.resolve_layout("auto", 64, 64) == "cf"
     assert fk.resolve_layout("cl", 64, 64) == "cl"
+    assert fk.resolve_layout("cf", 8, 8) == "cf"
     with pytest.raises(ValueError):
         fk.resolve_layout("chains_last", 8, 8)
 
@@ -256,3 +262,211 @@ def test_bound_signatures_match_the_c_entries():
             assert m, f"{lib}: no C entry {fn}"
             params = [a for a in m.group(1).split(",") if a.strip()]
             assert len(params) == len(argtypes), (fn, params, argtypes)
+
+
+# ---------------------------------------------------------------------------
+# The band geometry of K9 and K10 (csrc/fermion.cu, op_kernel), mirrored in
+# float64: bands of rows a group, each with four halo rows a side loaded
+# with it (global rows wrapping L0 - 1 <-> 0), passes over the sites of one
+# parity by global row, each one row narrower a side, K10's chain tiles
+# with a ragged last tile zero-filled. Rows a band never loads are NaN, so
+# an own site that reads one shows.
+# ---------------------------------------------------------------------------
+
+N_SM = 132               # an H100's SMs
+
+
+def _links64(theta):
+    """link_planes in float64: (ur, ui), each (B, 2, L0, L1)."""
+    th = torch.as_tensor(theta, dtype=torch.float64)
+    sign = torch.ones((2, th.shape[-2], 1), dtype=torch.float64)
+    sign[0, -1] = -1.0
+    return torch.cos(th) * sign, torch.sin(th) * sign
+
+
+def _hop_site(sf0, sb0, sf1, sb1, u, ub0, ub1):
+    """hop_site: H at sites whose neighbours n + e0, n - e0, n + e1, n - e1
+    hold sf0, sb0, sf1, sb1 (4 planes each), u the links at the sites, ub0
+    and ub1 at n - e0 and n - e1 (ur0, ui0, ur1, ui1)."""
+    dr, di = sf0[0] - sf0[2], sf0[1] - sf0[3]
+    mr, mi = u[0] * dr - u[1] * di, u[0] * di + u[1] * dr
+    h0r, h0i, h1r, h1i = mr, mi, -mr, -mi
+    dr, di = sb0[0] + sb0[2], sb0[1] + sb0[3]
+    mr, mi = ub0[0] * dr + ub0[1] * di, ub0[0] * di - ub0[1] * dr
+    h0r, h0i, h1r, h1i = h0r + mr, h0i + mi, h1r + mr, h1i + mi
+    dr, di = sf1[0] - sf1[3], sf1[1] + sf1[2]
+    mr, mi = u[2] * dr - u[3] * di, u[2] * di + u[3] * dr
+    h0r, h0i, h1r, h1i = h0r + mr, h0i + mi, h1r + mi, h1i - mr
+    dr, di = sb1[0] + sb1[3], sb1[1] - sb1[2]
+    mr, mi = ub1[2] * dr + ub1[3] * di, ub1[2] * di - ub1[3] * dr
+    h0r, h0i, h1r, h1i = h0r + mr, h0i + mi, h1r - mi, h1i + mr
+    return torch.stack((h0r, h0i, h1r, h1i))
+
+
+def banded_op(urt, uit, p4t, mass, eo, C, row0, tile):
+    """The normal operator of chains-last planes (4, L0, L1, B) with links
+    (2, L0, L1, B) as op_kernel computes it, group by group (``tile``
+    chains, the last ragged one zero-filled) and band by band: buffers (4
+    planes, R + 8 band rows, L1, tile), band row b being global row
+    r0 - 4 + b (wrapped on load); each pass over the sites of one parity by
+    global row, one row fewer a side than the pass before it, the last
+    over the own rows. Rows a band never loads are NaN, so an own site that
+    reads one shows. K9 is tile 1 on the chains-last view."""
+    _, L0, L1, B = p4t.shape
+    w = L1 // 2
+    a = mass + 2.0
+    # b in fp32, as the twins form it (b * even, an fp32 mask) and the
+    # kernels take it
+    b = float(torch.tensor(0.25 / a, dtype=torch.float32))
+    rows = [hi - lo for lo, hi in zip(row0, row0[1:])]
+    R = max(rows)
+    nan = float("nan")
+    g5 = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=p4t.dtype).view(4, 1, 1)
+    jj = torch.arange(w)
+    out = torch.full_like(p4t, nan)
+
+    def load(buf, lo, planes, g_lo, n, c0, nc):
+        g = [(g_lo + k) % L0 for k in range(n)]
+        buf[:, lo:lo + n] = 0.0                           # masked chains
+        buf[:, lo:lo + n, :, :nc] = planes[:, g, :, c0:c0 + nc]
+
+    for c0 in range(0, B, tile):
+        nc = min(tile, B - c0)
+        for r in range(C):
+            Rr, r0 = rows[r], row0[r]
+            S = torch.full((4, R + 8, L1, tile), nan, dtype=p4t.dtype)
+            T = torch.full_like(S, nan)
+            U = torch.full((4, R + 7, L1, tile), nan, dtype=p4t.dtype)
+            load(S, 0, p4t, r0 - 4, Rr + 8, c0, nc)
+            load(U[0:2], 0, torch.stack((urt[0], uit[0])), r0 - 4, Rr + 7,
+                 c0, nc)
+            load(U[2:4], 1, torch.stack((urt[1], uit[1])), r0 - 3, Rr + 6,
+                 c0, nc)
+            bufs = {"S": S, "T": T}
+
+            def run(kind, par, lo, n, src, self_, dst, c=0.0):
+                for bb in range(lo, lo + n):
+                    j = 2 * jj + (r0 - 4 + bb + par) % 2
+                    jp, jm = (j + 1) % L1, (j - 1) % L1
+                    if kind != "scale":
+                        X = bufs[src]
+                        h = _hop_site(X[:, bb + 1, j], X[:, bb - 1, j],
+                                      X[:, bb, jp], X[:, bb, jm],
+                                      U[:, bb, j], U[:, bb - 1, j],
+                                      U[:, bb, jm])
+                    if kind == "hop":
+                        bufs[dst][:, bb, j] = h
+                        continue
+                    v = a * bufs[self_][:, bb, j]
+                    if kind == "combine":
+                        v = v - c * h
+                    bufs[dst][:, bb, j] = g5 * v
+
+            if eo:
+                run("hop", 1, 1, Rr + 6, "S", None, "T")
+                run("combine", 0, 2, Rr + 4, "T", "S", "S", b)
+                run("scale", 1, 2, Rr + 4, None, "S", "S")
+                run("hop", 1, 3, Rr + 2, "S", None, "T")
+                run("combine", 0, 4, Rr, "T", "S", "S", b)
+                run("scale", 1, 4, Rr, None, "S", "S")
+            else:
+                for par in (0, 1):
+                    run("combine", par, 3, Rr + 2, "S", "S", "T", 0.5)
+                for par in (0, 1):
+                    run("combine", par, 4, Rr, "T", "T", "S", 0.5)
+            out[:, r0:r0 + Rr, :, c0:c0 + nc] = S[:, 4:Rr + 4, :, :nc]
+    return out
+
+
+def _plans(L):
+    return [(C, tuple(r * L // C for r in range(C + 1)))
+            for C in (1, 2, 4, 8) if L // C >= 2]
+
+
+@pytest.mark.parametrize("L", [8, 16, 20, 64])
+@pytest.mark.parametrize("layout", ["cf", "cl"])
+@pytest.mark.parametrize("eo", [False, True])
+def test_banded_mirror_reproduces_the_twins(L, layout, eo):
+    """The mirror of op_kernel reproduces mdagm_plain (K9: tile 1) and
+    mdagm_cl_plain (K10: tiles of 2, 4 and 8 chains over 5, the last
+    ragged) to 1e-12 under every plan of C = 1, 2, 4, 8 bands of >= 2
+    rows, halo rows wrapping across row L0 - 1 <-> 0."""
+    B = 2 if layout == "cf" else 5
+    theta, psi = _fields(11 + L, B=B, L0=L, L1=L, eo=eo)
+    ur, ui = _links64(theta)
+    p4 = fk.pack_spinor(torch.as_tensor(psi).to(torch.complex128))
+    cl = (lambda t: t.permute(1, 2, 3, 0).contiguous())  # noqa: E731
+    if layout == "cf":
+        want, tiles = cl(fk.mdagm_plain(ur, ui, p4, MASS, eo)), (1,)
+    else:
+        want = fk.mdagm_cl_plain(cl(ur), cl(ui), cl(p4), MASS, eo)
+        tiles = (2, 4, 8)
+    for C, row0 in _plans(L):
+        for tile in tiles:
+            got = banded_op(cl(ur), cl(ui), cl(p4), MASS, eo, C, row0, tile)
+            assert float((got - want).abs().max()) < 1e-12, (C, tile)
+
+
+@pytest.mark.parametrize("L,B,tile", [(4, 1, 1), (8, 3, 1), (16, 64, 1),
+                                      (16, 128, 1), (16, 128, 8),
+                                      (16, 3, 8), (20, 3, 1), (64, 64, 1),
+                                      (64, 1024, 1), (96, 2, 1),
+                                      (32, 128, 32)])
+def test_fermion_band_plan_covers_every_row_once(L, B, tile):
+    """Every row in exactly one band, bands of >= 4 rows (the halo's
+    depth) differing by at most one, C a power of two up to 8: the least
+    that puts a CTA on every SM, or the most the rows allow."""
+    C, row0 = fk.fermion_band_plan(L, B, N_SM, tile)
+    assert C in (1, 2, 4, 8) and len(row0) == C + 1
+    rows = [hi - lo for lo, hi in zip(row0, row0[1:])]
+    assert sorted(i for lo, hi in zip(row0, row0[1:])
+                  for i in range(lo, hi)) == list(range(L))
+    assert min(rows) >= 4 and max(rows) - min(rows) <= 1
+    groups = -(-B // tile)
+    assert groups * C >= N_SM or 2 * C > min(8, L // 4)
+    assert C == 1 or groups * C // 2 < N_SM
+
+
+def test_fermion_band_plans_of_the_paths():
+    """Path A (K9, 64^2, 64 chains), B (K10, 16^2, 128 chains) and C (the
+    'auto' layout's operator at 16^2, 128 chains) on an H100's 132 SMs."""
+    assert fk.fermion_band_plan(64, 64, N_SM) == (4, (0, 16, 32, 48, 64))
+    assert fk.fermion_band_plan(16, 128, N_SM, fk.K10_TILE) == \
+        (4, (0, 4, 8, 12, 16))
+    assert fk.fermion_band_plan(16, 128, N_SM) == (2, (0, 8, 16))
+
+
+def _band_bytes(L0, L1, C, rows, tile):
+    """fermion_smem_bytes (csrc/fermion.cu): S and T, 4 planes of rows + 8
+    rows, the links 4 planes of rows + 7, of L1 x tile floats, and 4 floats
+    for the load's mbarrier."""
+    ok = (L0 >= 4 and L1 >= 4 and L0 % 2 == 0 and L1 % 2 == 0
+          and 1 <= C <= 8 and 1 <= rows <= L0 and rows * C >= L0
+          and 1 <= tile <= 256 and tile & (tile - 1) == 0)
+    return 4 * ((8 * (rows + 8) + 4 * (rows + 7)) * L1 * tile + 4) if ok \
+        else -1
+
+
+def test_operator_plan_takes_scratch_only_past_the_limit(monkeypatch):
+    """operator_plan under an H100's SM count and shared-memory limit (the
+    card's queries stubbed): the bands of every path's plan in shared
+    memory, a band over the limit in scratch (one band a CTA), and plans
+    the kernels do not take refused."""
+    monkeypatch.setattr(_build, "sm_count", lambda index: N_SM)
+    monkeypatch.setattr(_build, "smem_limit", lambda index: 232448)
+    monkeypatch.setattr(fk, "_band_bytes", _band_bytes)
+    dev = torch.device("cuda", 0)
+    assert fk.operator_plan(False, 64, 64, 64, dev) == \
+        (4, (0, 16, 32, 48, 64), 1, 0)
+    assert fk.operator_plan(True, 128, 16, 16, dev)[2:] == (fk.K10_TILE, 0)
+    assert fk.operator_plan(False, 2, 96, 96, dev)[3] == 0
+    one = (1, (0, 96))                              # a 96-row band: 478 KB
+    assert fk.operator_plan(False, 2, 96, 96, dev, one)[3] == \
+        2 * ((8 * 104 + 4 * 103) * 96 + 4)
+    assert fk.operator_plan(True, 5, 96, 96, dev, one, tile=4)[3] == \
+        2 * ((8 * 104 + 4 * 103) * 96 * 4 + 4)
+    for plan, tile in (((2, (0, 3, 7)), 1), ((2, (0, 8, 8)), 1),
+                       ((3, (0, 4, 8)), 1), ((9, tuple(range(9)) + (8,)), 1),
+                       ((2, (0, 4, 8)), 3)):
+        with pytest.raises(ValueError, match="band plan"):
+            fk.operator_plan(True, 4, 8, 8, dev, plan, tile)

@@ -26,6 +26,7 @@ from fthmc_tpu_torch import lattice as tl
 from fthmc_tpu_torch import schwinger as ts
 from fthmc_tpu_torch.config import FlowSpec as TSpec
 from fthmc_tpu_torch.ops import _build
+from fthmc_tpu_torch.ops import fermion_kernels as fk
 from fthmc_tpu_torch.weights import flow_params_from_numpy
 
 B, L = 4, 8
@@ -339,4 +340,7 @@ def test_runs_on_the_cpu_count_only_twins(cg_backend):
     assert plain["K7"] == plain["K8"] == 2 * 2 * 2
     assert plain["K1"] == 2 * 2 and plain["K6"] == 3 * 2
     assert plain["K11"] > 0
-    assert plain["K9"] > 0 and plain["K10"] == 0       # 'auto' is K9
+    # 'auto' picks K10 at this 4^2 lattice (resolve_layout), K9 above 8^2
+    op, other = (("K10", "K9") if fk.resolve_layout("auto", cfg.L, cfg.L)
+                 == "cl" else ("K9", "K10"))
+    assert plain[op] > 0 and plain[other] == 0

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Seconds a trajectory of chip_smoke.py's dynamical path A (64^2, beta=6,
-m=0.1, 64 chains, tau=2, 16 Omelyan steps) in two checkouts of the repo,
-in turns (first, second, second, first), on one CUDA card:
+"""Two checkouts of the repo timed in turns (first, second, second, first)
+on one CUDA card: seconds a trajectory of chip_smoke.py's dynamical path A
+(64^2, beta=6, m=0.1, 64 chains, tau=2, 16 Omelyan steps), and the plain-HMC
+headline's chain-steps/s with 'auto' (K2) and 'fused' (K4) as chip_smoke.py
+times it (fthmc_tpu/bench.py's configuration and definition):
 
     python3 ab_dyn.py OLD_CHECKOUT NEW_CHECKOUT [NTRAJ]
 
 Each turn is a process of its own that imports the checkout's
-fthmc_tpu_torch and chip_smoke, builds its kernels, runs 6 trajectories
-from near-equilibrium links and times NTRAJ (default 24) more. Prints one
-JSON line a turn and the card's name and power limit.
+fthmc_tpu_torch and chip_smoke, builds its kernels, runs 6 path-A
+trajectories from near-equilibrium links and times NTRAJ (default 24) more,
+then times the headline. Prints one JSON line a turn and the card's name
+and power limit.
 """
 import json
 import subprocess
 import sys
 
 TURN = r'''
-import dataclasses, sys, time, torch
+import dataclasses, json, sys, time, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from fthmc_tpu_torch.schwinger import run_hmc_dyn
@@ -28,7 +31,12 @@ for ntraj, seed, timed in ((6, 1, False), (NTRAJ, 2, True)):
     x, _ = run_hmc_dyn(cfg, x0=x, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
-print("S_PER_TRAJ", (time.perf_counter() - t0) / ntraj)
+out = {"s_per_traj": (time.perf_counter() - t0) / ntraj}
+for b in ("auto", "fused"):
+    r = cs.headline_rate(dev, b)
+    out[f"headline_{b}"] = {k: r[k] for k in ("chain_steps_per_s",
+                                              "s_per_traj")}
+print("RESULT", json.dumps(out))
 '''
 
 
@@ -43,12 +51,11 @@ def main() -> None:
         r = subprocess.run([sys.executable, "-c",
                             TURN.replace("NTRAJ", str(ntraj))],
                            capture_output=True, text=True, cwd=tree)
-        got = [ln for ln in r.stdout.splitlines()
-               if ln.startswith("S_PER_TRAJ")]
+        got = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
         if r.returncode or not got:
             sys.exit(f"{name} ({tree}) failed:\n{r.stderr[-2000:]}")
         print(json.dumps({"checkout": name, "path": tree,
-                          "s_per_traj": float(got[0].split()[1])}),
+                          **json.loads(got[0].split(" ", 1)[1])}),
               flush=True)
 
 

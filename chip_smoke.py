@@ -13,9 +13,9 @@ Phases, each printed on its own line:
      (mu, off) masks), K6-K8 also at path C's (16^2, 128 chains) on every
      layer and at 64^2, 8 chains on one, TF32 off, then the whole kernel
      force chain against the autograd force; K2, K4, K5 at the plain-HMC
-     headline shapes (64^2, 1024 chains, beta=6, dt=0.04, 25 steps) and K3
-     at 32^2, 1024 chains;
-     K5 also against hmc_step's 'xla' path on the same draws;
+     headline shapes (64^2, 1024 chains, beta=6, dt=0.04, 25 steps), and
+     at 128^2 and 256^2 (16 chains, bands in a cluster), and K3 at 32^2,
+     1024 chains; K5 also against hmc_step's 'xla' path on the same draws;
   4. the FT-HMC path: flagship FT-HMC with the trained flow at 16^2,
      beta=6, tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0),
      through run_fthmc with the default (kernel) force backend; physics
@@ -32,8 +32,11 @@ Phases, each printed on its own line:
      beside cuDNN running the same layer's convs (a yardstick) and the
      host's microseconds a wrapper call, K6-K8 under every band plan at
      those shapes (the "band_plans" line), the flagship FT-HMC's device
-     busy share over two trajectories, K2 against K3 over L (the
-     'auto' rule), FT-HMC chain-steps/s, and the headline's chain-steps/s
+     busy share over two trajectories, K2, K4 and K5 under every band plan
+     (traj_plans) at 64^2 x 1024, 128^2 x 256 and 256^2 x 64 chains, each
+     held against its twin, with their bounds (the "traj_plans" line), K2
+     against K3 over L (the 'auto' rule), FT-HMC chain-steps/s, and the
+     headline's chain-steps/s
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
   8. dynamical fermions: K9 (64^2, 64 chains; 16^2, 128 chains) and K10
@@ -120,6 +123,12 @@ MIN_ACCEPTANCE = 0.78
 HMC_CFG = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, n_chains=1024,
                     randinit=False, seed=0)
 CL_L = 32
+# K2, K4 and K5 above what one CTA holds (bands in a cluster): held against
+# their twins at these L with LARGE_CHAINS chains, the headline's beta, dt
+# and steps; the plan sweep runs each plan of traj_plans at these (chains,
+# L), each a launch of the headline's sites
+LARGE_L, LARGE_CHAINS = (128, 256), 16
+PLAN_SHAPES = ((1024, 64), (256, 128), (64, 256))
 # From the cold start the plaquette's excess over its equilibrium falls
 # over some 500 trajectories (slow modes of fixed-length trajectories), so
 # 600 thermalize; 1000 are measured, in 10 blocks for the error.
@@ -341,7 +350,7 @@ def traj_bounds(B: int, L: int, nstep: int) -> dict:
     """Least time (ms) of K2-K5 for B chains of L^2 sites over nstep steps:
     the larger of bytes / peak bandwidth (each input read once, each output
     written once) and the operations above / peak fp32 rate. K4 draws each
-    momentum once in this count (the kernel draws it again at the end)."""
+    momentum once (and keeps it for the kinetic term)."""
     sites = B * L * L
     field = 4 * 2 * sites                      # one (B, 2, L, L) fp32 field
     lf = sites * (STEP_OPS * nstep + HALF_DRIFT_OPS)
@@ -500,6 +509,92 @@ def traj_check(what: str, got, ref, x0, v0, u, cfg) -> dict:
     return out
 
 
+def leapfrog_check(what: str, got, ref) -> dict:
+    """K2/K3-style output (x', v') against the twin's: x' within 1e-4
+    wrapped, v' within 1e-4 x max|v'| (the kernels repeat the twin op for
+    op)."""
+    torch.cuda.synchronize()
+    ex = wrapped_err(got[0], ref[0])
+    ev = float((got[1] - ref[1]).abs().max())
+    out = {"x_max_wrapped_err": ex, "v_max_abs_err": ev,
+           "v_tolerance": 1e-4 * float(ref[1].abs().max())}
+    require(ex <= 1e-4 and ev <= out["v_tolerance"], f"{what} vs plain: {out}")
+    return out
+
+
+def traj_inputs(g: torch.Generator, B: int, L: int, dev):
+    """Near-equilibrium links, momenta, accept draws and a K4 seed."""
+    x = near_equilibrium(g, B, L, HMC_CFG.beta, dev)
+    v = torch.randn(x.shape, generator=g, device=dev)
+    u = torch.rand((B,), generator=g, device=dev)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return x, v, u, seed
+
+
+def check_band_kernels(x, v, u, seed, plan=None) -> dict:
+    """K2, K5 and K4 under ``plan`` (default: traj_plan's) against their
+    twins at the headline's beta, dt and steps."""
+    cfg = HMC_CFG
+    args = (cfg.beta, cfg.dt, cfg.nstep)
+    B, _, L, _ = x.shape
+    out = {"K2": leapfrog_check("K2", lk.leapfrog(x, v, *args, plan=plan),
+                                lk.leapfrog_plain(x, v, *args)),
+           "K5": traj_check("K5", lk.hmc_traj_hostrng(x, v, u, *args,
+                                                      plan=plan),
+                            lk.hmc_traj_hostrng_plain(x, v, u, *args),
+                            x, v, u, cfg)}
+    v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
+    out["K4"] = traj_check("K4", lk.hmc_traj(x, seed, *args, plan=plan),
+                           lk.hmc_traj_plain(x, seed, *args), x, v4, u4, cfg)
+    return out
+
+
+def compare_large_lattices(dev) -> dict:
+    """Phase 3: K2, K4, K5 at LARGE_L (bands in a cluster) against their
+    twins, LARGE_CHAINS chains from near-equilibrium links."""
+    g = torch.Generator(device=dev).manual_seed(2028)
+    out = {}
+    for L in LARGE_L:
+        inp = traj_inputs(g, LARGE_CHAINS, L, dev)
+        n_sm = sm_count(torch.cuda.current_device())
+        out[L] = {"chains": LARGE_CHAINS,
+                  "plans": {k: list(lk.traj_plan(L, LARGE_CHAINS, n_sm, k))
+                            for k in ("K2", "K4", "K5")},
+                  **check_band_kernels(*inp)}
+    return out
+
+
+def traj_plan_sweep(dev, n_sm: int) -> dict:
+    """Phase 7: K2, K4 and K5 under every plan of traj_plans at each of
+    PLAN_SHAPES, each held against its twin, then timed (card ms, CUDA
+    events), beside the plan traj_plan picks and the bounds."""
+    cfg = HMC_CFG
+    args = (cfg.beta, cfg.dt, cfg.nstep)
+    g = torch.Generator(device=dev).manual_seed(2029)
+    out = {}
+    for B, L in PLAN_SHAPES:
+        x, v, u, seed = traj_inputs(g, B, L, dev)
+        row = {"chains": B, "L": L,
+               "picked": {k: list(lk.traj_plan(L, B, n_sm, k))
+                          for k in ("K2", "K4", "K5")},
+               "bound_ms": {k: b["bound_ms"] for k, b in
+                            traj_bounds(B, L, cfg.nstep).items()
+                            if k != "K3"},
+               "plans": []}
+        for plan in lk.traj_plans(L):
+            check_band_kernels(x, v, u, seed, plan)
+            row["plans"].append({
+                "plan": list(plan),
+                "K2": cuda_ms(lambda: lk.leapfrog(x, v, *args, plan=plan)),
+                "K4": cuda_ms(lambda: lk.hmc_traj(x, seed, *args,
+                                                  plan=plan)),
+                "K5": cuda_ms(lambda: lk.hmc_traj_hostrng(x, v, u, *args,
+                                                          plan=plan))})
+        out[f"{L}^2"] = row
+    return out
+
+
 def compare_trajectory_kernels(dev):
     """Phase 3, plain HMC: K2, K4, K5 at the headline shapes and K3 at
     CL_L^2, each against its plain twin from near-equilibrium links; K5
@@ -508,11 +603,7 @@ def compare_trajectory_kernels(dev):
     cfg = HMC_CFG
     B, L, beta, dt, n = cfg.n_chains, cfg.L, cfg.beta, cfg.dt, cfg.nstep
     g = torch.Generator(device=dev).manual_seed(2027)
-    x = near_equilibrium(g, B, L, beta, dev)
-    v = torch.randn(x.shape, generator=g, device=dev)
-    u = torch.rand((B,), generator=g, device=dev)
-    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device=dev,
-                         dtype=torch.int32)
+    x, v, u, seed = traj_inputs(g, B, L, dev)
     x3 = near_equilibrium(g, B, CL_L, beta, dev)
     v3 = torch.randn(x3.shape, generator=g, device=dev)
     errs, tols, info = {}, {}, {}
@@ -521,14 +612,9 @@ def compare_trajectory_kernels(dev):
                             lk.leapfrog_plain(x, v, beta, dt, n))),
             ("K3", (x3, v3), (lk.leapfrog_cl(x3, v3, beta, dt, n),
                               lk.leapfrog_cl_plain(x3, v3, beta, dt, n)))):
-        torch.cuda.synchronize()
-        ex, ev = wrapped_err(got[0], ref[0]), float((got[1] - ref[1]).abs()
-                                                    .max())
-        tv = 1e-4 * float(ref[1].abs().max())
-        info[k] = {"x_max_wrapped_err": ex, "v_max_abs_err": ev,
-                   "v_tolerance": tv}
-        require(ex <= 1e-4 and ev <= tv, f"{k} vs plain: {info[k]}")
-        errs[k], tols[k] = max(ex, ev), min(1e-4, tv)
+        info[k] = leapfrog_check(k, got, ref)
+        errs[k] = max(info[k]["x_max_wrapped_err"], info[k]["v_max_abs_err"])
+        tols[k] = min(1e-4, info[k]["v_tolerance"])
     info["K5"] = traj_check("K5", lk.hmc_traj_hostrng(x, v, u, beta, dt, n),
                             lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, n),
                             x, v, u, cfg)
@@ -1123,7 +1209,8 @@ def main() -> None:
         compare_trajectory_kernels(dev)
     errs.update(e_h)
     tols.update(t_h)
-    say("compare_hmc", max_abs_err=e_h, tolerance=t_h, details=info)
+    say("compare_hmc", max_abs_err=e_h, tolerance=t_h, details=info,
+        large_lattices=compare_large_lattices(dev))
 
     # 4. the main path: trained-flow FT-HMC from z0 = f^-1(0)
     t0 = time.perf_counter()
@@ -1264,6 +1351,8 @@ def main() -> None:
         vr = torch.randn(xr.shape, generator=g, device=dev)
         k2_vs_k3[n] = {"K2": cuda_ms(lambda: lk.leapfrog(xr, vr, *hargs)),
                        "K3": cuda_ms(lambda: lk.leapfrog_cl(xr, vr, *hargs))}
+    say("traj_plans", nstep=hc.nstep, kernel_ms_by_plan=traj_plan_sweep(
+        dev, sm_count(torch.cuda.current_device())))
     rates = {b: headline_rate(dev, b) for b in ("auto", "fused")}
     say("timing_hmc", kernel_ms={k: ms[k] for k in ("K2", "K3", "K4", "K5")},
         plain_ms={k: plain_ms[k] for k in ("K2", "K3", "K4", "K5")},

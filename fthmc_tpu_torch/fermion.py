@@ -136,7 +136,7 @@ _CG_BACKEND = "auto"
 
 def set_cg_backend(name: str) -> None:
     """Process-wide default of ``cg_solve``'s backend (see the module
-    docstring); a SchwingerConfig's ``cg_backend`` overrides it."""
+    docstring); a call's ``cg_solve(backend=)`` overrides it."""
     global _CG_BACKEND
     if name not in CG_BACKENDS:
         raise ValueError(f"unknown cg backend {name!r}; one of "

@@ -43,8 +43,11 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-# (B, L, beta, dt, dt / 2, nstep, stream) ending every trajectory entry
-_TRAJ = [_I, _I, _F, _F, _F, _I, _P]
+# (B, L, beta, dt, dt / 2, nstep) of every trajectory entry, then K3's
+# stream, or the band plan (C, row0, threads, sites) and the stream of
+# K2, K4 and K5
+_TRAJ = [_I, _I, _F, _F, _F, _I]
+_BAND = [_I, _IP, _I, _I, _P]
 # argtypes of every C entry, by library (each library also carries
 # ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
@@ -61,14 +64,16 @@ _SIGNATURES = {
     "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _I, _I, _I,
                                          _IP, _PP, _I, _I, _F, _I, _I, _I,
                                          _I, _IP, _I, _P]},
-    "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ,
-                 "k3_leapfrog_cl": [_P] * 4 + _TRAJ,
+    "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ + _BAND,
+                 "k3_leapfrog_cl": [_P] * 4 + _TRAJ + [_P],
                  "k3_chains_per_block": [],
-                 # shared-memory need (csrc/traj_common.cuh)
-                 "traj_smem_bytes": [_I, _I]},
-    "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ,
-                 "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ,
-                 "traj_smem_bytes": [_I, _I]},
+                 # shared-memory needs (csrc/traj_common.cuh): K3's block,
+                 # a band-body CTA's
+                 "traj_smem_bytes": [_I, _I],
+                 "traj_band_smem_bytes": [_I] * 5},
+    "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ + _BAND,
+                 "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ + _BAND,
+                 "traj_band_smem_bytes": [_I] * 5},
     # (pointers, B, L0, L1, a, b, eo, C, row0, [tile,] stream) of the
     # operators: the band plan, and K10's chain tile
     "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,

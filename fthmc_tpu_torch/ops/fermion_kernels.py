@@ -490,10 +490,10 @@ LAYOUTS = ("auto", "cf", "cl")
 
 def resolve_layout(layout: str, L0: int, L1: int) -> str:
     """'cf' (K9) or 'cl' (K10). 'auto' is K10 up to 8^2 sites and K9 above:
-    on an H100 with 128 chains K10 took 6.5 us against K9's 7.4 at 8^2,
+    on an H100 with 128 chains K10 took 6.9 us against K9's 7.9 at 8^2,
     and K9 was faster at 16^2, 32^2 and 64^2 (PERF.md, the 'auto' layout
-    rule), where the JAX package picks chains-last below 32 sites a side
-    for its TPU's lanes."""
+    rule: chip_smoke.py's k9_vs_k10_ms_by_L), where the JAX package picks
+    chains-last below 32 sites a side for its TPU's lanes."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
     if layout != "auto":

@@ -13,15 +13,20 @@ of ``fthmc_tpu/ops/pallas_lattice.py``.
 
 A CPU tensor takes the plain twin (``*_plain``, same signature); a CUDA
 tensor launches the kernel, or raises for what the kernel does not take. K1
-is one thread per (chain, site) and memory-bound. K2-K5 keep a block's
-chains in shared memory for the whole trajectory (csrc/traj_common.cuh) and
-are bounded by operations. Their envelope on the card: fp32, (B, 2, L, L),
-any B (K3: a multiple of its chains a block), and L up to what one block's
-shared memory holds (L <= 106 for K2, K4, K5 on an H100, L <= 53 for K3).
+is one thread per (chain, site) and memory-bound. K2, K4 and K5 run the band
+body of csrc/traj_common.cuh: a cluster of C row bands a chain, each thread
+keeping its S sites' links and momenta in registers for the whole
+trajectory, under the plan ``traj_plan`` picks. K3 keeps a block's chains in
+shared memory (the body K2-K5 ran before). All are bounded by operations.
+Their envelope on the card: fp32, (B, 2, L, L), any B (K3: a multiple of
+its chains a block), 2 <= L <= 256 for K2, K4 and K5 (``traj_reach``; eight
+bands of 32 rows, 512 threads of 16 sites) and L <= 53 for K3 on an H100.
 """
 from __future__ import annotations
 
 import math
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +34,9 @@ from fthmc_tpu_torch.ops import _build, rng
 
 __all__ = ["force", "force_plain", "leapfrog", "leapfrog_plain",
            "leapfrog_cl", "leapfrog_cl_plain", "hmc_traj", "hmc_traj_plain",
-           "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "dh_tolerance"]
+           "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "dh_tolerance",
+           "TrajPlan", "traj_plan", "traj_plans", "traj_plan_of",
+           "traj_reach", "traj_smem_bytes_of"]
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +142,133 @@ def hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep):
 
 
 # ---------------------------------------------------------------------------
+# the band plan of K2, K4 and K5 (csrc/traj_common.cuh)
+# ---------------------------------------------------------------------------
+
+MAX_BANDS = 8            # bands a chain: the portable cluster (common.cuh)
+TRAJ_SITES = (1, 2, 4, 8, 16)   # sites a thread: the kernels' instances
+# sites a thread each kernel's plan starts from: the fastest on an H100
+# (PERF.md, the plan sweep; K4/K5 at 8 sites hold 128 registers a thread)
+SITES_PREFERRED = {"K2": 8, "K4": 4, "K5": 4}
+MIN_BAND_ROWS = 8        # bands added to fill the card keep this many rows
+KINDS = {"K2": 0, "K4": 1, "K5": 2}   # the smem count's kernel kinds
+
+
+class TrajPlan(NamedTuple):
+    """C bands a chain, CTA r owning rows [row0[r], row0[r + 1]); each CTA
+    ``threads`` threads of ``sites`` sites (a column and a run of rows)."""
+    C: int
+    row0: tuple
+    threads: int
+    sites: int
+
+    @property
+    def rows(self) -> int:
+        """Rows of the largest band."""
+        return max(b - a for a, b in zip(self.row0, self.row0[1:]))
+
+
+def max_threads(sites: int) -> int:
+    """Threads a CTA at most: the kernels' launch bounds, which cap a
+    thread's registers at 65536 / this (``traj_max_threads``)."""
+    return 512 if sites >= 8 else 1024
+
+
+def traj_plan_of(L: int, C: int, sites: int) -> TrajPlan | None:
+    """The plan of C even bands (differing by at most a row) and ``sites``
+    sites a thread at L, or None where the kernels cannot take it: a
+    column's runs of the largest band would need more threads than the
+    launch bounds allow."""
+    if L < 2 or not 1 <= C <= min(MAX_BANDS, L) or sites not in TRAJ_SITES:
+        return None
+    row0 = tuple(r * L // C for r in range(C + 1))
+    rows = -(-L // C)
+    threads = -(-rows // sites) * L
+    if threads > max_threads(sites):
+        return None
+    return TrajPlan(C, row0, threads, sites)
+
+
+def traj_smem_bytes_of(L: int, plan: TrajPlan, kernel: str) -> int:
+    """Shared-memory bytes a CTA of ``kernel`` ('K2', 'K4', 'K5') takes under
+    ``plan``: the layout of ``band_smem`` (csrc/traj_common.cuh), which the
+    card tests hold equal to the library's own count. x0 and sin P of the
+    band's rows, x1 of each run's first row; K4/K5 cos P0 and the dH tree;
+    K4 its drawn momenta."""
+    rl, t = plan.rows * L, plan.threads
+    floats = 2 * rl + t
+    if kernel != "K2":
+        floats += rl + 2 * (1 << (t - 1).bit_length()) + 2
+        if kernel == "K4":
+            floats += 2 * rl
+    return 4 * floats
+
+
+def traj_plans(L: int) -> list[TrajPlan]:
+    """Every plan of power-of-two bands and of sites up to the rows a band
+    has (rounded up to a power of two) at L: what the plan sweep times and
+    the tests run."""
+    out = []
+    C = 1
+    while C <= min(MAX_BANDS, L):
+        rows = -(-L // C)
+        for sites in TRAJ_SITES:
+            plan = traj_plan_of(L, C, sites)
+            if plan is not None and sites < 2 * rows:
+                out.append(plan)
+        C *= 2
+    return out
+
+
+def _sites_plan(L: int, C: int, pref: int) -> TrajPlan | None:
+    """The plan of C bands with the fewest sites a thread from ``pref`` up
+    (fewer where a band has fewer rows) that fits."""
+    pref = min(pref, 1 << (-(-L // C) - 1).bit_length())
+    for sites in TRAJ_SITES:
+        if sites >= pref:
+            plan = traj_plan_of(L, C, sites)
+            if plan is not None:
+                return plan
+    return None
+
+
+@lru_cache(maxsize=None)
+def traj_reach() -> int:
+    """The largest L a plan takes."""
+    L = MAX_BANDS
+    while _sites_plan(L + 1, MAX_BANDS, 1) is not None:
+        L += 1
+    return L
+
+
+@lru_cache(maxsize=None)
+def traj_plan(L: int, B: int, n_sm: int, kernel: str = "K2") -> TrajPlan:
+    """The plan ``kernel`` ('K2', 'K4', 'K5') runs B chains of L^2 sites
+    under on a card of ``n_sm`` SMs: one CTA a chain where it holds the
+    chain with threads of the kernel's SITES_PREFERRED sites (bands
+    doubling while the grid of B x C CTAs is under the SM count and the
+    bands keep MIN_BAND_ROWS rows), else the largest cluster, MAX_BANDS
+    bands, with the fewest sites a thread from there up that fit. On an
+    H100 one CTA a chain was the fastest plan at 64^2 and eight bands the
+    fastest at 128^2, where a cluster's barriers cost the same whatever its
+    size (chip_smoke.py's "traj_plans" line; PERF.md). Raises above
+    ``traj_reach()``."""
+    if L < 2 or L > traj_reach():
+        raise ValueError(f"the trajectory kernels take 2 <= L <= "
+                         f"{traj_reach()} (at most {MAX_BANDS} bands of at "
+                         f"most {max_threads(TRAJ_SITES[-1])} threads of "
+                         f"{TRAJ_SITES[-1]} sites), got L={L}")
+    pref = SITES_PREFERRED[kernel]
+    if traj_plan_of(L, 1, min(pref, 1 << (L - 1).bit_length())) is None:
+        return _sites_plan(L, min(MAX_BANDS, L), pref)
+    C = 1
+    while 2 * C <= min(MAX_BANDS, L) and B * C < n_sm \
+            and L // (2 * C) >= MIN_BAND_ROWS:
+        C *= 2
+    return _sites_plan(L, C, pref)
+
+
+# ---------------------------------------------------------------------------
 # wrappers: the twin on the CPU, the kernel on the card
 # ---------------------------------------------------------------------------
 
@@ -164,9 +298,9 @@ def _device_index(x: torch.Tensor) -> int:
 
 def _traj_library(what: str, name: str, x: torch.Tensor, chains: int,
                   *tensors: torch.Tensor):
-    """The library of a trajectory kernel, after refusing what it does not
-    take: other dtypes, layouts or devices, and a lattice whose block (of
-    ``chains`` chains) does not fit the card's shared memory."""
+    """K3's library, after refusing what it does not take: other dtypes,
+    layouts or devices, and a lattice whose block (of ``chains`` chains)
+    does not fit the card's shared memory."""
     _build.require_fp32_contiguous(what, x, *tensors)
     lib = _build.library(name)
     L = x.shape[2]
@@ -181,13 +315,52 @@ def _traj_library(what: str, name: str, x: torch.Tensor, chains: int,
     return lib
 
 
+@lru_cache(maxsize=None)
+def _band_bytes(name: str, kernel: str, L: int, plan: TrajPlan) -> int:
+    """The library's count of a CTA's shared memory under ``plan``, -1 for a
+    plan it does not take."""
+    if len(plan.row0) != plan.C + 1 or plan.row0[0] != 0 \
+            or plan.row0[-1] != L \
+            or min(b - a for a, b in zip(plan.row0, plan.row0[1:])) < 1:
+        return -1
+    return _build.library(name).traj_band_smem_bytes(
+        L, plan.rows, plan.threads, plan.sites, KINDS[kernel])
+
+
+def _band_library(what: str, kernel: str, name: str, x: torch.Tensor,
+                  plan, *tensors: torch.Tensor):
+    """(library, plan arguments (C, row0, threads, sites)) of a band-body
+    launch (K2, K4, K5), after refusing what it does not take: other dtypes,
+    layouts or devices, L above the plans' reach, and a plan the library's
+    count refuses or the card's shared memory does not hold. ``plan``: a
+    TrajPlan, by default ``traj_plan``'s."""
+    _build.require_fp32_contiguous(what, x, *tensors)
+    B, _, L, _ = x.shape
+    index = _device_index(x)
+    try:
+        if plan is None:
+            plan = traj_plan(L, B, _build.sm_count(index), kernel)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+    plan = TrajPlan(int(plan[0]), tuple(int(r) for r in plan[1]),
+                    int(plan[2]), int(plan[3]))
+    lib = _build.library(name)
+    need = _band_bytes(name, kernel, L, plan)
+    limit = _build.smem_limit(index)
+    if not 0 < need <= limit:
+        raise ValueError(f"{what}: the plan {plan} at L={L} needs {need} "
+                         f"bytes of shared memory a CTA (-1: not a plan the "
+                         f"kernel takes); the card allows {limit}")
+    return lib, (plan.C, _build.int_array(plan.row0), plan.threads,
+                 plan.sites)
+
+
 def _traj_tail(x, beta, dt, nstep):
-    """(B, L, beta, dt, dt / 2, nstep, stream) of the trajectory entries."""
+    """(B, L, beta, dt, dt / 2, nstep) of the trajectory entries."""
     if int(nstep) != nstep or nstep < 0:
         raise ValueError(f"nstep must be a non-negative integer, got {nstep}")
     B, _, L, _ = x.shape
-    return (B, L, float(beta), float(dt), float(0.5 * dt), int(nstep),
-            _build.stream_handle(x))
+    return (B, L, float(beta), float(dt), float(0.5 * dt), int(nstep))
 
 
 def force(x: torch.Tensor, beta: float) -> torch.Tensor:
@@ -209,17 +382,18 @@ def force(x: torch.Tensor, beta: float) -> torch.Tensor:
 
 
 def leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
-             nstep: int):
+             nstep: int, *, plan: TrajPlan | None = None):
     """Whole leapfrog trajectory of chains-first (B, 2, L, L) links x and
-    momenta v in one launch of K2. Returns (x', v'), x' unwrapped."""
+    momenta v in one launch of K2. Returns (x', v'), x' unwrapped.
+    ``plan``: another band plan than ``traj_plan``'s (timing, tests)."""
     _check_links("K2 leapfrog", x, v)
     if _on_cpu(x):
         return leapfrog_plain(x, v, beta, dt, nstep)
-    lib = _traj_library("K2 leapfrog", "leapfrog", x, 1, v)
+    lib, pa = _band_library("K2 leapfrog", "K2", "leapfrog", x, plan, v)
     tail = _traj_tail(x, beta, dt, nstep)
     xo, vo = torch.empty_like(x), torch.empty_like(v)
     rc = lib.k2_leapfrog(x.data_ptr(), v.data_ptr(), xo.data_ptr(),
-                         vo.data_ptr(), *tail)
+                         vo.data_ptr(), *tail, *pa, _build.stream_handle(x))
     _build.check(rc, "K2 leapfrog", lib)
     _build.LAUNCHES["K2"] += 1
     return xo, vo
@@ -245,7 +419,7 @@ def leapfrog_cl(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
     tail = _traj_tail(x, beta, dt, nstep)
     xo, vo = torch.empty_like(xt), torch.empty_like(vt)
     rc = lib.k3_leapfrog_cl(xt.data_ptr(), vt.data_ptr(), xo.data_ptr(),
-                            vo.data_ptr(), *tail)
+                            vo.data_ptr(), *tail, _build.stream_handle(x))
     _build.check(rc, "K3 leapfrog_cl", lib)
     _build.LAUNCHES["K3"] += 1
     return (xo.permute(3, 0, 1, 2).contiguous(),
@@ -253,11 +427,12 @@ def leapfrog_cl(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
 
 
 def hmc_traj(x: torch.Tensor, seed: torch.Tensor, beta: float, dt: float,
-             nstep: int):
+             nstep: int, *, plan: TrajPlan | None = None):
     """One fused HMC trajectory of (B, 2, L, L) chains through K4: momenta
     and accept draws from the in-kernel Philox stream keyed by (seed,
     chain), the seed one int32 on x's device (so the host never waits).
-    Returns (x_new, dh, acc), dh and acc (B,), acc 0/1 in x's dtype."""
+    Returns (x_new, dh, acc), dh and acc (B,), acc 0/1 in x's dtype.
+    ``plan``: as ``leapfrog``'s."""
     _check_links("K4 hmc_traj", x)
     if seed.dtype != torch.int32 or seed.numel() != 1 \
             or seed.device != x.device:
@@ -266,36 +441,41 @@ def hmc_traj(x: torch.Tensor, seed: torch.Tensor, beta: float, dt: float,
                          f"on {seed.device}")
     if _on_cpu(x):
         return hmc_traj_plain(x, seed, beta, dt, nstep)
-    lib = _traj_library("K4 hmc_traj", "hmc_traj", x, 1)
+    lib, pa = _band_library("K4 hmc_traj", "K4", "hmc_traj", x, plan)
     tail = _traj_tail(x, beta, dt, nstep)
     B = x.shape[0]
     xo = torch.empty_like(x)
     dh, acc = x.new_empty(B), x.new_empty(B)
     rc = lib.k4_hmc_traj(x.data_ptr(), seed.data_ptr(), xo.data_ptr(),
-                         dh.data_ptr(), acc.data_ptr(), *tail)
+                         dh.data_ptr(), acc.data_ptr(), *tail, *pa,
+                         _build.stream_handle(x))
     _build.check(rc, "K4 hmc_traj", lib)
     _build.LAUNCHES["K4"] += 1
     return xo, dh, acc
 
 
 def hmc_traj_hostrng(x: torch.Tensor, v0: torch.Tensor, u: torch.Tensor,
-                     beta: float, dt: float, nstep: int):
+                     beta: float, dt: float, nstep: int, *,
+                     plan: TrajPlan | None = None):
     """K4's trajectory through K5, with the caller's momenta v0 (B, 2, L, L)
-    and accept draws u (B,). Returns (x_new, dh, acc)."""
+    and accept draws u (B,). Returns (x_new, dh, acc). ``plan``: as
+    ``leapfrog``'s."""
     _check_links("K5 hmc_traj_hostrng", x, v0)
     if u.shape != (x.shape[0],):
         raise ValueError(f"K5 hmc_traj_hostrng: u must be ({x.shape[0]},), "
                          f"got {tuple(u.shape)}")
     if _on_cpu(x):
         return hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep)
-    lib = _traj_library("K5 hmc_traj_hostrng", "hmc_traj", x, 1, v0, u)
+    lib, pa = _band_library("K5 hmc_traj_hostrng", "K5", "hmc_traj", x,
+                            plan, v0, u)
     tail = _traj_tail(x, beta, dt, nstep)
     B = x.shape[0]
     xo = torch.empty_like(x)
     dh, acc = x.new_empty(B), x.new_empty(B)
     rc = lib.k5_hmc_traj_hostrng(x.data_ptr(), v0.data_ptr(), u.data_ptr(),
                                  xo.data_ptr(), dh.data_ptr(),
-                                 acc.data_ptr(), *tail)
+                                 acc.data_ptr(), *tail, *pa,
+                                 _build.stream_handle(x))
     _build.check(rc, "K5 hmc_traj_hostrng", lib)
     _build.LAUNCHES["K5"] += 1
     return xo, dh, acc

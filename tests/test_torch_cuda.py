@@ -378,18 +378,25 @@ def _close_traj(got, ref, x0, v0, u, beta, dt, nstep):
     assert _wrapped(xk[same], xp[same]) < 1e-4
 
 
-@pytest.mark.parametrize("B,L,nstep", [(8, 8, 6), (12, 20, 10), (4, 64, 3)])
+@pytest.mark.parametrize("B,L,nstep", [(8, 8, 6), (12, 20, 10), (4, 64, 3),
+                                        (4, 128, 3), (2, 256, 2)])
 def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
+    """K2, K4 and K5 under the default plan and, at the shapes up to 64^2,
+    under every plan of L (traj_plans); K3 where it takes the shape."""
     g = torch.Generator(device=card).manual_seed(0)
     x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
     v = torch.randn((B, 2, L, L), generator=g, device=card)
     u = torch.rand((B,), generator=g, device=card)
     seed = torch.tensor([12345], dtype=torch.int32, device=card)
     beta, dt = 2.0, 0.1
+    plans = [None] + (lk.traj_plans(L) if L <= 64 else [])
     before = dict(_build.LAUNCHES)
     ref2 = lk.leapfrog_plain(x, v, beta, dt, nstep)
+    ref5 = lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, nstep)
+    ref4 = lk.hmc_traj_plain(x, seed, beta, dt, nstep)
+    v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
     cl = L <= 48                  # inside K3's block
-    runs = [lk.leapfrog(x, v, beta, dt, nstep)]
+    runs = [lk.leapfrog(x, v, beta, dt, nstep, plan=p) for p in plans]
     if cl:
         runs.append(lk.leapfrog_cl(x, v, beta, dt, nstep))
     for got in runs:
@@ -397,31 +404,54 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
         assert _wrapped(got[0], ref2[0]) < 1e-4
         assert float((got[1] - ref2[1]).abs().max()) < \
             1e-4 * float(ref2[1].abs().max())
-    _close_traj(lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep),
-                lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, nstep),
-                x, v, u, beta, dt, nstep)
-    v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
+    for p in plans:
+        _close_traj(lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep, plan=p),
+                    ref5, x, v, u, beta, dt, nstep)
+        _close_traj(lk.hmc_traj(x, seed, beta, dt, nstep, plan=p), ref4, x,
+                    v4, u4, beta, dt, nstep)
+    # K2, K4 and K5 are deterministic: two launches bit-equal
     k4 = lk.hmc_traj(x, seed, beta, dt, nstep)
-    _close_traj(k4, lk.hmc_traj_plain(x, seed, beta, dt, nstep), x, v4, u4,
-                beta, dt, nstep)
-    # K4 is deterministic for a fixed seed
     assert all(torch.equal(a, b) for a, b in
                zip(k4, lk.hmc_traj(x, seed, beta, dt, nstep)))
+    k5 = lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k5, lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep)))
+    k2 = lk.leapfrog(x, v, beta, dt, nstep)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k2, lk.leapfrog(x, v, beta, dt, nstep)))
+    n = len(plans)
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"K1": 0, "K2": 1, "K3": int(cl), "K4": 2, "K5": 1,
-                        "K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0,
-                        "K11": 0}
+    assert launched == {"K1": 0, "K2": n + 2, "K3": int(cl), "K4": n + 2,
+                        "K5": n + 2, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
+                        "K10": 0, "K11": 0}
+
+
+@pytest.mark.parametrize("L", [2, 3, 8, 20, 64, 128, 256])
+def test_traj_smem_count_is_the_libraries(card, L):
+    """The Python count of a band CTA's shared memory (which the CPU tests
+    hold against the H100's limit) is the libraries' own, for every plan."""
+    for plan in lk.traj_plans(L):
+        for kernel, name in (("K2", "leapfrog"), ("K4", "hmc_traj"),
+                             ("K5", "hmc_traj")):
+            assert lk._band_bytes(name, kernel, L, plan) == \
+                lk.traj_smem_bytes_of(L, plan, kernel)
 
 
 def test_trajectory_kernels_refuse_what_they_do_not_take(card):
     x = torch.zeros((4, 2, 8, 8), device=card)
     seed = torch.zeros(1, dtype=torch.int32, device=card)
-    big = torch.zeros((1, 2, 128, 128), device=card)  # over K2's block
+    big = torch.zeros((1, 2, 257, 257), device=card)  # over the plans' reach
     before = dict(_build.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="L <= 256"):
         lk.leapfrog(big, big, 1.0, 0.1, 1)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="L <= 256"):
         lk.hmc_traj(big, seed, 1.0, 0.1, 1)
+    with pytest.raises(ValueError, match="L <= 256"):
+        lk.hmc_traj_hostrng(big, big, torch.zeros(1, device=card), 1.0, 0.1,
+                            1)
+    bad = lk.TrajPlan(1, (0, 8), 8, 4)   # runs of 4 rows: half of 8 rows
+    with pytest.raises(ValueError, match="plan"):
+        lk.leapfrog(x, x, 1.0, 0.1, 1, plan=bad)
     x64 = torch.zeros((4, 2, 64, 64), device=card)   # over K3's block
     with pytest.raises(ValueError, match="shared memory"):
         lk.leapfrog_cl(x64, x64, 1.0, 0.1, 1)

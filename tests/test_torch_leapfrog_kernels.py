@@ -1,7 +1,8 @@
 """The plain twins of K2-K5 (fthmc_tpu_torch/ops/lattice_kernels.py) against
 the JAX package's Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them, and the port's Philox generator
-(ops/rng.py) against the published Philox4x32-10 answers.
+(ops/rng.py) against the published Philox4x32-10 answers; a float64
+mirror of the band body of K2, K4 and K5 against the twins, and its plans.
 
 Tolerances: fp32 through nstep <= 8 steps, 1e-4 on x and v and 1e-5 on
 wrapped x after an accept (tests/test_pallas.py's own bounds); dH to 1e-4,
@@ -16,12 +17,16 @@ import torch
 from fthmc_tpu.ops.pallas_lattice import (pallas_hmc_traj_hostrng,
                                           pallas_leapfrog, pallas_leapfrog_cl)
 from fthmc_tpu_torch.ops import _build, rng
-from fthmc_tpu_torch.ops.lattice_kernels import (hmc_traj, hmc_traj_hostrng,
+from fthmc_tpu_torch.ops.lattice_kernels import (TrajPlan, hmc_traj,
+                                                 hmc_traj_hostrng,
                                                  hmc_traj_hostrng_plain,
                                                  hmc_traj_plain, leapfrog,
                                                  leapfrog_cl,
                                                  leapfrog_cl_plain,
-                                                 leapfrog_plain)
+                                                 leapfrog_plain, max_threads,
+                                                 traj_plan, traj_plan_of,
+                                                 traj_plans, traj_reach,
+                                                 traj_smem_bytes_of)
 
 BETA, DT = 2.0, 0.1
 
@@ -179,3 +184,234 @@ def test_wrappers_refuse_bad_shapes_and_devices(call):
     x, v, u = (torch.as_tensor(a) for a in _inputs(14, 4))
     with pytest.raises(ValueError):
         call(x, v, u, torch.tensor([1], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The band body of K2, K4 and K5 (csrc/traj_common.cuh), mirrored in float64:
+# C bands of rows a chain, CTA r's thread t owning column t % L and the run
+# of S rows from local row (t // L) S (rows past the band idle), fields kept
+# per thread; a step publishes x0 of each run and x1 of its first row, reads
+# x1(i+1) from the run, the next run's first row or the band below's first
+# row, publishes sin P and reads sin P(i-1) from the run, the run above's
+# last row or the band above's last row (ranks wrapping C - 1 <-> 0); dH
+# over a thread's sites in order, a tree over the CTA's threads (padded to a
+# power of two), then the CTAs in rank order. Shared buffers start NaN, so a
+# site that reads what was never published shows.
+# ---------------------------------------------------------------------------
+
+N_SM = 132               # an H100's SMs
+
+
+class _BandMirror:
+    def __init__(self, L, plan):
+        C, row0, T, S = plan
+        self.L, self.C, self.T, self.S = L, C, T, S
+        R = np.diff(np.asarray(row0))
+        self.R, self.RL = R, int(R.max()) * L
+        t = np.arange(T)
+        self.j, self.g0 = t % L, (t // L) * S
+        self.jp, self.jm = (self.j + 1) % L, (self.j - 1) % L
+        lr = self.g0[None, :, None] + np.arange(S)[None, None, :]   # (1,T,S)
+        self.lr = np.broadcast_to(lr, (C, T, S))
+        self.valid = self.lr < R[:, None, None]
+        self.nv = self.valid.sum(axis=2)                            # (C, T)
+        last = R[:, None] - 1 - self.g0[None, :]                    # (C, T)
+        self.klast = np.where((last >= 0) & (last < S), last, -1)
+        self.up, self.dn = (np.arange(C) - 1) % C, (np.arange(C) + 1) % C
+        self.i = np.asarray(row0)[:-1, None, None] + self.lr        # global
+        self.cell = (self.lr * L + self.j[None, :, None])           # smem
+        self.site = self.i * L + self.j[None, :, None]              # global
+
+    def load(self, f):
+        """(B, 2, L, L) -> two (B, C, T, S) fields, 0 off the band."""
+        flat = f.reshape(f.shape[0], 2, -1)
+        idx = np.where(self.valid, self.site, 0)
+        return tuple(np.where(self.valid, flat[:, d][:, idx], 0.0)
+                     for d in (0, 1))
+
+    def store(self, f0, f1, out):
+        flat = out.reshape(out.shape[0], 2, -1)
+        for d, f in enumerate((f0, f1)):
+            flat[:, d][:, self.site[self.valid]] = f[:, self.valid]
+        return out
+
+    def _gather(self, buf, rank, cell, mask):
+        """buf (B, C, n)[:, rank, cell] where mask, 0 elsewhere."""
+        rank = np.broadcast_to(rank, mask.shape)
+        cell = np.broadcast_to(cell, mask.shape)
+        got = buf[:, np.where(mask, rank, 0), np.where(mask, cell, 0)]
+        return np.where(mask, got, 0.0)
+
+    def plaq(self, x0, x1):
+        B, C, T, S, L = x0.shape[0], self.C, self.T, self.S, self.L
+        xs0 = np.full((B, C, self.RL), np.nan)
+        x1f = np.full((B, C, T), np.nan)
+        ranks = np.arange(C)[:, None, None]
+        for r in range(C):
+            v = self.valid[r]
+            xs0[:, r, self.cell[r][v]] = x0[:, r][:, v]
+            own = self.nv[r] > 0
+            x1f[:, r, np.arange(T)[own]] = x1[:, r, own, 0]
+        # x1(i+1) of a run's last site: band below's first row, next run's
+        has_last = self.klast >= 0
+        nxt = (~has_last) & (self.nv == S)
+        below = (self._gather(x1f, self.dn[:, None], self.j[None, :],
+                              has_last)
+                 + self._gather(x1f, np.arange(C)[:, None],
+                                np.arange(T)[None, :] + L, nxt))
+        k = np.arange(S)[None, None, :]
+        from_below = (k == self.klast[:, :, None]) | (k == S - 1)
+        shifted = np.concatenate([x1[..., 1:], x1[..., -1:]], axis=-1)
+        xn = np.where(from_below, below[..., None], shifted)
+        right = self._gather(xs0, ranks, self.lr * L + self.jp[None, :, None],
+                             self.valid)
+        return np.where(self.valid, x0 + xn - right - x1, 0.0)
+
+    def leapfrog(self, x0, x1, p0, p1, beta, dt, nstep):
+        B, C, T, S, L = x0.shape[0], self.C, self.T, self.S, self.L
+        hdt = 0.5 * dt
+        x0, x1 = x0 + hdt * p0, x1 + hdt * p1
+        ranks = np.arange(C)[:, None, None]
+        for _ in range(nstep):
+            sp = np.where(self.valid, np.sin(self.plaq(x0, x1)), 0.0)
+            sps = np.full((B, C, self.RL), np.nan)
+            for r in range(C):
+                v = self.valid[r]
+                sps[:, r, self.cell[r][v]] = sp[:, r][:, v]
+            run = self.nv > 0
+            first = run & (self.g0[None, :] == 0)
+            R_up = self.R[self.up]
+            above = (self._gather(sps, self.up[:, None],
+                                  (R_up[:, None] - 1) * L + self.j[None, :],
+                                  first)
+                     + self._gather(sps, np.arange(C)[:, None],
+                                    (self.g0[None, :] - 1) * L
+                                    + self.j[None, :], run & ~first))
+            sa = np.concatenate([above[..., None], sp[..., :-1]], axis=-1)
+            left = self._gather(sps, ranks, self.lr * L
+                                + self.jm[None, :, None], self.valid)
+            f0, f1 = beta * (sp - left), beta * (sa - sp)
+            p0 = np.where(self.valid, p0 - dt * f0, 0.0)
+            p1 = np.where(self.valid, p1 - dt * f1, 0.0)
+            x0, x1 = x0 + dt * p0, x1 + dt * p1
+        return x0 - hdt * p0, x1 - hdt * p1, p0, p1
+
+    def chain_sum(self, per_site):
+        """A (B, C, T, S) term summed as the kernels sum dH."""
+        B, C, T = per_site.shape[:3]
+        acc = np.zeros((B, C, T))
+        for k in range(self.S):                     # a thread's sites
+            acc = acc + np.where(self.valid[..., k], per_site[..., k], 0.0)
+        p2 = 1 << (T - 1).bit_length()
+        red = np.concatenate([acc, np.zeros((B, C, p2 - T))], axis=-1)
+        h = p2 // 2
+        while h:                                     # the CTA's tree
+            red = red[..., :h] + red[..., h:2 * h]
+            h //= 2
+        total = np.zeros(B)
+        for r in range(C):                           # ranks in order
+            total = total + red[:, r, 0]
+        return total
+
+
+def band_leapfrog(x, v, beta, dt, nstep, L, plan):
+    m = _BandMirror(L, plan)
+    x0, x1, p0, p1 = m.leapfrog(*m.load(x), *m.load(v), beta, dt, nstep)
+    return (m.store(x0, x1, np.full_like(x, np.nan)),
+            m.store(p0, p1, np.full_like(v, np.nan)))
+
+
+def band_hmc_traj(x, v, u, beta, dt, nstep, L, plan):
+    m = _BandMirror(L, plan)
+    x0, x1 = m.load(x)
+    p0, p1 = m.load(v)
+    c0 = np.cos(m.plaq(x0, x1))
+    y0, y1, q0, q1 = m.leapfrog(x0, x1, p0, p1, beta, dt, nstep)
+    dsw = m.chain_sum(np.cos(m.plaq(y0, y1)) - c0)
+    dk = m.chain_sum((q0 - p0) * (q0 + p0) + (q1 - p1) * (q1 + p1))
+    dh = -beta * dsw + 0.5 * dk
+    acc = u < np.exp(-dh)
+    y = m.store(y0, y1, np.full_like(x, np.nan))
+    yw = np.remainder(y + math.pi, 2 * math.pi) - math.pi
+    return np.where(acc[:, None, None, None], yw, x), dh, acc
+
+
+MIRROR_CASES = [(L, plan) for L in (2, 3, 8, 20, 64, 128)
+                for plan in traj_plans(L)]
+
+
+@pytest.mark.parametrize("L,plan", MIRROR_CASES,
+                         ids=[f"L{L}-C{p.C}-S{p.sites}"
+                              for L, p in MIRROR_CASES])
+def test_band_mirror_reproduces_the_twins(L, plan):
+    """The band body's indexing, in float64, against the twins (float64),
+    to 1e-12, under every plan of L."""
+    B, nstep, beta, dt = 2, 3, 2.0, 0.1
+    g = np.random.default_rng(L * 100 + plan.C * 10 + plan.sites)
+    x = g.uniform(-1.0, 1.0, (B, 2, L, L))
+    v = g.normal(size=x.shape)
+    xt, vt = torch.as_tensor(x), torch.as_tensor(v)
+    xr, vr = leapfrog_plain(xt, vt, beta, dt, nstep)
+    xm, vm = band_leapfrog(x, v, beta, dt, nstep, L, plan)
+    np.testing.assert_allclose(xm, xr.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(vm, vr.numpy(), rtol=0, atol=1e-12)
+    # one chain accepted, one rejected
+    xn, dh, acc = hmc_traj_hostrng_plain(
+        xt, vt, torch.zeros(B, dtype=torch.float64), beta, dt, nstep)
+    u = np.exp(-dh.numpy()) * np.array([0.5, 2.0])
+    xn, dh, acc = hmc_traj_hostrng_plain(xt, vt, torch.as_tensor(u), beta,
+                                         dt, nstep)
+    xm, dhm, accm = band_hmc_traj(x, v, u, beta, dt, nstep, L, plan)
+    np.testing.assert_allclose(dhm, dh.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(accm, acc.numpy().astype(bool))
+    assert accm.tolist() == [True, False]
+    np.testing.assert_allclose(xm, xn.numpy(), rtol=0, atol=1e-12)
+
+
+H100_SMEM = 232448       # bytes a block may opt in to
+H100_REGS = 65536        # 32-bit registers an SM
+
+
+@pytest.mark.parametrize("B", [1, 1024])
+def test_traj_plan_covers_every_L_within_the_h100s_limits(B):
+    """Every L from 2 to 256 has a plan, which owns every site once and
+    stays within an H100's shared memory, registers, threads and the
+    portable cluster; the plans' reach is 256."""
+    assert traj_reach() == 256
+    for L in range(2, 257):
+        for plan in {*(traj_plan(L, B, N_SM, k) for k in ("K2", "K4", "K5")),
+                     *traj_plans(L)}:
+            assert plan == traj_plan_of(L, plan.C, plan.sites)
+            assert 1 <= plan.C <= min(8, L)
+            assert plan.threads % L == 0 and plan.threads <= 1024
+            assert plan.threads * (H100_REGS // max_threads(plan.sites)) \
+                <= H100_REGS
+            assert plan.threads <= max_threads(plan.sites)
+            for k in ("K2", "K4", "K5"):
+                assert traj_smem_bytes_of(L, plan, k) <= H100_SMEM
+            m = _BandMirror(L, plan)
+            owned = np.sort(m.site[m.valid])
+            np.testing.assert_array_equal(owned, np.arange(L * L))
+
+
+def test_traj_plans_of_the_cells():
+    """The headline's plan is the one PERF.md records; 128^2 and 256^2 take
+    bands in a cluster."""
+    assert traj_plan(64, 1024, N_SM, "K2") == TrajPlan(1, (0, 64), 512, 8)
+    for k in ("K4", "K5"):
+        assert traj_plan(64, 1024, N_SM, k) == TrajPlan(1, (0, 64), 1024, 4)
+        assert traj_plan(128, 16, N_SM, k) == TrajPlan(
+            8, tuple(range(0, 129, 16)), 512, 4)
+    assert traj_plan(128, 16, N_SM, "K2") == TrajPlan(
+        8, tuple(range(0, 129, 16)), 256, 8)
+    for k in ("K2", "K4", "K5"):
+        assert traj_plan(256, 16, N_SM, k) == TrajPlan(
+            8, tuple(range(0, 257, 32)), 512, 16)
+        assert traj_plan(200, 1, N_SM, k).row0[1] == 25
+
+
+@pytest.mark.parametrize("L", [1, 257, 1024])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+def test_traj_plan_raises_above_the_reach(L, kernel):
+    with pytest.raises(ValueError, match="L <= 256"):
+        traj_plan(L, 4, N_SM, kernel)

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Two checkouts of the repo timed in turns (first, second, second, first)
-on one CUDA card: seconds a trajectory of chip_smoke.py's dynamical path A
-(64^2, beta=6, m=0.1, 64 chains, tau=2, 16 Omelyan steps), and the plain-HMC
-headline's chain-steps/s with 'auto' (K2) and 'fused' (K4) as chip_smoke.py
-times it (fthmc_tpu/bench.py's configuration and definition):
+on one CUDA card: seconds a trajectory of chip_smoke.py's dynamical paths
+A (64^2, beta=6, m=0.1, 64 chains, tau=2, 16 Omelyan steps), B (16^2, 128
+chains, 10 steps, the CG on chains-last planes) and C (FT-HMC with the
+trained flow, 16^2, 128 chains, tau=0.5, 4 steps, from z0 = f^-1(0)), and
+the plain-HMC headline's chain-steps/s with 'auto' (K2) and 'fused' (K4) as
+chip_smoke.py times it (fthmc_tpu/bench.py's configuration and
+definition):
 
     python3 ab_dyn.py OLD_CHECKOUT NEW_CHECKOUT [NTRAJ]
 
 Each turn is a process of its own that imports the checkout's
-fthmc_tpu_torch and chip_smoke, builds its kernels, runs 6 path-A
-trajectories from near-equilibrium links and times NTRAJ (default 24) more,
-then times the headline. Prints one JSON line a turn and the card's name
-and power limit.
+fthmc_tpu_torch and chip_smoke, builds its kernels, and for each path runs
+6 trajectories (from near-equilibrium links, or f^-1(0) for C) and times
+NTRAJ (default 24) more, then times the headline. Prints one JSON line a
+turn and the card's name and power limit.
 """
 import json
 import subprocess
@@ -21,17 +24,32 @@ TURN = r'''
 import dataclasses, json, sys, time, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-from fthmc_tpu_torch.schwinger import run_hmc_dyn
+from fthmc_tpu_torch.models.flow import flow_reverse
+from fthmc_tpu_torch.schwinger import run_fthmc_dyn, run_hmc_dyn
+from fthmc_tpu_torch.weights import load_flow_npz
 dev = torch.device("cuda")
-x = cs.near_equilibrium(torch.Generator(device=dev).manual_seed(51), 64, 64,
-                        6.0, dev)
-for ntraj, seed, timed in ((6, 1, False), (NTRAJ, 2, True)):
-    cfg = dataclasses.replace(cs.DYN["A"], ntraj=ntraj)
-    t0 = time.perf_counter()
-    x, _ = run_hmc_dyn(cfg, x0=x, device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(seed))
-    torch.cuda.synchronize()
-out = {"s_per_traj": (time.perf_counter() - t0) / ntraj}
+params, spec = load_flow_npz(device=dev)
+out = {}
+for path, seed in (("A", 51), ("B", 52), ("C", None)):
+    base = cs.DYN[path]
+    B, L = base.n_chains, base.L
+    if seed is None:
+        x, _ = flow_reverse(params, torch.zeros((B, 2, L, L), device=dev),
+                            spec)
+    else:
+        x = cs.near_equilibrium(torch.Generator(device=dev).manual_seed(seed),
+                                B, L, 6.0, dev)
+    for ntraj, s in ((6, 1), (NTRAJ, 2)):
+        cfg = dataclasses.replace(base, ntraj=ntraj)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        t0 = time.perf_counter()
+        if seed is None:
+            x, _ = run_fthmc_dyn(params, spec, cfg, z0=x, generator=gen,
+                                 device=dev)
+        else:
+            x, _ = run_hmc_dyn(cfg, x0=x, generator=gen, device=dev)
+        torch.cuda.synchronize()
+    out[f"path_{path}_s_per_traj"] = (time.perf_counter() - t0) / ntraj
 for b in ("auto", "fused"):
     r = cs.headline_rate(dev, b)
     out[f"headline_{b}"] = {k: r[k] for k in ("chain_steps_per_s",

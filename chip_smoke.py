@@ -26,8 +26,9 @@ Phases, each printed on its own line:
      start) with the default backend (K2), 'fused' (K4) and 'fused_hostrng'
      (K5), and K3's 'pallas_cl' at 32^2; each run's launch counters (set to
      0 just before it) and physics checks;
-  7. timings with CUDA events: every kernel and its plain twin, the kernel
-     force chain against the autograd force, K6-K8 at the three shapes of
+  7. timings with CUDA events: every kernel and its plain twin (K1 also
+     as the card's time, graph_ms, at the FT shape and at path A's), the
+     kernel force chain against the autograd force, K6-K8 at the three shapes of
      phase 3 (launched on prepared pointers, and through their wrappers)
      beside cuDNN running the same layer's convs (a yardstick) and the
      host's microseconds a wrapper call, K6-K8 under every band plan at
@@ -40,21 +41,27 @@ Phases, each printed on its own line:
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
   8. dynamical fermions: K9 (64^2, 64 chains; 16^2, 128 chains) and K10
-     (16^2, 128 chains) against their twins, eo and not; K11's update
-     against its twin; the fused CG on the kernels against the same CG on
-     the twins and the torch 'xla' CG, cold and warm; K9 and K10 under
-     every band plan and chain tile at the three paths' shapes, each held
+     (16^2, 128 chains) against their twins, eo and not; K11, the whole CG
+     solve, against its twin (cg_solve_fused_plain) and the torch 'xla' CG
+     at paths A's, B's and C's shapes and at 128^2 and 256^2 (4 chains),
+     both layouts, eo and not, cold and warm, two launches bit-equal and
+     one launch a solve (the "compare_k11" line); K9 and K10 under every
+     band plan and chain tile at the three paths' shapes, each held
      against its twin (the "fermion_band_plans" line); then paths A
-     (plain dynamical HMC, 64^2, K9 +
-     K11 + K1), B (16^2, K10 by name + K11 + K1) and C (FT-HMC with the
-     trained flow, 16^2, K6-K8 + K1 + the 'auto' layout's operator + K11)
-     through run_hmc_dyn / run_fthmc_dyn at the JAX package's production
-     configurations, each with its launch counters (set to 0 just before
-     it) and its physics against the JAX package's reading (DYN_READING);
-     timings of K9-K11 (the card's time, a CUDA graph of launches
-     replayed; events beside), their twins, a CG iteration, K9 against K10
-     over L (the 'auto' layout rule), s/trajectory, chain-steps/s, CG
-     iterations a solve, and path A's device busy share;
+     (plain dynamical HMC, 64^2, K11 + K1), B (16^2, K11 on chains-last
+     planes by name + K1) and C (FT-HMC with the trained flow, 16^2, K6-K8
+     + K1 + K11) through run_hmc_dyn / run_fthmc_dyn at the JAX package's
+     production configurations, each with its launch counters (set to 0
+     just before it: one K11 launch a solve, no operator launch) and its
+     physics against the JAX package's reading (DYN_READING); the
+     operator's own entry point, fused_mdagm, the path that launches K9
+     and K10, with its counters (the "operator_path" line); timings of
+     K9-K11 (the card's time, a CUDA graph of launches replayed; events
+     beside), their twins, K11 a solve of 40 iterations and a set-up at
+     A's, B's and C's shapes and under every band plan (the
+     "cg_plans" line), K9 against K10 over L (the 'auto' layout rule),
+     s/trajectory, chain-steps/s, CG iterations a solve, and the device
+     busy share of paths A, B and C;
   9. a {"kernels": [...]} JSON line, K1-K11;
   10. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
@@ -203,6 +210,17 @@ FERMION_SHAPES = {"A": (64, 64, False), "B": (128, 16, True),
                   "C": (128, 16, False)}
 # K10's chain tiles in the band-plan sweep
 K10_TILES = (8, 16, 32)
+# K11's comparisons: (chains, L) of paths A, B and C, and 128^2 and 256^2
+# at a few chains (a cluster of bands, and device scratch), each in both
+# layouts
+K11_SHAPES = {"A": (64, 64), "BC": (128, 16), "L128": (4, 128),
+              "L256": (4, 256)}
+# K11 timed a solve of this many iterations (tol 0), cold; beside it the
+# iteration of the host-loop CG it replaced (a K9 or K10 launch and an
+# update launch, graph_ms on an H100 80GB HBM3 at 700 W, as PERF.md
+# records it)
+K11_TIMED_ITERS = 40
+HOST_LOOP_ITERATION_MS = {"A": 0.0262, "B": 0.0270}
 # K9 against K10 (the 'auto' layout rule): these L, this many chains
 LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
 # (thermalizing, measured) trajectories, sized against the time limit
@@ -807,17 +825,6 @@ def fermion_inputs(dev):
     return out
 
 
-def _update_inputs(inp):
-    """(p, mp, x, r, rsq, stop) of a CG's first iteration on inp's planes:
-    x = 0, r = p = b, mp = M p (the twin), stop = 1e-9 |b|^2."""
-    b = inp["p4"][True]
-    mp = (fk.mdagm_cl_plain if inp["cl"] else fk.mdagm_plain)(
-        inp["ur"], inp["ui"], b, MASS, True)
-    dims = (0, 1, 2) if inp["cl"] else (1, 2, 3)
-    rsq = (b * b).sum(dim=dims)
-    return b.clone(), mp, torch.zeros_like(b), b.clone(), rsq, 1e-9 * rsq
-
-
 def _worst(pairs):
     """The (error, tolerance) pair nearest its tolerance."""
     return max(pairs, key=lambda et: et[0] / et[1])
@@ -826,15 +833,7 @@ def _worst(pairs):
 def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
     """K9 (paths A's and C's shapes) and K10 (path B's) against their
     twins, eo and not: 1e-6 x max|ref| (they repeat the twins' arithmetic
-    op for op);
-    K11's update against its twin, 1e-5 x max|ref| (its sums run in
-    another order) and the same counters; the whole fused CG on the
-    kernels against the same on the twins (cg_solve_fused_plain) and
-    against the torch 'xla' CG, tol 1e-9, cold and warm (from a 20-iteration
-    solve), at both shapes: solutions within 1e-3 relative (two fp32 CGs
-    stopped at a relative residual of 3e-5 on an operator of condition
-    ~30), iters within 1 (rsq may cross its stop one iteration apart),
-    rsq <= tol."""
+    op for op)."""
     errs, tols, info = {}, {}, {}
     for key, d in inp.items():
         k = "K10" if d["cl"] else "K9"
@@ -851,49 +850,104 @@ def compare_fermion(dev, inp) -> tuple[dict, dict, dict]:
                 f"{pairs}")
         errs[k], tols[k] = _worst(pairs + ([(errs[k], tols[k])]
                                            if k in errs else []))
-    pairs = []
-    for key in ("A", "B"):
-        d = inp[key]
-        bufs = [list(_update_inputs(d)) for _ in range(2)]
-        outs = []
-        for fn, (p, mp, x, r, rsq, stop) in zip(
-                (fk.cg_update, fk.cg_update_plain), bufs):
-            c = torch.zeros(2, dtype=torch.int32, device=dev)
-            fn(p, mp, x, r, rsq, stop, c, 0, d["cl"])
-            outs.append((p, x, r, rsq, c))
-        torch.cuda.synchronize()
-        for a, b in zip(outs[0][:4], outs[1][:4]):
-            pairs.append((float((a - b).abs().max()),
-                          1e-5 * float(b.abs().max())))
-        require(torch.equal(outs[0][4], outs[1][4]), "K11 counters")
-    errs["K11"], tols["K11"] = _worst(pairs)
-    info["K11"] = pairs
-    require(all(e <= t for e, t in pairs), f"K11 vs plain: {pairs}")
-    cg = {}
-    for key, layout in (("A", "cf"), ("B", "cl")):
-        cfg, x = DYN[key], inp[key]["x"]
-        phi, _ = tf.pf_refresh(torch.Generator(device=dev).manual_seed(3), x,
-                               MASS, eo=True)
-        kw = dict(tol=1e-9, maxiter=cfg.cg_maxiter, eo=True, layout=layout)
-        warm = fk.cg_solve_fused(x, phi, MASS, tol=1e-9, maxiter=20, eo=True,
-                                 layout=layout).x
-        for start, x0 in (("cold", None), ("warm", warm)):
-            k = fk.cg_solve_fused(x, phi, MASS, x0, **kw)
-            t = fk.cg_solve_fused_plain(x, phi, MASS, x0, **kw)
-            xla = tf.cg_solve(x, phi, MASS, x0, tol=1e-9,
-                              maxiter=cfg.cg_maxiter, eo=True, backend="xla")
-            r = {"iters": [k.iters, t.iters, xla.iters],
-                 "launched": k.launched,
-                 "rel_vs_twins": _rel(k.x, t.x), "rel_vs_xla": _rel(k.x, xla.x),
-                 "rsq_max": [float(v.rsq.max()) for v in (k, t, xla)]}
-            cg[f"{key}_{layout}_{start}"] = r
-            require(r["rel_vs_twins"] <= 1e-3 and r["rel_vs_xla"] <= 1e-3,
-                    f"fused CG {key} {start}: {r}")
-            require(abs(k.iters - t.iters) <= 1
-                    and abs(k.iters - xla.iters) <= 1, f"CG iters {r}")
-            require(max(r["rsq_max"]) <= 1e-9, f"CG rsq {r}")
-    info["cg"] = cg
     return errs, tols, info
+
+
+def compare_k11(dev) -> tuple[float, float, dict]:
+    """K11, the whole solve, against its twin (cg_solve_fused_plain) and
+    the torch 'xla' CG at each shape of K11_SHAPES (near-equilibrium links
+    at beta = 6, phi from the heatbath), in both layouts, eo and not, cold
+    and warm (from a 20-iteration solve), tol 1e-9, maxiter 2000:
+    solutions within 1e-3 relative in norm (two fp32 CGs stopped at a
+    relative residual of 3e-5 on operators of condition up to ~10^3),
+    iters within 1 (rsq may cross its stop one iteration apart), rsq <=
+    tol; max|x - x_twin| within 1e-3 max|x_twin| at every case; two
+    launches bit-equal; one K11 launch a solve and no other. Returns the
+    (max|x - x_twin|, 1e-3 max|x_twin|) pair nearest its tolerance and the
+    cases."""
+    g = torch.Generator(device=dev).manual_seed(2029)
+    cases, pairs = {}, []
+    one = dict.fromkeys(_build.KERNELS, 0) | {"K11": 2}
+    for key, (B, n) in K11_SHAPES.items():
+        x = near_equilibrium(g, B, n, 6.0, dev)
+        for eo in (True, False):
+            phi, _ = tf.pf_refresh(torch.Generator(device=dev).manual_seed(3),
+                                   x, MASS, eo=eo)
+            for layout in ("cf", "cl"):
+                kw = dict(tol=1e-9, maxiter=2000, eo=eo, layout=layout)
+                warm = fk.cg_solve_fused(x, phi, MASS, tol=1e-9, maxiter=20,
+                                         eo=eo, layout=layout).x
+                for start, x0 in (("cold", None), ("warm", warm)):
+                    _build.reset_counts()
+                    k = [fk.cg_solve_fused(x, phi, MASS, x0, **kw)
+                         for _ in (0, 1)]
+                    launches = dict(_build.LAUNCHES)
+                    t = fk.cg_solve_fused_plain(x, phi, MASS, x0, **kw)
+                    xla = tf.cg_solve(x, phi, MASS, x0, tol=1e-9,
+                                      maxiter=2000, eo=eo, backend="xla")
+                    r = {"iters": [k[0].iters, t.iters, xla.iters],
+                         "rel_vs_twin": _rel(k[0].x, t.x),
+                         "rel_vs_xla": _rel(k[0].x, xla.x),
+                         "bit_equal": torch.equal(k[0].x, k[1].x)
+                         and torch.equal(k[0].rsq, k[1].rsq),
+                         "rsq_max": [float(v.rsq.max()) for v in (k[0], t,
+                                                                  xla)],
+                         "plan": list(fk.cg_plan(eo, B, n, n, dev)[:3])}
+                    name = f"{key}_{layout}_{'eo' if eo else 'full'}_{start}"
+                    cases[name] = r
+                    pairs.append((float((k[0].x - t.x).abs().max()),
+                                  1e-3 * float(t.x.abs().max())))
+                    require(pairs[-1][0] <= pairs[-1][1],
+                            f"K11 max|x - x_twin| {name}: {pairs[-1]}")
+                    require(r["rel_vs_twin"] <= 1e-3
+                            and r["rel_vs_xla"] <= 1e-3, f"K11 {name}: {r}")
+                    require(abs(k[0].iters - t.iters) <= 1
+                            and abs(k[0].iters - xla.iters) <= 1,
+                            f"K11 iters {name}: {r}")
+                    require(max(r["rsq_max"]) <= 1e-9, f"K11 rsq {name}: {r}")
+                    require(r["bit_equal"], f"K11 repeat {name}: {r}")
+                    require(launches == one,
+                            f"K11 launches {name}: {launches}")
+    err, tol = _worst(pairs)
+    return err, tol, cases
+
+
+def operator_path(inp, n_apply: int = 10) -> dict:
+    """The normal operator's own entry point, fused_mdagm (the counterpart
+    of pallas_mdagm; since K11 holds the whole solve, it is the path that
+    launches K9 and K10): at each shape of FERMION_SHAPES in its layout
+    (K9 chains-first at A's and C's, K10 chains-last at B's), eo,
+    ``n_apply`` applications to the shape's complex field, the launch
+    counters set to 0 just before and read just after (one K9 or K10
+    launch an application, no twin), each result held against the twin's
+    on the same planes within 1e-6 x max|ref|."""
+    def complex_of(p4, cl):
+        return fk.unpack_spinor(p4.permute(3, 0, 1, 2) if cl else p4)
+
+    psi = {k: complex_of(d["p4"][True], d["cl"]) for k, d in inp.items()}
+    _build.reset_counts()
+    out = {k: [fk.fused_mdagm(d["x"], psi[k], MASS, eo=True,
+                              layout="cl" if d["cl"] else "cf")
+               for _ in range(n_apply)] for k, d in inp.items()}
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    for d in inp.values():
+        expect["K10" if d["cl"] else "K9"] += n_apply
+    errs = {}
+    for k, d in inp.items():
+        twin = OPERATORS["K10" if d["cl"] else "K9"][1]
+        ref = complex_of(twin(d["ur"], d["ui"], d["p4"][True], MASS, True),
+                         d["cl"])
+        errs[k] = max(float((o - ref).abs().max()) for o in out[k])
+        require(errs[k] <= 1e-6 * float(ref.abs().max()),
+                f"fused_mdagm {k}: {errs[k]}")
+    r = {"applications": n_apply, "launches": launches, "expected": expect,
+         "plain_calls": plain, "max_abs_err": errs}
+    say("operator_path", **r)
+    require(launches == expect, f"operator path launches {launches}")
+    require(not any(plain.values()), "operator path: plain twins ran")
+    return r
 
 
 def fermion_plan_sweep(inp, n_sm: int) -> dict:
@@ -945,12 +999,6 @@ def fermion_plan_sweep(inp, n_sm: int) -> dict:
     return out
 
 
-def _solve_launches(log: tf.CGLog) -> int:
-    """Operator launches of a run's CG solves: the iterations launched plus
-    one initial residual a solve."""
-    return log.launched() + log.count()
-
-
 def _blocked(t: torch.Tensor) -> tuple[float, float]:
     """Mean and blocked standard error (10 blocks) of per-trajectory values
     (ntraj, B)."""
@@ -992,11 +1040,10 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
     t_run = time.perf_counter() - t0
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
     n_force = 2 * cfg.nstep * cfg.ntraj           # Omelyan, unmerged kicks
-    op = "K10" if fk.resolve_layout(cfg.cg_layout, cfg.L, cfg.L) == "cl" \
-        else "K9"
+    layout = fk.resolve_layout(cfg.cg_layout, cfg.L, cfg.L)
+    # one K11 launch a solve: the CG launches no operator of its own
     expect = dict.fromkeys(_build.KERNELS, 0)
-    expect.update({"K1": n_force, op: _solve_launches(log),
-                   "K11": log.launched()})
+    expect.update({"K1": n_force, "K11": log.count()})
     if params is not None:
         n_layers = len(params)
         expect.update({"K6": n_layers * (2 * cfg.ntraj + 1),
@@ -1015,7 +1062,7 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
         dh > 0, torch.exp(-dh) - torch.exp(-2 * dh), torch.exp(dh) - 1))
     r = {"path": name, "L": cfg.L, "chains": cfg.n_chains, "beta": cfg.beta,
          "mass": cfg.mass, "tau": cfg.tau, "nstep": cfg.nstep,
-         "layout": op, "ft": params is not None, "therm": therm,
+         "layout": layout, "ft": params is not None, "therm": therm,
          "measured": meas, "acceptance": float(hist.acc[sl].mean()),
          "exp_mdh": float(hist.exp_mdh[sl].mean()),
          "exp_mdh_stderr_blocked": float(emdh.reshape(10, -1).mean(dim=1)
@@ -1029,7 +1076,7 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
          "plaq_excess_by_block": blocks.tolist(),
          "plaq_first_traj": float(hist.plaq[0].mean()),
          "cg_iters_mean": {k: log.mean_iters(k) for k in ("force", "mh")},
-         "cg_solves": log.count(), "cg_iterations_launched": log.launched(),
+         "cg_solves": log.count(), "cg_iterations": log.launched(),
          "run_s": t_run, "s_per_traj": t_run / cfg.ntraj,
          "chain_steps_per_s": cfg.n_chains * cfg.nstep * cfg.ntraj / t_run,
          "launches": launches, "expected": expect, "plain_calls": plain}
@@ -1056,15 +1103,13 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
 
 def fermion_timings(dev, inp) -> dict:
     """Times (ms) of K9 at paths A's and C's shapes and K10 at path B's
-    (``operator_by_shape``, each beside its bound), K11 at A's and B's, and
-    one CG iteration (operator and update) at A and B: the card's
-    (graph_ms of launches bound as the CG's loop binds them) and, as PRs
-    3-4 timed them, CUDA events over back-to-back bound launches
-    (``event_ms``, host-paced where a launch is shorter than the host's
-    ctypes call); their twins; and K9 against K10 at L in LAYOUT_RULE_L,
-    LAYOUT_RULE_B chains, the card's times in turns (K9, K10, K10, K9),
-    which set the 'auto' layout rule. ``kernel_ms`` holds K9 at A and K10
-    at B."""
+    (``operator_by_shape``, each beside its bound): the card's (graph_ms of
+    bound launches) and, as the first ports timed them, CUDA events over
+    back-to-back bound launches (``event_ms``, host-paced where a launch is
+    shorter than the host's ctypes call); their twins; and K9 against K10
+    at L in LAYOUT_RULE_L, LAYOUT_RULE_B chains, the card's times in turns
+    (K9, K10, K10, K9), which set the 'auto' layout rule. ``kernel_ms``
+    holds K9 at A and K10 at B."""
     out = {"kernel_ms": {}, "plain_ms": {}, "operator_by_shape": {}}
     for key, d in inp.items():
         B, n, _ = FERMION_SHAPES[key]
@@ -1086,25 +1131,6 @@ def fermion_timings(dev, inp) -> dict:
             continue
         out["kernel_ms"][k] = row["kernel_ms"]
         out["plain_ms"][k] = row["plain_ms"]
-        p, mp, x, r, rsq, stop = _update_inputs(d)
-        stop = torch.full_like(stop, math.inf)    # keep the values fixed
-        c = torch.zeros(2, dtype=torch.int32, device=dev)
-
-        def make_upd(p=p, mp=mp, x=x, r=r, rsq=rsq, stop=stop, c=c, d=d):
-            upd = fk.update_launch(p, mp, x, r, rsq, stop, c, d["cl"])
-            return lambda: upd(0)
-
-        def make_it(p=p, mp=mp, d=d, make_upd=make_upd):
-            op = fk.operator_launch(d["cl"], d["ur"], d["ui"], p, MASS, True,
-                                    mp, None)[0]
-            upd = make_upd()
-            return lambda: (op(), upd())
-        out[f"K11_{key}"] = {
-            "kernel_ms": graph_ms(make_upd), "event_ms": cuda_ms(make_upd()),
-            "plain_ms": cuda_ms(lambda: fk.cg_update_plain(
-                p, mp, x, r, rsq, stop, c, 0, d["cl"]), reps=3),
-            "cg_iteration_ms": graph_ms(make_it),
-            "cg_iteration_event_ms": cuda_ms(make_it())}
     g = torch.Generator(device=dev).manual_seed(6)
     rule = {}
     for n in LAYOUT_RULE_L:
@@ -1129,25 +1155,110 @@ def fermion_timings(dev, inp) -> dict:
     return out
 
 
-def fermion_bounds(B: int, L: int) -> dict:
+def _k11_planes(x, eo: bool, cl: bool, seed: int = 3):
+    """Link planes and a heatbath phi's planes of links x in a layout."""
+    phi, _ = tf.pf_refresh(torch.Generator(device=x.device).manual_seed(seed),
+                           x, MASS, eo=eo)
+    ur, ui = fk.link_planes(x)
+    b4 = fk.pack_spinor(phi).contiguous()
+    if cl:
+        ur, ui, b4 = _cl(ur), _cl(ui), _cl(b4)
+    return phi, (ur, ui, b4)
+
+
+def _k11_maker(planes, cl: bool, maxiter: int, plan=None):
+    """(make, x): make() binds K11's launch of a cold eo solve of tol 0
+    (every iteration up to maxiter runs) into x."""
+    ur, ui, b4 = planes
+    B = b4.shape[-1] if cl else b4.shape[0]
+    x = torch.empty_like(b4)
+    rel = torch.empty(B, device=b4.device)
+    counters = torch.zeros(3, dtype=torch.int32, device=b4.device)
+
+    def make():
+        return fk.cg_launch(cl, ur, ui, b4, None, MASS, True, 0.0, maxiter,
+                            x, rel, counters, None, plan)
+    return make, x
+
+
+def k11_timings(dev, inp) -> dict:
+    """K11 at paths A's, B's and C's shapes, eo, cold: the card's ms of a
+    solve of K11_TIMED_ITERS iterations (tol 0) and of its set-up alone
+    (maxiter 0) by graph_ms, events over back-to-back launches beside, the
+    ms an iteration (their difference over the iterations) beside the
+    host-loop CG's iteration, the twin's solve, the bound; and every plan
+    (C = 1, 2, 4, 8 bands of >= 2 rows) by graph_ms, each plan's x held
+    against the twin's within 1e-3 relative first (the "cg_plans" line)."""
+    n = K11_TIMED_ITERS
+    out, sweep = {}, {}
+    for key, d in inp.items():
+        B, L, cl = FERMION_SHAPES[key]
+        phi, planes = _k11_planes(d["x"], True, cl)
+        layout = "cl" if cl else "cf"
+        twin = fk.cg_solve_fused_plain(d["x"], phi, MASS, tol=0.0,
+                                       maxiter=n, eo=True, layout=layout)
+        ref = fk.pack_spinor(twin.x)
+        ref = _cl(ref) if cl else ref.contiguous()
+        make, _ = _k11_maker(planes, cl, n)
+        make0, _ = _k11_maker(planes, cl, 0)
+        solve, setup = graph_ms(make, reps=5), graph_ms(make0, reps=5)
+        out[key] = {
+            "chains": B, "L": L, "layout": layout,
+            "plan": list(fk.cg_plan(True, B, L, L, dev)[:3]),
+            "iterations": n, "solve_ms": solve, "setup_ms": setup,
+            "iteration_ms": (solve - setup) / n,
+            "host_loop_iteration_ms": HOST_LOOP_ITERATION_MS.get(key),
+            "solve_event_ms": cuda_ms(make(), reps=5),
+            "plain_ms": cuda_ms(lambda: fk.cg_solve_fused_plain(
+                d["x"], phi, MASS, tol=0.0, maxiter=n, eo=True,
+                layout=layout), reps=1, repeats=3),
+            **fermion_bounds(B, L, n)["K11"]}
+        row = {}
+        for C in (1, 2, 4, 8):
+            if L // C < 2:
+                continue
+            plan = (C, tuple(r * L // C for r in range(C + 1)))
+            mk, got = _k11_maker(planes, cl, n, plan)
+            mk()()
+            torch.cuda.synchronize()
+            err = _rel(got, ref)
+            require(err <= 1e-3, f"K11 {key} plan {plan}: {err}")
+            pl = fk.cg_plan(True, B, L, L, dev, plan)
+            row[str(C)] = {"solve_ms": graph_ms(mk, reps=5),
+                           "scratch": pl.scratch > 0, "threads": pl.threads,
+                           "rel_vs_twin": err}
+        sweep[key] = row
+    return {"by_path": out, "cg_plans": sweep}
+
+
+def fermion_bounds(B: int, L: int, iters: int = 0) -> dict:
     """Least time of K9/K10 (one operator: p and four link planes read,
     four planes written, 112 flops a site: each of the four eo hop passes
-    runs 44 on half the sites, each combine 12 on all) and K11 (p, Mp, x, r
-    read, x, r, p written; 10 flops an element) for B chains of L^2."""
+    runs 44 on half the sites, each combine 12 on all) and K11 (a cold eo
+    solve of ``iters`` iterations: b and four link planes read, x written
+    once; an iteration 120 flops a site, four hop passes of 44 and two
+    combines of 12 on half the sites and the update's 40, 10 an element of
+    the even half: <p, Mp>, x, r, <r, r>, p, 2 each) for B chains of
+    L^2."""
     sites = B * L * L
     op = _bound(12 * 4 * sites, 112 * sites)
-    return {"K9": op, "K10": op, "K11": _bound(7 * 4 * 4 * sites,
-                                                10 * 4 * sites)}
+    return {"K9": op, "K10": op,
+            "K11": _bound(12 * 4 * sites + 4 * B, 120 * iters * sites)}
 
 
-def path_a_busy(dev, x, s_per_traj: float) -> dict:
-    """profile_busy of two trajectories of path A from x against path A's
-    own s/trajectory."""
-    cfg = dataclasses.replace(DYN["A"], ntraj=2)
+def path_busy(name: str, dev, x, s_per_traj: float, params=None,
+              spec=None) -> dict:
+    """profile_busy of two trajectories of path ``name`` from x (z0 with
+    the flow) against the path's own s/trajectory."""
+    cfg = dataclasses.replace(DYN[name], ntraj=2)
     gen = torch.Generator(device=dev).manual_seed(43)
-    return profile_busy(lambda: run_hmc_dyn(cfg, x0=x, generator=gen,
-                                            device=dev), cfg.ntraj,
-                        s_per_traj)
+    if params is None:
+        run = lambda: run_hmc_dyn(cfg, x0=x, generator=gen,  # noqa: E731
+                                  device=dev)
+    else:
+        run = lambda: run_fthmc_dyn(params, spec, cfg, z0=x,  # noqa: E731
+                                    generator=gen, device=dev)
+    return profile_busy(run, cfg.ntraj, s_per_traj)
 
 
 def main() -> None:
@@ -1267,8 +1378,21 @@ def main() -> None:
     # 7. timings
     layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(TIMED_LAYER)
     _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
+    # K1 at the FT shape and at path A's: the card's time (graph_ms; at
+    # 16^2 events over back-to-back calls time the host's ctypes call) and
+    # events beside, each with its bound (2 fields moved, 8 flops a site)
+    xa = near_equilibrium(torch.Generator(device=dev).manual_seed(53), 64,
+                          64, BETA, dev)
+    k1_by_shape = {}
+    for name, xs in (("FT", x), ("A", xa)):
+        sites = xs.shape[0] * xs.shape[2] * xs.shape[3]
+        k1_by_shape[name] = {
+            "chains": xs.shape[0], "L": xs.shape[2],
+            "graph_ms": graph_ms(lambda xs=xs: lambda: force(xs, BETA)),
+            "event_ms": cuda_ms(lambda xs=xs: force(xs, BETA)),
+            **_bound(2 * 4 * 2 * sites, 8 * sites)}
     with full_fp32():
-        ms = {"K1": cuda_ms(lambda: force(x, BETA)),
+        ms = {"K1": k1_by_shape["FT"]["graph_ms"],
               **coupling_card_ms(layer, spec, x, gy, gl, mu, off)}
         wrapper_ms = coupling_wrapper_ms(layer, spec, x, gy, gl, mu, off)
         plain_ms = {
@@ -1320,7 +1444,7 @@ def main() -> None:
                                 sm_count(torch.cuda.current_device()))
     say("band_plans", layer=TIMED_LAYER, kernel_ms_by_plan=plans)
     say("timing", kernel_ms=ms, kernel_wrapper_ms=wrapper_ms,
-        plain_ms=plain_ms,
+        plain_ms=plain_ms, k1_by_shape=k1_by_shape,
         ft_force_kernel_ms=force_kernel_ms,
         ft_force_kernel_host_ms=force_host_ms,
         ft_force_host_us_per_launch=force_host_ms * 1e3 / (
@@ -1367,6 +1491,9 @@ def main() -> None:
     errs.update(e_f)
     tols.update(t_f)
     say("compare_fermion", max_abs_err=e_f, tolerance=t_f, details=info_f)
+    errs["K11"], tols["K11"], k11_cases = compare_k11(dev)
+    say("compare_k11", max_abs_err=errs["K11"], tolerance=tols["K11"],
+        shapes=K11_SHAPES, cases=k11_cases)
     say("fermion_band_plans", eo=True, kernel_ms_by_plan=fermion_plan_sweep(
         inp, sm_count(torch.cuda.current_device())))
     dyn = {"A": dyn_path("A", dev, near_equilibrium(
@@ -1378,22 +1505,33 @@ def main() -> None:
     zc, _ = flow_reverse(params, torch.zeros((128, 2, 16, 16), device=dev),
                          spec)
     dyn["C"] = dyn_path("C", dev, zc, params, spec)
-    launches.update({"K9": dyn["A"]["launches"]["K9"],
-                     "K10": dyn["B"]["launches"]["K10"],
+    # the sampling paths launch no K9 or K10 (their CG is K11 alone): the
+    # operator's own entry point is the path that does
+    ops = operator_path(inp)
+    launches.update({"K9": ops["launches"]["K9"],
+                     "K10": ops["launches"]["K10"],
                      "K11": dyn["A"]["launches"]["K11"]})
     ft = fermion_timings(dev, inp)
     ms.update(ft["kernel_ms"])
     plain_ms.update(ft["plain_ms"])
     for t in ft["k9_vs_k10_ms_by_L"].values():
         t["rule_agrees"] = (t["K9"] <= t["K10"]) == (t["auto"] == "cf")
-    ms["K11"], plain_ms["K11"] = (ft["K11_A"]["kernel_ms"],
-                                  ft["K11_A"]["plain_ms"])
-    say("timing_fermion", **ft,
+    kt = k11_timings(dev, inp)
+    ms["K11"] = kt["by_path"]["A"]["solve_ms"]
+    plain_ms["K11"] = kt["by_path"]["A"]["plain_ms"]
+    say("cg_plans", eo=True, iterations=K11_TIMED_ITERS,
+        solve_ms_by_plan=kt["cg_plans"])
+    busy = {k: path_busy(k, dev, x0, dyn[k]["s_per_traj"], *fl)
+            for k, x0, fl in (("A", inp["A"]["x"], ()),
+                              ("B", inp["B"]["x"], ()),
+                              ("C", zc, (params, spec)))}
+    say("timing_fermion", **ft, k11_by_path=kt["by_path"],
         s_per_traj={k: r["s_per_traj"] for k, r in dyn.items()},
         chain_steps_per_s={k: r["chain_steps_per_s"] for k, r in dyn.items()},
         cg_iters_mean={k: r["cg_iters_mean"] for k, r in dyn.items()},
-        path_a_device_busy=path_a_busy(dev, inp["A"]["x"],
-                                       dyn["A"]["s_per_traj"]))
+        cg_solves_per_traj={k: r["cg_solves"] / (r["therm"] + r["measured"])
+                            for k, r in dyn.items()},
+        device_busy=busy)
 
     # 9. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
@@ -1402,7 +1540,8 @@ def main() -> None:
     tb_3 = traj_bounds(hc.n_chains, CL_L, hc.nstep)
     bnd.update({"K2": tb_h["K2"], "K3": tb_3["K3"], "K4": tb_h["K4"],
                 "K5": tb_h["K5"]})
-    fb_a, fb_b = fermion_bounds(64, 64), fermion_bounds(128, 16)
+    fb_a, fb_b = (fermion_bounds(64, 64, K11_TIMED_ITERS),
+                  fermion_bounds(128, 16))
     bnd.update({"K9": fb_a["K9"], "K10": fb_b["K10"], "K11": fb_a["K11"]})
     say("bounds", layer=TIMED_LAYER, mu=mu, off=off,
         flops={k: v["flops"] for k, v in bnd.items()},

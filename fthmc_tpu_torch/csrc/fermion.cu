@@ -1,15 +1,14 @@
 // K9, K10 and K11: the Wilson-Dirac normal operator on packed real planes
-// and the CG iteration's vector update.
+// and the whole CG solve built on it.
 //
 // K9 replaces fthmc_tpu/ops/pallas_fermion.py::_mdagm_kernel (_mdagm_call,
 // pallas_mdagm layout 'cf'): chains-first planes p (B, 4, L0, L1)
 // [Re s0, Im s0, Re s1, Im s1], links ur, ui (B, 2, L0, L1) with the
 // antiperiodic time sign folded in. K10 replaces _mdagm_cl_kernel
 // (_mdagm_call_cl): chains-last planes (4, L0, L1, B), links (2, L0, L1, B).
-// K11 replaces the body of cg_solve_fused's while_loop: one block a chain,
-// both reductions a fixed-order tree inside the block (deterministic, one
-// launch an iteration), element e of chain c at e * stride_e + c *
-// stride_c, so it serves both layouts.
+// K11 replaces cg_solve_fused (pallas_fermion.py:321-416), its
+// while_loop included: one launch a solve, in either layout (cg_kernel,
+// below the operator).
 //
 // Operator (fthmc_tpu_torch/ops/fermion_kernels.py, normal_op_planes):
 //   eo:  Dhat s = a s - b even * H(odd * H s),  a = m + 2, b = 1 / (4 a)
@@ -47,23 +46,52 @@
 // over the card's opt-in limit) the same layout lives in a device scratch
 // the wrapper allocates.
 //
+// K11 is the same operator inside the CG loop, on the card from start to
+// end. A group of work is one chain, split into C bands of rows, a CTA
+// each, in a thread-block cluster when C > 1. The chain's links, b and x0
+// are read once and x written once (chains-last, one float of a 32-byte
+// sector a load: on the H100 that cost less than tiles of 8 chains, which
+// left SMs idle at 128 chains; PERF.md); everything else stays in the band:
+// p and the operator's intermediates in shared memory, checkerboard-compact
+// (two parities apart, eo keeping only the even sites, where its vectors
+// live: at 64^2 one CTA holds a chain in 224 KB), x, r and M p beside them,
+// each chain's scalars in registers. One band (C = 1) wraps its rows around
+// the lattice and needs nothing of another CTA; in a cluster each
+// iteration copies p's four halo rows a side from the neighbour bands
+// through distributed shared memory after a cluster barrier, and the
+// passes recompute the halo as K9's do. Where no plan of up to 8 bands
+// fits in shared memory, the same region lives in a device scratch, its
+// halo rows read past L1 after the cluster barriers (release / acquire).
+// The two sums of an iteration are deterministic: a butterfly in the warp,
+// the warps in order, the cluster's ranks in order. M p repeats K9's
+// arithmetic op for op (hop_site and combine), the update
+// cg_update_plain's.
+//
 // Bounds: K9 and K10 must read p and four link planes and write four
 // planes, 48 bytes a site a chain (12.6 MB at 64^2, B=64: 3.8 us at
 // 3.35 TB/s); their arithmetic is 112 flops a site (each eo hop pass 44
-// on half the sites, each combine 12 on all), 0.44 us at 67 TFLOP/s. K11
-// reads p, Mp, x, r and writes x, r, p, 112 bytes a site a chain (29.4 MB,
-// 8.8 us). All three are bound by bytes; what the design does about it is
-// to read every input once into the chip (K9, K10: up to the halo rows),
-// keep the intermediates there, fill the card's SMs in one wave with bands
-// (K9, K10), and make every global access coalesced (K9, K10, K11).
+// on half the sites, each combine 12 on all), 0.44 us at 67 TFLOP/s. Both
+// are bound by bytes; what the design does about it is to read every
+// input once into the chip (up to the halo rows), keep the intermediates
+// there, fill the card's SMs in one wave with bands, and make every global
+// access coalesced. K11 moves 64 bytes a site a chain once a solve (links,
+// b, x0 in, x out) and does, an iteration, 120 flops a site eo (four hop
+// passes of 44 and two combines of 12 on half the sites, and the update's
+// 40 on the even half) or 152 not eo: at 64^2, 64 chains, 40 iterations
+// 5.0 us of bytes against 18.8 us of arithmetic, so it is bound by
+// operations, and by the latency of its barriers (six an eo iteration in
+// one CTA) at small L.
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int OP_THREADS = 256;
-constexpr int K11_THREADS = 1024;
 
 enum PassKind { HOP = 0, COMBINE = 1, SCALE = 2 };
 
@@ -77,27 +105,29 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
-// h = (H s) at one site: s the source planes (plane stride ps), U the links
-// ur0, ui0, ur1, ui1 (plane stride us); f0, b0, f1, b1 the offsets in a
-// plane of the site's neighbours n + e0, n - e0, n + e1, n - e1, self its
-// own (the links share the planes' offsets). The four hop directions in
+// h = (H s) at one site: s the source planes (plane stride ps); Us and Un
+// the links ur0, ui0, ur1, ui1 (plane stride us) read at the site and at
+// its neighbours (one array for K9 and K10; K11 keeps the two parities of
+// a checkerboard apart); f0, b0, f1, b1 the offsets in a plane of the
+// site's neighbours n + e0, n - e0, n + e1, n - e1, self its own (the
+// links share the planes' offsets). The four hop directions in
 // hop_planes' order.
 __device__ __forceinline__ void hop_site(const float* s, int ps,
-                                         const float* U, int us, int self,
-                                         int f0, int b0, int f1, int b1,
-                                         float h[4]) {
+                                         const float* Us, const float* Un,
+                                         int us, int self, int f0, int b0,
+                                         int f1, int b1, float h[4]) {
   // forward 0: u0(n) psi(n + e0), (d, -d), d = t0 - t1
   float dr = sub(s[f0], s[2 * ps + f0]);
   float di = sub(s[ps + f0], s[3 * ps + f0]);
-  float u_r = U[self], u_i = U[us + self];
+  float u_r = Us[self], u_i = Us[us + self];
   float mr = sub(mul(u_r, dr), mul(u_i, di));
   float mi = add(mul(u_r, di), mul(u_i, dr));
   float h0r = mr, h0i = mi, h1r = -mr, h1i = -mi;
   // backward 0: conj(u0(n - e0)) psi(n - e0), (e, e), e = s0 + s1
   dr = add(s[b0], s[2 * ps + b0]);
   di = add(s[ps + b0], s[3 * ps + b0]);
-  u_r = U[b0];
-  u_i = U[us + b0];
+  u_r = Un[b0];
+  u_i = Un[us + b0];
   mr = add(mul(u_r, dr), mul(u_i, di));
   mi = sub(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -107,8 +137,8 @@ __device__ __forceinline__ void hop_site(const float* s, int ps,
   // forward 1: u1(n) psi(n + e1), (w, -i w), w = t0 + i t1
   dr = sub(s[f1], s[3 * ps + f1]);
   di = add(s[ps + f1], s[2 * ps + f1]);
-  u_r = U[2 * us + self];
-  u_i = U[3 * us + self];
+  u_r = Us[2 * us + self];
+  u_i = Us[3 * us + self];
   mr = sub(mul(u_r, dr), mul(u_i, di));
   mi = add(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -118,8 +148,8 @@ __device__ __forceinline__ void hop_site(const float* s, int ps,
   // backward 1: conj(u1(n - e1)) psi(n - e1), (v, i v), v = s0 - i s1
   dr = add(s[b1], s[3 * ps + b1]);
   di = sub(s[ps + b1], s[2 * ps + b1]);
-  u_r = U[2 * us + b1];
-  u_i = U[3 * us + b1];
+  u_r = Un[2 * us + b1];
+  u_i = Un[3 * us + b1];
   mr = add(mul(u_r, dr), mul(u_i, di));
   mi = sub(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -130,6 +160,14 @@ __device__ __forceinline__ void hop_site(const float* s, int ps,
   h[1] = h0i;
   h[2] = h1r;
   h[3] = h1i;
+}
+
+// Plane k of g5(a s - c h) at one site (g5 negates planes 2 and 3): the
+// combine of both operators, as normal_op_planes forms it.
+__device__ __forceinline__ float combine(int k, float a, float s, float c,
+                                         float h) {
+  const float v = sub(mul(a, s), mul(c, h));
+  return k < 2 ? v : -v;
 }
 
 // Halo rows a side of a band: the eo operator's four hop passes each
@@ -399,17 +437,18 @@ __device__ void op_pass(const OpLayout& ly, const Band& bd, int par,
     if (KIND != SCALE) {
       const int jp = (j + 1 == ly.L1) ? 0 : j + 1;
       const int jm = (j == 0 ? ly.L1 : j) - 1;
-      hop_site(src, ly.ps, U, ly.us, at, at + ly.rs, at - ly.rs,
+      hop_site(src, ly.ps, U, U, ly.us, at, at + ly.rs, at - ly.rs,
                row + jp * ly.TC + t, row + jm * ly.TC + t, h);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (KIND == HOP) {
         dst[at + k * ly.ps] = h[k];
+      } else if (KIND == COMBINE) {
+        dst[at + k * ly.ps] = combine(k, a, self[at + k * ly.ps], c, h[k]);
       } else {
         const float as = mul(a, self[at + k * ly.ps]);
-        const float v = KIND == COMBINE ? sub(as, mul(c, h[k])) : as;
-        dst[at + k * ly.ps] = k < 2 ? v : -v;  // g5
+        dst[at + k * ly.ps] = k < 2 ? as : -as;  // g5
       }
     }
   }
@@ -481,59 +520,438 @@ __global__ void __launch_bounds__(OP_THREADS)
     store_rows<CL, 1>(A, bd, S);
 }
 
-// Sum over the block, in a fixed order; every thread gets it.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[32] = v;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
+// ---------------------------------------------------------------------------
+// K11: the whole CG solve, one launch
+// ---------------------------------------------------------------------------
+
+constexpr int CG_MAX_THREADS = 1024;
+
+// Four planes in a CTA's region, checkerboard-compact: element (plane k,
+// parity par, set row b, half-column h) at off + k ks + par ps + b rs + h
+// holds site (row, 2 h + ((row + par) & 1)). A set of
+// one parity (eo: the even sites) has ps 0; row0 is the band row of the
+// set's row 0 (the own-row sets start at the first own row).
+struct CgSet {
+  int off, ks, ps, row0;
+};
+
+// A CTA's region: a band of NR = R + 2 H rows, R the plan's largest band
+// and H = HALO halo rows a side in a cluster (none where one CTA holds the
+// lattice: rows wrap around the band). U the links [ur0, ui0, ur1, ui1],
+// both parities; P the search direction; Q the operator's intermediates
+// (eo: T on the odd sites, S and then M p on the even; not eo: T); M the
+// result M p (eo: Q itself, not eo: own rows); X the solution and Rr the
+// residual (own rows). eo keeps only the even sites of P, X and Rr, where
+// the solve's vectors live. The reduction area follows the region in
+// shared memory (the region itself may be device scratch): two slots of 32
+// warp sums, two of the CTA's sums, the halo table.
+struct CgLayout {
+  int L0, L1, W;      // sides, W = L1 / 2
+  int H, R, NR;       // halo rows a side, largest band, band rows
+  int rs;             // row stride, W
+  CgSet U, P, Q, M, X, Rr;
+  int total;          // floats of a band region
+  int red;            // floats of the reduction area
+};
+
+__host__ __device__ inline CgSet cg_set(int* off, int halves, int rows,
+                                        int rs, int row0) {
+  CgSet s;
+  const int span = rows * rs;
+  s.off = *off;
+  s.ps = halves == 2 ? span : 0;
+  s.ks = halves * span;
+  s.row0 = row0;
+  *off += 4 * s.ks;
+  return s;
 }
 
-__global__ void __launch_bounds__(K11_THREADS)
-    k11_kernel(float* p, const float* __restrict__ mp, float* x, float* r,
-               float* rsq, const float* __restrict__ stop, int* counters,
-               int n_elem, long long stride_e, long long stride_c, int it) {
-  __shared__ float red[33];
-  const int c = blockIdx.x;
-  const long long base = c * stride_c;
-  const float rs = rsq[c], st = stop[c];
-  const bool active = rs > st;
-  float acc = 0.f;
-  for (int e = threadIdx.x; e < n_elem; e += blockDim.x) {
-    const long long g = base + e * stride_e;
-    acc = add(acc, mul(p[g], mp[g]));
+__host__ __device__ inline CgLayout cg_layout(int L0, int L1, int C, int R,
+                                              int eo) {
+  CgLayout l;
+  l.L0 = L0;
+  l.L1 = L1;
+  l.W = L1 / 2;
+  l.H = C > 1 ? HALO : 0;
+  l.R = R;
+  l.NR = R + 2 * l.H;
+  l.rs = l.W;
+  const int halves = eo ? 1 : 2;
+  int off = 0;
+  l.U = cg_set(&off, 2, l.NR, l.rs, 0);
+  l.P = cg_set(&off, halves, l.NR, l.rs, 0);
+  l.Q = cg_set(&off, 2, l.NR, l.rs, 0);
+  l.M = eo ? l.Q : cg_set(&off, 2, R, l.rs, l.H);
+  l.X = cg_set(&off, halves, R, l.rs, l.H);
+  l.Rr = cg_set(&off, halves, R, l.rs, l.H);
+  l.total = off;
+  l.red = 2 * 32 + 2 + 4 * HALO;
+  return l;
+}
+
+struct CgArgs {
+  const float* ur;  // links (B, 2, L0, L1), or (2, L0, L1, B) chains-last
+  const float* ui;
+  const float* b;   // right-hand side (B, 4, L0, L1), or (4, L0, L1, B)
+  const float* x0;  // start, b's shape, or null (zero)
+  float* x;         // the solution, b's shape
+  float* rel;       // (B,) final |r|^2 / max(|b|^2, 1e-30)
+  int* counters;    // int32 (3,), see k11_cg_solve
+  float* scratch;   // null: the bands in shared memory
+  int B;
+  float a, bq, tol;  // a = m + 2, bq = 1 / (4 a)
+  int maxiter;
+  Bands bands;
+  CgLayout ly;
+};
+
+// What a CTA knows of its group and band.
+struct CgBand {
+  int C, rank, group;  // group: the chain
+  int r0, R;     // first own row (global), own rows
+  float* base;   // the band region (shared memory or scratch)
+  float* red;    // the reduction area (shared memory)
+};
+
+__device__ __forceinline__ float* cg_at(float* base, const CgSet& s,
+                                        int par) {
+  return base + s.off + par * s.ps;
+}
+
+template <bool CL>
+__device__ __forceinline__ size_t cg_gidx(int planes, int k, int i, int j,
+                                          int c, int B, int L0, int L1) {
+  if constexpr (CL)
+    return ((static_cast<size_t>(k) * L0 + i) * L1 + j) *
+               static_cast<size_t>(B) + c;
+  else
+    return ((static_cast<size_t>(c) * planes + k) * L0 + i) * L1 + j;
+}
+
+// Element e of a walk over (plane k, row rr of nr, column j), columns
+// fastest.
+__device__ __forceinline__ void cg_decode(int e, int nr, const CgLayout& ly,
+                                          int& k, int& rr, int& j) {
+  j = e % ly.L1;
+  const int q = e / ly.L1;
+  rr = q % nr;
+  k = q / nr;
+}
+
+// Reads global rows g_lo .. g_lo + nr - 1 (wrapped) of four planes into
+// set s from its row s_lo: a spinor (src1 null: planes 0-3 of src0) or
+// the links (plane k from ur = src0 for even k, ui = src1 for odd, of
+// direction k / 2). A set of one parity keeps the even sites, and an odd
+// site that is not zero sets *odd (the compact storage would drop it).
+template <bool CL>
+__device__ void cg_load(const CgArgs& A, const CgBand& bd, const float* src0,
+                        const float* src1, const CgSet& s, int s_lo,
+                        int g_lo, int nr, bool* odd) {
+  const CgLayout& ly = A.ly;
+  const int n = 4 * nr * ly.L1;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    int k, rr, j;
+    cg_decode(e, nr, ly, k, rr, j);
+    int i = (g_lo + rr) % ly.L0;
+    if (i < 0) i += ly.L0;
+    const float v =
+        src1 == nullptr
+            ? __ldg(src0 + cg_gidx<CL>(4, k, i, j, bd.group, A.B, ly.L0,
+                                       ly.L1))
+            : __ldg((k & 1 ? src1 : src0) + cg_gidx<CL>(2, k >> 1, i, j,
+                                                        bd.group, A.B, ly.L0,
+                                                        ly.L1));
+    const int par = (i + j) & 1;
+    if (par && s.ps == 0) {
+      if (v != 0.f) *odd = true;  // NaN too
+      continue;
+    }
+    cg_at(bd.base, s, par)[k * s.ks + (s_lo + rr) * ly.rs + (j >> 1)] = v;
   }
-  const float denom = block_sum(acc, red);
-  const float alpha = active ? rs / fmaxf(denom, 1e-30f) : 0.f;
-  acc = 0.f;
-  for (int e = threadIdx.x; e < n_elem; e += blockDim.x) {
-    const long long g = base + e * stride_e;
-    const float pv = p[g];
-    x[g] = add(x[g], mul(alpha, pv));
-    const float rv = sub(r[g], mul(alpha, mp[g]));
-    r[g] = rv;
-    acc = add(acc, mul(rv, rv));
+}
+
+// Writes the own rows of X to x (eo: zeros on the odd sites).
+template <bool CL>
+__device__ void cg_store(const CgArgs& A, const CgBand& bd) {
+  const CgLayout& ly = A.ly;
+  const int n = 4 * bd.R * ly.L1;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    int k, rr, j;
+    cg_decode(e, bd.R, ly, k, rr, j);
+    const int i = bd.r0 + rr, par = (i + j) & 1;
+    float v = 0.f;
+    if (!par || ly.X.ps)
+      v = cg_at(bd.base, ly.X, par)[k * ly.X.ks + rr * ly.rs + (j >> 1)];
+    A.x[cg_gidx<CL>(4, k, i, j, bd.group, A.B, ly.L0, ly.L1)] = v;
   }
-  const float rsq_new = block_sum(acc, red);
-  const float beta = active ? rsq_new / fmaxf(rs, 1e-30f) : 0.f;
-  for (int e = threadIdx.x; e < n_elem; e += blockDim.x) {
-    const long long g = base + e * stride_e;
-    p[g] = add(r[g], mul(beta, p[g]));
+}
+
+// One pass over the sites of parity tp (by global row) of band rows [lo,
+// lo + n): HOP dst = H(src), COMBINE dst =
+// g5(a self - c H(src)), op_pass's arithmetic on checkerboard-compact
+// sets (src read at the other parity). Row neighbours wrap around the band
+// where it holds the lattice (H = 0). DOT: also adds p dst over the
+// thread's sites to acc (p the P set), in the order the update sweeps
+// visit them.
+template <int KIND, bool DOT>
+__device__ void cg_pass(const CgLayout& ly, const CgBand& bd, int tp, int lo,
+                        int n, const CgSet& src, const CgSet& self,
+                        const CgSet& dst, float a, float c, float& acc) {
+  const float* S = cg_at(bd.base, src, 1 - tp);
+  const float* Us = cg_at(bd.base, ly.U, tp);
+  const float* Un = cg_at(bd.base, ly.U, 1 - tp);
+  const float* F = cg_at(bd.base, self, tp);
+  float* D = cg_at(bd.base, dst, tp);
+  const float* Pp = cg_at(bd.base, ly.P, tp);
+  const int W = ly.W, rs = ly.rs;
+  const int fo = self.row0 * rs, dof = dst.row0 * rs;
+  for (Walk it(n, W, threadIdx.x, blockDim.x); it.q < 1; it.next()) {
+    const int b = lo + it.r, h = it.c;
+    const int q = (bd.r0 - ly.H + b + tp) & 1;  // the site's column 2 h + q
+    int up = b + 1, dn = b - 1;
+    if (ly.H == 0) {
+      if (up == ly.NR) up = 0;
+      if (dn < 0) dn = ly.NR - 1;
+    }
+    int hf = h + q, hb = h + q - 1;  // columns 2 h + q + 1 and 2 h + q - 1
+    if (hf == W) hf = 0;
+    if (hb < 0) hb = W - 1;
+    const int at = b * rs + it.c;
+    float hv[4];
+    hop_site(S, src.ks, Us, Un, ly.U.ks, at, up * rs + it.c, dn * rs + it.c,
+             b * rs + hf, b * rs + hb, hv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = KIND == HOP
+                          ? hv[k]
+                          : combine(k, a, F[at - fo + k * self.ks], c, hv[k]);
+      D[at - dof + k * dst.ks] = v;
+      if (DOT) acc = add(acc, mul(Pp[at + k * ly.P.ks], v));
+    }
   }
-  if (threadIdx.x == 0) {
-    rsq[c] = active ? rsq_new : rs;
-    if (active) atomicMax(counters, it + 1);
-    if (active && rsq_new > st) atomicMax(counters + 1, it + 1);
+}
+
+// M p of the P set into the M set's own rows: K9's passes (op_kernel) on
+// the compact sets, each pass one row narrower a side in a cluster (rows
+// [i, R + 2 H - i) of pass i), every row where one CTA holds the lattice.
+// eo leaves out K9's odd-site SCALE passes: a vector on the even sites
+// has zeros there. Returns this thread's sum of p M p.
+template <bool EO>
+__device__ float cg_apply(const CgLayout& ly, const CgBand& bd, float a,
+                          float bq) {
+  const int H = ly.H, R = bd.R;
+  const int lo1 = H ? 1 : 0, n1 = H ? R + 6 : ly.NR;
+  const int lo2 = H ? 2 : 0, n2 = H ? R + 4 : ly.NR;
+  const int lo3 = H ? 3 : 0, n3 = H ? R + 2 : ly.NR;
+  float dot = 0.f;
+  if (EO) {
+    cg_pass<HOP, false>(ly, bd, 1, lo1, n1, ly.P, ly.P, ly.Q, a, 0.f, dot);
+    __syncthreads();
+    cg_pass<COMBINE, false>(ly, bd, 0, lo2, n2, ly.Q, ly.P, ly.Q, a, bq, dot);
+    __syncthreads();
+    cg_pass<HOP, false>(ly, bd, 1, lo3, n3, ly.Q, ly.Q, ly.Q, a, 0.f, dot);
+    __syncthreads();
+    cg_pass<COMBINE, true>(ly, bd, 0, H, R, ly.Q, ly.Q, ly.Q, a, bq, dot);
+  } else {
+    for (int tp = 0; tp < 2; ++tp)
+      cg_pass<COMBINE, false>(ly, bd, tp, lo3, n3, ly.P, ly.P, ly.Q, a, 0.5f,
+                              dot);
+    __syncthreads();
+    for (int tp = 0; tp < 2; ++tp)
+      cg_pass<COMBINE, true>(ly, bd, tp, H, R, ly.Q, ly.Q, ly.M, a, 0.5f, dot);
   }
+  return dot;
+}
+
+// The chain's sum of each thread's v, in a fixed order: a butterfly over
+// the warp, the warps' sums in warp order (every warp alike), then, in a
+// cluster, the ranks' sums in rank order through distributed shared
+// memory. Every thread gets the sum, the same bits in every CTA of the
+// chain. slot alternates between consecutive calls: a slot is written
+// again only after every thread has passed the barrier of the call
+// between.
+__device__ float cg_sum(float v, const CgBand& bd, int slot) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* wp = bd.red + slot * 32;
+  for (int o = 16; o >= 1; o >>= 1)
+    v = add(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) wp[w] = v;
+  __syncthreads();
+  float s = 0.f;
+  const int n = static_cast<int>(blockDim.x >> 5);
+  if (lane < n) s = wp[lane];
+  for (int o = 16; o >= 1; o >>= 1)
+    s = add(s, __shfl_xor_sync(0xffffffffu, s, o));
+  if (bd.C == 1) return s;
+  float* mine = bd.red + 2 * 32 + slot;
+  if (threadIdx.x == 0) *mine = s;
+  cg::this_cluster().sync();
+  float tot = 0.f;
+  for (int r = 0; r < bd.C; ++r)
+    tot = add(tot, *cg::this_cluster().map_shared_rank(mine, r));
+  return tot;
+}
+
+// The halo rows of P from the bands that own them, after a cluster barrier
+// (every rank's own rows of p written): halo row hr's owner tab[2 hr] and
+// its band row there tab[2 hr + 1], through distributed shared memory or
+// the scratch (read past L1).
+template <bool SM>
+__device__ void cg_halo(const CgArgs& A, const CgBand& bd, const int* tab) {
+  const CgLayout& ly = A.ly;
+  cg::this_cluster().sync();
+  const int span = ly.NR * ly.rs;
+  const int per = (ly.P.ks / span) * 4 * ly.rs;  // floats of a band row
+  const int n = 2 * ly.H * per;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int hr = e / per, rem = e - hr * per;
+    const int ph = rem / ly.rs, c = rem - ph * ly.rs;
+    const int o = tab[2 * hr], sb = tab[2 * hr + 1];
+    const int db = hr < ly.H ? hr : bd.R + hr;
+    const int at = ly.P.off + ph * span + c;
+    float v;
+    if constexpr (SM)
+      v = *cg::this_cluster().map_shared_rank(bd.base + at + sb * ly.rs, o);
+    else
+      v = __ldcg(A.scratch +
+                 static_cast<size_t>(bd.group * bd.C + o) * ly.total + at +
+                 sb * ly.rs);
+    bd.base[at + db * ly.rs] = v;
+  }
+  __syncthreads();
+}
+
+// K11: the whole solve of a chain, cg_solve_fused's while_loop on the
+// card. Every thread keeps the chain's scalars (rsq, stop, active) in
+// registers, the same bits in every thread; the chain loops while it is
+// active and at most maxiter times, and stops at its own convergence
+// (JAX's alpha = beta = 0 from then on; a NaN rsq stops it, as NaN > stop
+// is false). No chain waits for another.
+template <bool CL, bool SM, bool EO>
+__global__ void __launch_bounds__(CG_MAX_THREADS)
+    cg_kernel(const __grid_constant__ CgArgs A) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const CgLayout& ly = A.ly;
+  CgBand bd;
+  bd.C = A.bands.C;
+  bd.rank = bd.C > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  bd.group = static_cast<int>(blockIdx.x) / bd.C;
+  bd.r0 = A.bands.row0[bd.rank];
+  bd.R = A.bands.row0[bd.rank + 1] - bd.r0;
+  bd.base = SM ? sm : A.scratch + static_cast<size_t>(blockIdx.x) * ly.total;
+  bd.red = SM ? sm + ly.total : sm;
+  int* tab = reinterpret_cast<int*>(bd.red + 2 * 32 + 2);
+  const int H = ly.H, R = bd.R;
+  if (static_cast<int>(threadIdx.x) < 2 * H) {
+    const int hr = threadIdx.x;
+    int g = (bd.r0 - H + (hr < H ? hr : R + hr)) % ly.L0;
+    if (g < 0) g += ly.L0;
+    int o = 0;
+    while (g >= A.bands.row0[o + 1]) ++o;
+    tab[2 * hr] = o;
+    tab[2 * hr + 1] = H + g - A.bands.row0[o];
+  }
+  bool odd = false;
+  cg_load<CL>(A, bd, A.ur, A.ui, ly.U, 0, bd.r0 - H, R + 2 * H, &odd);
+  cg_load<CL>(A, bd, A.b, nullptr, ly.Rr, 0, bd.r0, R, &odd);
+  if (A.x0 != nullptr)
+    cg_load<CL>(A, bd, A.x0, nullptr, ly.P, 0, bd.r0 - H, R + 2 * H, &odd);
+  if (odd) atomicOr(A.counters + 2, 1);
+  __syncthreads();
+
+  // r = b - M x0, x = x0, p = r, over the thread's own sites (the walk of
+  // the last pass of M p, so a thread reads only the M p it wrote)
+  const int npar = EO ? 1 : 2, cpr = ly.W, rs = ly.rs;
+  if (A.x0 != nullptr) cg_apply<EO>(ly, bd, A.a, A.bq);
+  float bs = 0.f, r2 = 0.f;
+  for (int par = 0; par < npar; ++par) {
+    float* P = cg_at(bd.base, ly.P, par) + H * rs;
+    float* X = cg_at(bd.base, ly.X, par);
+    float* Rr = cg_at(bd.base, ly.Rr, par);
+    const float* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
+    for (Walk it(R, cpr, threadIdx.x, blockDim.x); it.q < 1; it.next()) {
+      const int o = it.r * rs + it.c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float bv = Rr[o + k * ly.Rr.ks];
+        bs = add(bs, mul(bv, bv));
+        float rv = bv, xv = 0.f;
+        if (A.x0 != nullptr) {
+          xv = P[o + k * ly.P.ks];
+          rv = sub(bv, M[o + k * ly.M.ks]);
+        }
+        X[o + k * ly.X.ks] = xv;
+        Rr[o + k * ly.Rr.ks] = rv;
+        P[o + k * ly.P.ks] = rv;
+        r2 = add(r2, mul(rv, rv));
+      }
+    }
+  }
+  const float bsq = cg_sum(bs, bd, 0);
+  float rsq = cg_sum(r2, bd, 1);
+  const float stop = mul(A.tol, bsq);
+  bool act = rsq > stop;
+  bool any = __syncthreads_or(act);
+  int slot = 0, iters = 0, live = 0;
+  for (int it = 0; any && it < A.maxiter; ++it) {
+    if (H) cg_halo<SM>(A, bd, tab);
+    const float denom = cg_sum(cg_apply<EO>(ly, bd, A.a, A.bq), bd, slot);
+    slot ^= 1;
+    const float alpha = act ? rsq / fmaxf(denom, 1e-30f) : 0.f;
+    float acc = 0.f;
+    if (act) {
+      for (int par = 0; par < npar; ++par) {
+        const float* P = cg_at(bd.base, ly.P, par) + H * rs;
+        float* X = cg_at(bd.base, ly.X, par);
+        float* Rr = cg_at(bd.base, ly.Rr, par);
+        const float* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
+        for (Walk w(R, cpr, threadIdx.x, blockDim.x); w.q < 1; w.next()) {
+          const int o = w.r * rs + w.c;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float* xp = X + o + k * ly.X.ks;
+            float* rp = Rr + o + k * ly.Rr.ks;
+            *xp = add(*xp, mul(alpha, P[o + k * ly.P.ks]));
+            const float rv = sub(*rp, mul(alpha, M[o + k * ly.M.ks]));
+            *rp = rv;
+            acc = add(acc, mul(rv, rv));
+          }
+        }
+      }
+    }
+    const float rn = cg_sum(acc, bd, slot);
+    slot ^= 1;
+    const bool next = act && rn > stop;
+    if (act) {
+      const float beta = rn / fmaxf(rsq, 1e-30f);
+      for (int par = 0; par < npar; ++par) {
+        float* P = cg_at(bd.base, ly.P, par) + H * rs;
+        const float* Rr = cg_at(bd.base, ly.Rr, par);
+        for (Walk w(R, cpr, threadIdx.x, blockDim.x); w.q < 1; w.next()) {
+          const int o = w.r * rs + w.c;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float* pp = P + o + k * ly.P.ks;
+            *pp = add(Rr[o + k * ly.Rr.ks], mul(beta, *pp));
+          }
+        }
+      }
+      rsq = rn;
+    }
+    iters = it + 1;
+    any = __syncthreads_or(next);
+    if (any) live = it + 1;
+    act = next;
+  }
+  __syncthreads();
+  cg_store<CL>(A, bd);
+  if (bd.rank == 0 && threadIdx.x == 0) {
+    A.rel[bd.group] = rsq / fmaxf(bsq, 1e-30f);
+    atomicMax(A.counters, iters);
+    atomicMax(A.counters + 1, live);
+  }
+  if (bd.C > 1) cg::this_cluster().sync();  // no rank reads a finished one
 }
 
 bool sides_ok(int L0, int L1) {
@@ -546,6 +964,21 @@ bool tile_ok(int tile) {
 
 bool aligned16(const void* q) {
   return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
+}
+
+int g_cg_smem[8][64];  // opt-in set so far, by K11 instance and device
+
+// A K11 launch: groups clusters of C CTAs.
+template <bool CL, bool SM, bool EO>
+int launch_cg(const CgArgs& A, int groups, int threads, int bytes,
+              void* stream) {
+  auto kernel = &cg_kernel<CL, SM, EO>;
+  const cudaError_t err =
+      ensure_smem(kernel, bytes, g_cg_smem[(CL ? 4 : 0) + (SM ? 2 : 0) +
+                                           (EO ? 1 : 0)]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_clusters(kernel, groups, A.bands.C, threads,
+                                          bytes, stream, A));
 }
 
 int g_op_smem[2][64];  // opt-in set so far, by kernel (K9, K10) and device
@@ -626,16 +1059,69 @@ extern "C" int k10_mdagm_cl(const float* ur, const float* ui, const float* p,
                          row0, tile, stream);
 }
 
-// One CG iteration's update of B chains in place, after mp = M p. Element e
-// of chain c at e * stride_e + c * stride_c (chains-first: 1, n_elem;
-// chains-last: B, 1). rsq, stop: (B,); counters: int32 (2,), see
-// cg_update_plain.
-extern "C" int k11_cg_update(float* p, const float* mp, float* x, float* r,
-                             float* rsq, const float* stop, int* counters,
-                             int B, int n_elem, int stride_e, int stride_c,
-                             int it, void* stream) {
-  if (B < 1 || n_elem < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k11_kernel<<<B, K11_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, mp, x, r, rsq, stop, counters, n_elem, stride_e, stride_c, it);
-  return static_cast<int>(cudaGetLastError());
+// Bytes of a K11 CTA's dynamic shared memory under a plan of C bands of at
+// most `rows` rows: the band region and the reduction area (in_smem 1), or
+// the reduction area alone, the band region in device scratch (0); -1 for
+// what the kernel does not take. The band region is the difference.
+extern "C" int cg_smem_bytes(int L0, int L1, int C, int rows, int eo,
+                             int in_smem) {
+  if (!sides_ok(L0, L1) || C < 1 || C > MAX_BANDS || rows < 1 ||
+      rows > L0 || rows * C < L0)
+    return -1;
+  const CgLayout l = cg_layout(L0, L1, C, rows, eo);
+  return static_cast<int>(sizeof(float)) * (in_smem ? l.total + l.red
+                                                    : l.red);
+}
+
+// K11: B chains' whole CG solves of (M) x = b, M the normal operator of
+// k9_mdagm (eo: its Schur form), in one launch: a cluster of C CTAs (the
+// band plan row0[C + 1]) a chain, `threads` threads a CTA
+// (a multiple of 32 up to 1024). ur, ui, b, x0 (null: zero), x in the
+// layout of k9_mdagm (cl 0) or k10_mdagm_cl (cl 1), fp32 contiguous; eo:
+// b and x0 zero on the odd sites. rel: (B,) each chain's final |r|^2 /
+// max(|b|^2, 1e-30). counters: int32 (3,), zero before the launch: [0]
+// the iterations in which a chain was active, [1] those after which one
+// still was (maxima over chains), [2] 1 where b or x0 was not zero on an
+// odd site (eo; the result is then not the solve). scratch: null (the
+// bands in shared memory, which must fit) or B * C band regions
+// (cg_smem_bytes). tol on |r|^2 / |b|^2; a = m + 2, bq = 1 / (4 a).
+extern "C" int k11_cg_solve(const float* ur, const float* ui, const float* b,
+                            const float* x0, float* x, float* rel,
+                            int* counters, float* scratch, int B, int L0,
+                            int L1, float a, float bq, int eo, float tol,
+                            int maxiter, int C, const int* row0,
+                            int threads, int cl, void* stream) {
+  CgArgs A;
+  int R = 0;
+  if (B < 1 || maxiter < 0 || !sides_ok(L0, L1) || threads < 32 || threads > CG_MAX_THREADS || threads % 32 != 0 ||
+      !bands_from(C, row0, L0, &R, &A.bands))
+    return static_cast<int>(cudaErrorInvalidValue);
+  A.ur = ur;
+  A.ui = ui;
+  A.b = b;
+  A.x0 = x0;
+  A.x = x;
+  A.rel = rel;
+  A.counters = counters;
+  A.scratch = scratch;
+  A.B = B;
+  A.a = a;
+  A.bq = bq;
+  A.tol = tol;
+  A.maxiter = maxiter;
+  A.ly = cg_layout(L0, L1, C, R, eo);
+  const int sm = scratch == nullptr;
+  const int bytes = static_cast<int>(sizeof(float)) *
+                    (sm ? A.ly.total + A.ly.red : A.ly.red);
+  const int g = B, n = threads;
+  switch ((cl ? 4 : 0) + (sm ? 2 : 0) + (eo ? 1 : 0)) {
+    case 0: return launch_cg<false, false, false>(A, g, n, bytes, stream);
+    case 1: return launch_cg<false, false, true>(A, g, n, bytes, stream);
+    case 2: return launch_cg<false, true, false>(A, g, n, bytes, stream);
+    case 3: return launch_cg<false, true, true>(A, g, n, bytes, stream);
+    case 4: return launch_cg<true, false, false>(A, g, n, bytes, stream);
+    case 5: return launch_cg<true, false, true>(A, g, n, bytes, stream);
+    case 6: return launch_cg<true, true, false>(A, g, n, bytes, stream);
+    default: return launch_cg<true, true, true>(A, g, n, bytes, stream);
+  }
 }

@@ -18,9 +18,9 @@ the CG solution held fixed, the counterpart of jax.grad through XLA code.
 
 CG backends (``cg_solve``): 'xla' is a torch complex CG on ``apply_mdagm``
 (the counterpart of ``_cg_solve_xla``); 'fused' is
-``ops/fermion_kernels.cg_solve_fused`` (K9 or K10 and K11 on the card,
-their twins on the CPU); 'auto', the default, is 'fused' on the card and
-'xla' on the CPU. On the card 'fused' outside the kernels' envelope
+``ops/fermion_kernels.cg_solve_fused`` (K11, the whole solve in one
+launch, on the card, its twin on the CPU); 'auto', the default, is
+'fused' on the card and 'xla' on the CPU. On the card 'fused' outside the kernels' envelope
 raises, where the JAX package falls back to XLA unasked. 'mixed' is not
 ported yet.
 """
@@ -215,7 +215,7 @@ def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
     """Batched CG for (D^dag D) x = b, or with eo the Schur system on
     even-masked b. tol is on |r|^2 / |b|^2. ``backend`` overrides the
     process default (``set_cg_backend``); ``layout`` ('auto', 'cf', 'cl')
-    picks K9 or K10 for 'fused'."""
+    is the packed planes' layout for 'fused'."""
     backend = resolve_cg_backend(backend, b.device)
     theta = theta.detach()
     if backend == "fused":

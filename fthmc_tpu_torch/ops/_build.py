@@ -80,9 +80,13 @@ _SIGNATURES = {
                                         _P],
                 "k10_mdagm_cl": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,
                                             _I, _P],
-                "k11_cg_update": [_P] * 7 + [_I] * 5 + [_P],
-                # a CTA's band (csrc/fermion.cu, OpLayout)
-                "fermion_smem_bytes": [_I] * 5},
+                # (pointers, B, L0, L1, a, b, eo, tol, maxiter, C, row0,
+                # threads, cl, stream) of the whole CG solve
+                "k11_cg_solve": [_P] * 8 + [_I, _I, _I, _F, _F, _I, _F, _I,
+                                            _I, _IP, _I, _I, _P],
+                # a CTA's band (csrc/fermion.cu, OpLayout), K11's (CgLayout)
+                "fermion_smem_bytes": [_I] * 5,
+                "cg_smem_bytes": [_I] * 6},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,11 +1,12 @@
 """The Wilson-Dirac kernels K9-K11, their plain PyTorch twins, and the CG
 built on them: the counterpart of ``fthmc_tpu/ops/pallas_fermion.py``.
 
-  K9  ``mdagm``      csrc/fermion.cu  <- _mdagm_kernel (_mdagm_call,
-                                         pallas_mdagm layout 'cf')
-  K10 ``mdagm_cl``   csrc/fermion.cu  <- _mdagm_cl_kernel (_mdagm_call_cl)
-  K11 ``cg_update``  csrc/fermion.cu  <- the while_loop body of
-                                         cg_solve_fused
+  K9  ``mdagm``           csrc/fermion.cu  <- _mdagm_kernel (_mdagm_call,
+                                              pallas_mdagm layout 'cf')
+  K10 ``mdagm_cl``        csrc/fermion.cu  <- _mdagm_cl_kernel
+                                              (_mdagm_call_cl)
+  K11 ``cg_solve_fused``  csrc/fermion.cu  <- cg_solve_fused, its
+                                              while_loop included
 
 K9 and K10 apply the normal operator D^dag D, or the even-odd Schur
 Dhat^dag Dhat, to packed real planes [Re s0, Im s0, Re s1, Im s1]: K9 on
@@ -13,21 +14,23 @@ chains-first (B, 4, L0, L1), K10 on chains-last (4, L0, L1, B), each in
 one launch an operator. A chain (K9) or a tile of ``K10_TILE`` chains
 (K10) is split into C bands of rows, a CTA each (``fermion_band_plan``),
 the band's planes with four halo rows a side and every intermediate in
-shared memory, so the CTAs need nothing of each other. K11 is one CG
-iteration's vector update on the same layout. ``cg_solve_fused`` is a
-host loop of one operator launch and one K11 launch an iteration, which
-reads the device's "any chain still active" flag every ``CHECK_EVERY``
-iterations only.
+shared memory, so the CTAs need nothing of each other. K11 is the whole
+CG solve in one launch, on either layout: a chain is a cluster of row
+bands (``cg_plan``), the operator's passes those of K9, the vectors
+and the loop on the card, and the host reads the iteration counters once
+a solve.
 
 The twins' math has one source, ``hop_planes`` and ``normal_op_planes``
 (ports of ``_hop_planes`` and ``normal_op_planes``), with a roll callable
-for the layout, as in the JAX package. A CPU tensor takes the twin; a CUDA
-tensor launches the kernel, or raises for what the kernels do not take:
-other dtypes, odd sides or sides under 4 (``check_sides``). There is no
-upper limit: a band lives in shared memory where it fits (on an H100, K9
-under ``fermion_band_plan``'s plans to 96^2 at least, K10's 8-chain tiles
-to 32^2) and in a scratch buffer the wrapper allocates beyond
-(``operator_plan``).
+for the layout, as in the JAX package; K11's twin ``cg_solve_fused_plain``
+is the JAX while_loop on them. A CPU tensor takes the twin; a CUDA tensor
+launches the kernel, or raises for what the kernels do not take: other
+dtypes, odd sides or sides under 4 (``check_sides``), an eo solve whose b
+or x0 is not zero on the odd sites. There is no upper limit: a band lives
+in shared memory where it fits (on an H100, K9 under
+``fermion_band_plan``'s plans to 96^2 at least, K10's 8-chain tiles to
+32^2, K11's chains to 160^2 eo and 120^2 not) and in a scratch buffer the
+wrapper allocates beyond (``operator_plan``, ``cg_plan``).
 """
 from __future__ import annotations
 
@@ -40,21 +43,18 @@ from fthmc_tpu_torch.ops import _build
 
 __all__ = ["pack_spinor", "unpack_spinor", "link_planes", "parity_masks",
            "hop_planes", "normal_op_planes", "mdagm_plain", "mdagm_cl_plain",
-           "cg_update_plain", "mdagm", "mdagm_cl", "cg_update",
+           "cg_update_plain", "cg_planes_plain", "mdagm", "mdagm_cl",
            "check_sides", "resolve_layout", "fused_mdagm", "CGResult",
            "cg_solve_fused", "cg_solve_fused_plain", "fermion_band_plan",
-           "operator_plan", "operator_launch", "update_launch",
-           "CHECK_EVERY", "K10_TILE"]
+           "operator_plan", "operator_launch", "CGPlan", "cg_plan",
+           "cg_launch", "K10_TILE"]
 
-# iterations between two reads of the device's convergence flag: each read
-# stalls the host until the card drains; the iterations after the last
-# chain converged (half of this on average) are launched for nothing
-CHECK_EVERY = 8
 MAX_BANDS = 8            # bands a group (csrc/common.cuh)
 HALO_ROWS = 4            # halo rows a side of a band (csrc/fermion.cu)
 # chains a K10 tile (a power of two): the chains-last layout's coalesced
 # axis; chip_smoke.py's fermion_band_plans line times 8, 16 and 32
 K10_TILE = 8
+CG_MAX_THREADS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +219,8 @@ def _chain_dims(chains_last: bool):
 
 def cg_update_plain(p, mp, x, r, rsq, stop, counters, it: int,
                     chains_last: bool) -> None:
-    """K11's twin: one CG iteration's update, in place, after mp = M p.
-    Per chain, active = rsq > stop;
+    """One iteration's update of K11's twin, in place, after mp = M p (the
+    kernel's update repeats it op for op). Per chain, active = rsq > stop;
       alpha = active ? rsq / max(<p, mp>, 1e-30) : 0,
       x += alpha p,  r -= alpha mp,  rsq_new = <r, r>,
       beta = active ? rsq_new / max(rsq, 1e-30) : 0,
@@ -244,6 +244,31 @@ def cg_update_plain(p, mp, x, r, rsq, stop, counters, it: int,
     flags = torch.stack((active.any(), live.any()))
     counters.copy_(torch.where(flags, torch.maximum(counters, step),
                                counters))
+
+
+def cg_planes_plain(ur, ui, b4, x4, mass: float, tol: float, maxiter: int,
+                    eo: bool, chains_last: bool):
+    """K11's twin on packed planes of any float dtype (links and planes in
+    one layout, x4 the start or None): JAX's while_loop, iterating while
+    any chain has rsq > tol |b|^2 and at most maxiter times, each iteration
+    the operator's twin and ``cg_update_plain`` (a chain that stops is
+    frozen by alpha = beta = 0, a NaN rsq stops it). Returns (x, iters,
+    rsq, bsq), iters JAX's ``k``."""
+    op = mdagm_cl_plain if chains_last else mdagm_plain
+    dims, _ = _chain_dims(chains_last)
+    x = torch.zeros_like(b4) if x4 is None else x4.clone()
+    bsq = (b4 * b4).sum(dim=dims)
+    stop = tol * bsq
+    r = b4 - op(ur, ui, x, mass, eo)
+    p = r.clone()
+    rsq = (r * r).sum(dim=dims)
+    counters = torch.zeros(2, dtype=torch.int32, device=b4.device)
+    k = 0
+    while k < maxiter and bool((rsq > stop).any()):
+        mp = op(ur, ui, p, mass, eo)
+        cg_update_plain(p, mp, x, r, rsq, stop, counters, k, chains_last)
+        k += 1
+    return x, k, rsq, bsq
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +387,10 @@ def operator_plan(cl: bool, B: int, L0: int, L1: int, device, plan=None,
 
 class _Launch:
     """A kernel entry with its arguments bound after one validation: a call
-    launches the kernel (one ctypes call), checks the launch and counts it.
-    The CG keeps one of each a solve, so an iteration costs two ctypes
-    calls on the host. ``keep`` holds the tensors behind the bound
-    pointers, so a launch made again later never writes freed memory."""
+    launches the kernel (one ctypes call), checks the launch and counts it
+    (a CUDA graph of bound launches times the card alone). ``keep`` holds
+    the tensors behind the bound pointers, so a launch made again later
+    never writes freed memory."""
     __slots__ = ("name", "fn", "lib", "args", "stream", "keep")
 
     def __init__(self, name: str, fn, lib, args: tuple, stream: int,
@@ -439,48 +464,6 @@ def mdagm_cl(urt, uit, p4t, mass: float, eo: bool, out=None, scratch=None,
     return out
 
 
-def _check_update(p, mp, x, r, rsq, stop, counters, chains_last) -> int:
-    if not (p.shape == mp.shape == x.shape == r.shape) or p.ndim != 4:
-        raise ValueError("K11 cg_update: p, mp, x, r must share one packed "
-                         "shape")
-    B = p.shape[-1] if chains_last else p.shape[0]
-    if rsq.shape != (B,) or stop.shape != (B,) or counters.shape != (2,):
-        raise ValueError("K11 cg_update: rsq and stop must be (B,), "
-                         "counters (2,)")
-    return B
-
-
-def update_launch(p, mp, x, r, rsq, stop, counters, chains_last):
-    """K11's launch over these buffers (the iteration index is the call's
-    argument), after refusing what the kernel does not take."""
-    B = _check_update(p, mp, x, r, rsq, stop, counters, chains_last)
-    _build.require_fp32_contiguous("K11 cg_update", p, mp, x, r, rsq, stop)
-    if counters.dtype != torch.int32 or counters.device != p.device:
-        raise ValueError("K11 cg_update: counters must be int32 on the "
-                         "planes' device")
-    n_elem = p.numel() // B
-    stride_e, stride_c = (B, 1) if chains_last else (1, n_elem)
-    lib = _build.library("fermion")
-    args = (p.data_ptr(), mp.data_ptr(), x.data_ptr(), r.data_ptr(),
-            rsq.data_ptr(), stop.data_ptr(), counters.data_ptr(), B, n_elem,
-            stride_e, stride_c)
-    return _Launch("K11", lib.k11_cg_update, lib, args,
-                   _build.stream_handle(p), (p, mp, x, r, rsq, stop,
-                                             counters))
-
-
-def cg_update(p, mp, x, r, rsq, stop, counters, it: int,
-              chains_last: bool) -> None:
-    """One CG iteration's update in place (see ``cg_update_plain``) through
-    K11, one block a chain, on packed planes in either layout; its twin on
-    the CPU."""
-    _check_update(p, mp, x, r, rsq, stop, counters, chains_last)
-    if _on_cpu(p):
-        return cg_update_plain(p, mp, x, r, rsq, stop, counters, it,
-                               chains_last)
-    update_launch(p, mp, x, r, rsq, stop, counters, chains_last)(int(it))
-
-
 # ---------------------------------------------------------------------------
 # the operator on complex fields, and the CG
 # ---------------------------------------------------------------------------
@@ -489,7 +472,8 @@ LAYOUTS = ("auto", "cf", "cl")
 
 
 def resolve_layout(layout: str, L0: int, L1: int) -> str:
-    """'cf' (K9) or 'cl' (K10). 'auto' is K10 up to 8^2 sites and K9 above:
+    """'cf' (K9's planes) or 'cl' (K10's), for the operator and K11's
+    solve. 'auto' is K10 up to 8^2 sites and K9 above:
     on an H100 with 128 chains K10 took 6.9 us against K9's 7.9 at 8^2,
     and K9 was faster at 16^2, 32^2 and 64^2 (PERF.md, the 'auto' layout
     rule: chip_smoke.py's k9_vs_k10_ms_by_L), where the JAX package picks
@@ -502,25 +486,16 @@ def resolve_layout(layout: str, L0: int, L1: int) -> str:
 
 
 class _PackedOperator:
-    """The normal operator of one gauge field on packed planes of one
-    layout, with its links and scratch made once (per solve)."""
+    """The links of one gauge field on packed planes of one layout, made
+    once (per solve), and the packing to and from complex fields."""
 
-    def __init__(self, theta: torch.Tensor, mass: float, eo: bool,
-                 layout: str, plain: bool = False):
-        B, _, L0, L1 = theta.shape
-        check_sides(L0, L1)
-        self.mass, self.eo, self.chains_last = mass, eo, layout == "cl"
-        self.plain = plain
+    def __init__(self, theta: torch.Tensor, layout: str):
+        check_sides(theta.shape[-2], theta.shape[-1])
+        self.chains_last = layout == "cl"
         ur, ui = link_planes(theta)
         if self.chains_last:
             ur, ui = (t.permute(1, 2, 3, 0).contiguous() for t in (ur, ui))
         self.ur, self.ui = ur, ui
-        self.scratch = None
-        if theta.device.type == "cuda" and not plain:
-            n = operator_plan(self.chains_last, B, L0, L1, theta.device)[3]
-            if n:
-                self.scratch = torch.empty(n, dtype=torch.float32,
-                                           device=theta.device)
 
     def pack(self, psi):
         p4 = pack_spinor(psi)
@@ -530,20 +505,6 @@ class _PackedOperator:
     def unpack(self, p4):
         return unpack_spinor(p4.permute(3, 0, 1, 2) if self.chains_last
                              else p4)
-
-    def launch(self, v, out) -> _Launch:
-        """The kernel's launch of v -> out, bound once (on the card)."""
-        return operator_launch(self.chains_last, self.ur, self.ui, v,
-                                self.mass, self.eo, out, self.scratch)[0]
-
-    def __call__(self, v, out=None):
-        if self.plain:
-            fn = mdagm_cl_plain if self.chains_last else mdagm_plain
-            res = fn(self.ur, self.ui, v, self.mass, self.eo)
-            return res if out is None else out.copy_(res)
-        fn = mdagm_cl if self.chains_last else mdagm
-        return fn(self.ur, self.ui, v, self.mass, self.eo, out=out,
-                  scratch=self.scratch)
 
 
 def fused_mdagm(theta: torch.Tensor, psi: torch.Tensor, mass: float, *,
@@ -555,20 +516,150 @@ def fused_mdagm(theta: torch.Tensor, psi: torch.Tensor, mass: float, *,
     if squeeze:
         theta, psi = theta[None], psi[None]
     layout = resolve_layout(layout, theta.shape[-2], theta.shape[-1])
-    op = _PackedOperator(theta, mass, eo, layout)
-    res = op.unpack(op(op.pack(psi)))
+    op = _PackedOperator(theta, layout)
+    fn = mdagm_cl if op.chains_last else mdagm
+    res = op.unpack(fn(op.ur, op.ui, op.pack(psi), mass, eo))
     return res[0] if squeeze else res
+
+
+# ---------------------------------------------------------------------------
+# K11: the whole CG solve
+# ---------------------------------------------------------------------------
+
+class CGPlan(NamedTuple):
+    """A K11 launch's geometry: C bands a chain (CTA r of a cluster owning
+    rows [row0[r], row0[r + 1])), ``threads`` threads a CTA, and the device
+    scratch the bands take where they do not fit in shared memory (0 where
+    they do)."""
+    C: int
+    row0: tuple
+    threads: int
+    scratch: int
+
+
+@lru_cache(maxsize=None)
+def _cg_bytes(L0: int, L1: int, C: int, rows: int, eo: bool,
+              in_smem: bool) -> int:
+    return _build.library("fermion").cg_smem_bytes(L0, L1, C, rows, int(eo),
+                                                   int(in_smem))
+
+
+def _even_bands(L: int, C: int) -> tuple:
+    return tuple(r * L // C for r in range(C + 1))
+
+
+def cg_plan(eo: bool, B: int, L0: int, L1: int, device,
+            plan=None) -> CGPlan:
+    """K11's plan for B chains of L0 x L1 sites, in either layout: C bands
+    of rows a chain, a CTA each, and a device scratch for the bands where
+    they do not fit in shared memory, as the kernel's own count
+    ``cg_smem_bytes`` says. By default the first of C = 1, 2, 4, 8 whose
+    band fits in shared memory (one CTA a chain needs no cluster barrier or
+    halo copy; on an H100 C = 1 and 2 tied at path A, 4 and 8 were 1.6x
+    slower), else 8 bands in scratch (fewer where bands would have under 4
+    rows). ``threads``: the power of two covering a band's sites of one
+    parity, 32 to 1024. ``plan`` (C, row0) other than the default is for
+    timing and tests. Raises for what the kernel does not take."""
+    check_sides(L0, L1)
+    limit = _build.smem_limit(_device_index_of(torch.device(device)))
+
+    def need(C, row0):
+        """(largest band, bytes of a CTA with its band in shared memory)."""
+        rows = [hi - lo for lo, hi in zip(row0, row0[1:])]
+        n = -1
+        if len(row0) == C + 1 and row0[0] == 0 and row0[-1] == L0 \
+                and min(rows) >= 1:
+            n = _cg_bytes(L0, L1, C, max(rows), eo, True)
+        if n < 0:
+            raise ValueError(f"K11 takes no band plan {(C, row0)} at "
+                             f"L0={L0}, L1={L1}")
+        return max(rows), n
+
+    if plan is not None:
+        C, row0 = int(plan[0]), tuple(int(r) for r in plan[1])
+    else:
+        fit = [C for C in (1, 2, 4, 8)
+               if C <= L0 and need(C, _even_bands(L0, C))[1] <= limit]
+        C = MAX_BANDS
+        while C > 1 and L0 // C < HALO_ROWS:
+            C //= 2
+        C = fit[0] if fit else C
+        row0 = _even_bands(L0, C)
+    R, n = need(C, row0)
+    threads = 32
+    while threads < min(R * (L1 // 2), CG_MAX_THREADS):
+        threads *= 2
+    band = 0 if n <= limit else (n - _cg_bytes(L0, L1, C, R, eo, False)) // 4
+    return CGPlan(C, row0, threads, B * C * band)
+
+
+def cg_launch(cl: bool, ur, ui, b4, x4, mass: float, eo: bool, tol: float,
+              maxiter: int, x, rel, counters, scratch=None,
+              plan=None) -> _Launch:
+    """K11's launch of a whole solve of packed planes b4 from x4 (None:
+    zero) into x, rel (B,) and counters (int32 (3,), zero before: see
+    csrc/fermion.cu, k11_cg_solve), after refusing what the kernel does not
+    take; allocates the scratch ``cg_plan`` asks for when not given.
+    ``plan``: see ``cg_plan``."""
+    what = "K11 cg_solve"
+    B, L0, L1 = _check_planes(what, ur, ui, b4, cl)
+    planes = (ur, ui, b4, x) + (() if x4 is None else (x4,))
+    _build.require_fp32_contiguous(what, *planes, rel)
+    for t in (x,) + (() if x4 is None else (x4,)):
+        if t.shape != b4.shape:
+            raise ValueError(f"{what}: x and x0 must have b's shape")
+    if rel.shape != (B,) or counters.shape != (3,) \
+            or counters.dtype != torch.int32 or counters.device != b4.device:
+        raise ValueError(f"{what}: rel must be (B,), counters int32 (3,) "
+                         f"on the planes' device")
+    pl = cg_plan(eo, B, L0, L1, b4.device, plan)
+    if pl.scratch and (scratch is None or scratch.numel() < pl.scratch):
+        scratch = torch.empty(pl.scratch, dtype=torch.float32,
+                              device=b4.device)
+    lib = _build.library("fermion")
+    args = (ur.data_ptr(), ui.data_ptr(), b4.data_ptr(),
+            None if x4 is None else x4.data_ptr(), x.data_ptr(),
+            rel.data_ptr(), counters.data_ptr(),
+            scratch.data_ptr() if pl.scratch else None, B, L0, L1,
+            *_ab(mass), int(eo), float(tol), int(maxiter), pl.C,
+            _build.int_array(pl.row0), pl.threads, int(cl))
+    return _Launch("K11", lib.k11_cg_solve, lib, args,
+                   _build.stream_handle(b4),
+                   (ur, ui, b4, x4, x, rel, counters, scratch))
 
 
 class CGResult(NamedTuple):
     """A CG solve: the solution (b's shape), the iterations in which any
     chain was active (a Python int, JAX's ``k``), each chain's final
-    |r|^2 / |b|^2, and the iterations launched (``iters`` rounded up to
-    the convergence check for the fused CG; ``iters`` for the torch one)."""
+    |r|^2 / |b|^2, and the iterations run (``iters``: the fused CG, on the
+    card and off, and the torch one stop at the first iteration after which
+    no chain is active)."""
     x: torch.Tensor
     iters: int
     rsq: torch.Tensor
     launched: int
+
+
+_ODD_SITES = ("an eo solve takes b and x0 that vanish on the odd sites (the "
+              "Schur system lives on the even ones)")
+
+
+def _packed(theta, b, x0, layout):
+    """(links and packing, b's planes, x0's or None, squeeze) of a solve."""
+    squeeze = b.ndim == 3
+    if squeeze:
+        theta, b = theta[None], b[None]
+        x0 = None if x0 is None else x0[None]
+    op = _PackedOperator(theta, resolve_layout(layout, theta.shape[-2],
+                                               theta.shape[-1]))
+    return op, op.pack(b), None if x0 is None else op.pack(x0), squeeze
+
+
+def _result(op, x, iters: int, rel, squeeze: bool) -> CGResult:
+    sol = op.unpack(x)
+    if squeeze:
+        sol, rel = sol[0], rel[0]
+    return CGResult(sol, iters, rel, iters)
 
 
 @torch.no_grad()
@@ -576,16 +667,37 @@ def cg_solve_fused(theta: torch.Tensor, b: torch.Tensor, mass: float,
                    x0: torch.Tensor | None = None, *, tol: float = 1e-8,
                    maxiter: int = 1000, eo: bool = True,
                    layout: str = "auto") -> CGResult:
-    """Batched CG for the normal operator (eo: the Schur system) on packed
-    planes through K9 or K10 and K11 (their twins on the CPU), with
-    ``fermion.cg_solve``'s semantics: per-chain freezing of converged
-    chains, tol on |r|^2 / |b|^2. Complex in and out, either rank. The
-    device's convergence flag is read every CHECK_EVERY iterations; the
-    iterations launched after every chain converged leave x, r and rsq as
-    they were (alpha = beta = 0), so the result is that of stopping at
-    once. x, r, p, M p and the per-chain scalars are allocated once."""
-    return _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout,
-                      plain=False)
+    """Batched CG for the normal operator (eo: the Schur system, b and x0
+    zero on the odd sites) on packed planes through K11 (its twin
+    ``cg_solve_fused_plain`` on the CPU), with ``fermion.cg_solve``'s
+    semantics: per-chain freezing of converged chains, tol on |r|^2 /
+    |b|^2. Complex in and out, either rank; ``layout`` ('auto', 'cf', 'cl')
+    the planes' layout. On the card: one launch, and one read of the
+    counters (the solve's one synchronization), which also carry the
+    kernel's finding of an odd site that is not zero."""
+    op, b4, x4, squeeze = _packed(theta, b, x0, layout)
+    if _on_cpu(b4):
+        if eo:
+            _, odd = parity_masks(theta.shape[-2], theta.shape[-1],
+                                  int(op.chains_last), b4.device)
+            if any(bool((t * odd).ne(0).any()) for t in (b4, x4)
+                   if t is not None):
+                raise ValueError(_ODD_SITES)
+        x, iters, rsq, bsq = cg_planes_plain(op.ur, op.ui, b4, x4, mass,
+                                             tol, maxiter, eo,
+                                             op.chains_last)
+        return _result(op, x, iters, rsq / torch.clamp_min(bsq, 1e-30),
+                       squeeze)
+    B = b4.shape[-1] if op.chains_last else b4.shape[0]
+    x = torch.empty_like(b4)
+    rel = torch.empty(B, dtype=torch.float32, device=b4.device)
+    counters = torch.zeros(3, dtype=torch.int32, device=b4.device)
+    cg_launch(op.chains_last, op.ur, op.ui, b4, x4, mass, eo, tol, maxiter,
+              x, rel, counters)()
+    iters, _, odd = counters.tolist()
+    if odd:
+        raise ValueError(_ODD_SITES)
+    return _result(op, x, iters, rel, squeeze)
 
 
 @torch.no_grad()
@@ -593,53 +705,10 @@ def cg_solve_fused_plain(theta: torch.Tensor, b: torch.Tensor, mass: float,
                          x0: torch.Tensor | None = None, *, tol: float = 1e-8,
                          maxiter: int = 1000, eo: bool = True,
                          layout: str = "auto") -> CGResult:
-    """``cg_solve_fused`` on the plain twins on any device: the yardstick
-    the kernels' CG is held against on the card."""
-    return _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout,
-                      plain=True)
-
-
-def _cg_packed(theta, b, mass, x0, tol, maxiter, eo, layout, plain):
-    squeeze = b.ndim == 3
-    if squeeze:
-        theta, b = theta[None], b[None]
-        x0 = None if x0 is None else x0[None]
-    layout = resolve_layout(layout, theta.shape[-2], theta.shape[-1])
-    op = _PackedOperator(theta, mass, eo, layout, plain)
-    update = cg_update_plain if plain else cg_update
-    dims, _ = _chain_dims(op.chains_last)
-    b4 = op.pack(b)
-    x = torch.zeros_like(b4) if x0 is None else op.pack(x0)
-    bsq = (b4 * b4).sum(dim=dims)
-    stop = tol * bsq
-    r = b4 - op(x)
-    p = r.clone()
-    rsq = (r * r).sum(dim=dims)
-    mp = torch.empty_like(b4)
-    counters = torch.zeros(2, dtype=torch.int32, device=b4.device)
-    if plain or b4.device.type == "cpu":
-        def iteration(it):
-            op(p, out=mp)
-            update(p, mp, x, r, rsq, stop, counters, it, op.chains_last)
-    else:
-        op_launch = op.launch(p, mp)
-        upd_launch = update_launch(p, mp, x, r, rsq, stop, counters,
-                                    op.chains_last)
-
-        def iteration(it):
-            op_launch()
-            upd_launch(it)
-    done = iters = 0
-    while done < maxiter:
-        n = min(CHECK_EVERY, maxiter - done)
-        for it in range(done, done + n):
-            iteration(it)
-        done += n
-        iters, live = counters.tolist()
-        if live < done:
-            break
-    sol = op.unpack(x)
-    rel = rsq / torch.clamp_min(bsq, 1e-30)
-    if squeeze:
-        sol, rel = sol[0], rel[0]
-    return CGResult(sol, iters, rel, done)
+    """K11's plain twin on any device (``cg_planes_plain`` on the packed
+    planes of ``layout``): what runs on the CPU, and the yardstick the
+    kernel is held against on the card."""
+    op, b4, x4, squeeze = _packed(theta, b, x0, layout)
+    x, iters, rsq, bsq = cg_planes_plain(op.ur, op.ui, b4, x4, mass, tol,
+                                         maxiter, eo, op.chains_last)
+    return _result(op, x, iters, rsq / torch.clamp_min(bsq, 1e-30), squeeze)

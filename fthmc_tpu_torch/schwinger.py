@@ -17,9 +17,10 @@ physical field and its force is pulled back through the flow (on the card:
 K7 over every layer, K1 plus the fermion force at y, K8 back).
 
 The CG is ``fermion.cg_solve`` on the process default backend
-(``fermion.set_cg_backend``; 'auto' unless set: K9 or K10 and K11 on the
-card, the torch CG on the CPU) with the configuration's ``cg_layout``
-('cf' for K9, 'cl' for K10, 'auto' by fermion_kernels.resolve_layout).
+(``fermion.set_cg_backend``; 'auto' unless set: K11, one launch a solve,
+on the card, the torch CG on the CPU) with the configuration's
+``cg_layout`` (the packed planes chains-first 'cf' or chains-last 'cl',
+'auto' by fermion_kernels.resolve_layout).
 Not ported yet (ROADMAP queue 1, "dynamical fermions, the rest"): the
 nested integrators (``n_inner > 0``) and Hasenbusch (``hasenbusch_dm >
 0``); both raise.
@@ -72,8 +73,8 @@ class SchwingerConfig:
     eo_precond: bool = True      # even-odd Schur solves
     n_inner: int = 0             # nested integrators: not ported, raises
     hasenbusch_dm: float = 0.0   # Hasenbusch: not ported, raises
-    cg_layout: str = "auto"      # 'cf': K9; 'cl': K10; 'auto': K10 at
-    #                              8^2, K9 above (resolve_layout)
+    cg_layout: str = "auto"      # 'cf', 'cl' (chains-last); 'auto': 'cl'
+    #                              at 8^2, 'cf' above (resolve_layout)
 
     @property
     def dt(self) -> float:

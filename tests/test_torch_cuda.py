@@ -510,8 +510,11 @@ def test_fused_hostrng_follows_xla(card):
 # ---------------------------------------------------------------------------
 # K9, K10, K11 (csrc/fermion.cu). K9 and K10 repeat their twins' arithmetic
 # op for op (explicit _rn intrinsics), so they are held to 1e-6 x max|ref|;
-# K11's two sums run in another order than torch's, so its outputs are held
-# to 1e-5 relative; CG solutions to 1e-4 relative in norm, iters within 1.
+# K11, the whole CG solve, sums in another order than torch's, so its
+# solutions are held to its twin's and the torch CG's within 1e-3
+# relative in norm (two fp32 CGs stopped at a relative residual of 3e-5 on
+# operators of condition up to ~30; 1e-4 where the twin runs the same
+# iterations at 16^2), iters within 1.
 # ---------------------------------------------------------------------------
 
 
@@ -616,6 +619,8 @@ def test_fermion_band_bytes_are_the_layout(card):
 
 @pytest.mark.parametrize("layout", ["cf", "cl"])
 def test_fused_cg_kernels_match_twins(card, layout):
+    """The fused CG on the card: one K11 launch a solve and no operator
+    launch, no twin; the solution of the torch CG."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
     from fthmc_tpu_torch import fermion as tf
     theta, _ = _fermion_fields(card, 8, 16, 16, True, seed=3)
@@ -624,10 +629,9 @@ def test_fused_cg_kernels_match_twins(card, layout):
     _build.reset_counts()
     got = fk.cg_solve_fused(theta, phi, 0.1, tol=1e-9, maxiter=500, eo=True,
                             layout=layout)
-    kernel = "K10" if layout == "cl" else "K9"
-    assert _build.LAUNCHES["K11"] == got.launched
-    assert _build.LAUNCHES[kernel] == got.launched + 1
+    assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {"K11": 1}
     assert not any(_build.PLAIN_CALLS.values())
+    assert got.launched == got.iters
     ref = tf.cg_solve(theta, phi, 0.1, tol=1e-9, maxiter=500, eo=True,
                       backend="xla")
     rel = float((got.x - ref.x).abs().norm() / ref.x.abs().norm())
@@ -635,30 +639,161 @@ def test_fused_cg_kernels_match_twins(card, layout):
     assert float(got.rsq.max()) <= 1e-9
 
 
-def test_cg_update_kernel_matches_twin(card):
+# K11's card tests: mass 0.3 on links of small angles (an ordered field,
+# as at beta = 6), where fp32 CGs reach tol 1e-9 in some 100 iterations
+# at every size
+CG_MASS = 0.3
+
+
+def _solve_inputs(card, B, L, eo, seed):
+    """Links of N(0, 0.35^2) angles and a right-hand side phi = D^dag chi
+    (eo: Dhat^dag of an even chi)."""
+    from fthmc_tpu_torch import fermion as tf
+    g = torch.Generator(device=card).manual_seed(seed)
+    theta = 0.35 * torch.randn((B, 2, L, L), generator=g, device=card)
+    phi, _ = tf.pf_refresh(torch.Generator(device=card).manual_seed(seed + 1),
+                           theta, CG_MASS, eo=eo)
+    return theta, phi
+
+
+# the paths' shapes (A 64^2 x 64 chains-first; B 16^2 x 128 chains-last; C
+# 16^2 x 128 chains-first) and the scratch plans (128^2, 256^2)
+CG_SHAPES = [(64, 64, "cf"), (128, 16, "cl"), (128, 16, "cf"),
+             (4, 128, "cf"), (4, 128, "cl"), (2, 256, "cf"), (3, 256, "cl")]
+
+
+@pytest.mark.parametrize("B,L,layout", CG_SHAPES)
+@pytest.mark.parametrize("eo", [True, False])
+def test_k11_matches_its_twin(card, B, L, layout, eo):
+    """K11 against cg_solve_fused_plain and the torch CG, cold and warm
+    (from a 15-iteration solve), and capped by maxiter: x within 1e-3
+    relative, iters within 1 (equal under the cap), rsq <= tol; two
+    launches bit-equal; one K11 launch a solve, no operator launch."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    g = torch.Generator(device=card).manual_seed(5)
-    for chains_last in (False, True):
-        shape = (4, 8, 8, 6) if chains_last else (6, 4, 8, 8)
-        p, x, r = (torch.randn(shape, generator=g, device=card)
-                   for _ in range(3))
-        # a positive <p, mp>, as a positive definite operator gives
-        mp = p * (1.5 + torch.rand(shape, generator=g, device=card))
-        dims = (0, 1, 2) if chains_last else (1, 2, 3)
-        rsq = (r * r).sum(dim=dims)
-        stop = rsq * torch.tensor([1e-3, 2, 1e-3, 1e-3, 2, 1e-3],
-                                  device=card)
-        bufs = [[t.clone() for t in (p, mp, x, r, rsq)] for _ in range(2)]
-        outs = []
-        for fn, (bp, bmp, bx, br, brsq) in zip(
-                (fk.cg_update, fk.cg_update_plain), bufs):
-            c = torch.zeros(2, dtype=torch.int32, device=card)
-            fn(bp, bmp, bx, br, brsq, stop, c, 3, chains_last)
-            outs.append((bp, bx, br, brsq, c))
-        torch.cuda.synchronize()
-        for a, b in zip(outs[0][:4], outs[1][:4]):
-            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-        assert torch.equal(outs[0][4], outs[1][4])
+    from fthmc_tpu_torch import fermion as tf
+    theta, phi = _solve_inputs(card, B, L, eo, 11)
+    kw = dict(tol=1e-9, maxiter=2000, eo=eo, layout=layout)
+    warm = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=15, eo=eo,
+                             layout=layout).x
+    for x0 in (None, warm):
+        _build.reset_counts()
+        runs = [fk.cg_solve_fused(theta, phi, CG_MASS, x0, **kw)
+                for _ in (0, 1)]
+        assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {
+            "K11": 2}
+        assert torch.equal(runs[0].x, runs[1].x)
+        assert torch.equal(runs[0].rsq, runs[1].rsq)
+        got = runs[0]
+        twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, x0, **kw)
+        xla = tf.cg_solve(theta, phi, CG_MASS, x0, tol=1e-9, maxiter=2000,
+                          eo=eo, backend="xla")
+        for ref in (twin, xla):
+            rel = float((got.x - ref.x).abs().norm() / ref.x.abs().norm())
+            assert rel < 1e-3 and abs(got.iters - ref.iters) <= 1, \
+                (rel, got.iters, ref.iters)
+        assert float(got.rsq.max()) <= 1e-9 and got.launched == got.iters
+    capped = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=7, eo=eo,
+                               layout=layout)
+    twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, tol=1e-9, maxiter=7,
+                                   eo=eo, layout=layout)
+    assert capped.iters == twin.iters == 7
+    rel = float((capped.x - twin.x).abs().norm() / twin.x.abs().norm())
+    assert rel < 1e-4
+
+
+def _cg_plans(L):
+    return [(C, tuple(r * L // C for r in range(C + 1)))
+            for C in (1, 2, 4, 8) if L // C >= 2]
+
+
+def _plan_solve(theta, phi, eo, layout, plan, tol, maxiter):
+    """K11's solve of phi under band plan ``plan`` through cg_launch:
+    (x, iters)."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    op = fk._PackedOperator(theta, layout)
+    b4 = op.pack(phi)
+    B = b4.shape[-1] if op.chains_last else b4.shape[0]
+    x = torch.empty_like(b4)
+    rel = torch.empty(B, device=b4.device)
+    counters = torch.zeros(3, dtype=torch.int32, device=b4.device)
+    fk.cg_launch(op.chains_last, op.ur, op.ui, b4, None, CG_MASS, eo, tol,
+                 maxiter, x, rel, counters, None, plan)()
+    iters, _, odd = counters.tolist()
+    assert not odd
+    return op.unpack(x), iters
+
+
+@pytest.mark.parametrize("L,layout", [(16, "cf"), (16, "cl"), (8, "cl"),
+                                      (12, "cf"), (4, "cl")])
+@pytest.mark.parametrize("eo", [True, False])
+@pytest.mark.parametrize("where", ["smem", "scratch"])
+def test_k11_every_plan_matches_its_twin(card, monkeypatch, L, layout, eo,
+                                         where):
+    """K11 under every plan of C = 1, 2, 4, 8 bands of >= 2 rows (the halo
+    copied from up to three bands a side, wrapping) over 5 chains, in
+    shared memory and in device scratch (the limit stubbed to 0): the
+    twin's solution within 1e-4, iters within 1."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    theta, phi = _solve_inputs(card, 5, L, eo, 12)
+    twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, tol=1e-10, maxiter=500,
+                                   eo=eo, layout=layout)
+    if where == "scratch":
+        monkeypatch.setattr(fk._build, "smem_limit", lambda index: 0)
+    for plan in [None] + _cg_plans(L):
+        x, iters = _plan_solve(theta, phi, eo, layout, plan, 1e-10, 500)
+        rel = float((x - twin.x).abs().norm() / twin.x.abs().norm())
+        assert rel < 1e-4 and abs(iters - twin.iters) <= 1, \
+            (plan, rel, iters, twin.iters)
+
+
+def test_k11_freezes_chains_and_refuses_odd_sites(card):
+    """A chain whose b is zero never runs and one whose b holds a NaN stops
+    at once (NaN > stop is false), the others' solves unchanged; an eo b
+    not zero on an odd site is refused after the launch (the kernel's
+    flag), with no second launch."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    theta, phi = _solve_inputs(card, 4, 16, True, 13)
+    ref = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=500)
+    bad = phi.clone()
+    bad[1] = 0
+    bad[2, 0, 0, 0] = float("nan")
+    got = fk.cg_solve_fused(theta, bad, CG_MASS, tol=1e-9, maxiter=500)
+    twin = fk.cg_solve_fused_plain(theta, bad, CG_MASS, tol=1e-9, maxiter=500)
+    assert got.iters == twin.iters <= ref.iters
+    for c in (0, 3):
+        assert torch.equal(got.x[c], ref.x[c])
+        assert torch.equal(got.rsq[c], ref.rsq[c])
+    assert bool((got.x[1] == 0).all())
+    odd = phi.clone()
+    odd[:, 0, 1, 0] = 1.0
+    before = _build.LAUNCHES["K11"]
+    with pytest.raises(ValueError, match="odd sites"):
+        fk.cg_solve_fused(theta, odd, CG_MASS, tol=1e-9, maxiter=500)
+    assert _build.LAUNCHES["K11"] == before + 1
+
+
+def test_k11_smem_bytes_are_the_layout(card):
+    """cg_smem_bytes, the one count of a K11 CTA: the band region (eo: links
+    both parities, p and x, r even, the intermediates both: 20 half planes
+    of the band's rows and 8 of the own rows; not eo 24 and 24) and the
+    reduction area (two slots of 32 warp sums and of the CTA's sum, 16 ints
+    of halo table); -1 for what the kernel does not take."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    for L0, L1, C, rows in ((64, 64, 1, 64), (16, 16, 4, 4),
+                            (256, 256, 8, 32), (20, 12, 8, 3)):
+        for eo in (True, False):
+            H = 4 if C > 1 else 0
+            rs = L1 // 2
+            hs, os_ = (rows + 2 * H) * rs, rows * rs
+            band = 20 * hs + 8 * os_ if eo else 24 * hs + 24 * os_
+            red = 64 + 2 + 16
+            assert fk._cg_bytes(L0, L1, C, rows, eo, True) == 4 * (band + red)
+            assert fk._cg_bytes(L0, L1, C, rows, eo, False) == 4 * red
+    for bad in ((7, 8, 1, 7), (8, 8, 2, 3), (8, 8, 16, 1), (8, 8, 1, 9),
+                (8, 8, 0, 8)):
+        assert fk._cg_bytes(*bad, True, True) == -1
+    # path A's chain in one CTA: 224 KB of the H100's 227
+    assert fk._cg_bytes(64, 64, 1, 64, True, True) <= smem_limit(0)
 
 
 def test_fermion_kernels_refuse_what_they_do_not_take(card):

@@ -128,11 +128,11 @@ def test_cg_solve_fused_matches_jax(layout, warm):
     assert abs(got.iters - int(want.iters)) <= 1
     assert got.iters > (0 if warm else 10)
     assert float(got.rsq.max()) <= 1e-10 and float(want.rsq.max()) <= 1e-10
-    assert got.launched % fk.CHECK_EVERY == 0 and got.launched >= got.iters
+    assert got.launched == got.iters
 
 
 def test_cg_update_matches_the_jax_loop_body():
-    """One K11-twin update against the body of the JAX while_loop
+    """One update of K11's twin against the body of the JAX while_loop
     (pallas_fermion.py:396-409) from the same (x, r, p, rsq) and mp = M p,
     chains-first and chains-last; chain 1 starts converged and must not
     move."""
@@ -169,8 +169,8 @@ def test_cg_update_matches_the_jax_loop_body():
         tp, tmp, tx, tr = lay(p), lay(mp), lay(x), lay(r)
         trsq = torch.as_tensor(rsq.copy())
         counters = torch.zeros(2, dtype=torch.int32)
-        fk.cg_update(tp, tmp, tx, tr, trsq, torch.as_tensor(stop), counters,
-                     6, chains_last)
+        fk.cg_update_plain(tp, tmp, tx, tr, trsq, torch.as_tensor(stop),
+                           counters, 6, chains_last)
         for got, ref in zip((back(tx), back(tr), back(tp), trsq.numpy()),
                             want):
             np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
@@ -180,23 +180,75 @@ def test_cg_update_matches_the_jax_loop_body():
         assert counters.tolist() == [7, 7]
 
 
-def test_checking_every_n_iterations_is_exact(monkeypatch):
-    """The fused CG reads its convergence flag every CHECK_EVERY
-    iterations; the iterations after the last chain converged are exact
-    no-ops, so x, rsq and iters equal those of checking every iteration."""
+def test_twin_iterations_are_jax_k_and_never_past_maxiter():
+    """K11's twin stops at the first iteration after which no chain is
+    active: its iters equal the JAX cg_solve_fused's k (interpret mode) at
+    every maxiter up to convergence, never more than maxiter, and its x
+    equals the JAX x under the cap."""
     theta, phi = _phi(6, B=5)
     args = (torch.as_tensor(theta), torch.as_tensor(phi), MASS)
-    kw = dict(tol=1e-9, maxiter=200, eo=True)
-    chunked = fk.cg_solve_fused(*args, **kw)
-    monkeypatch.setattr(fk, "CHECK_EVERY", 1)
-    each = fk.cg_solve_fused(*args, **kw)
-    assert torch.equal(each.x, chunked.x) and torch.equal(each.rsq,
-                                                          chunked.rsq)
-    assert each.iters == chunked.iters == each.launched
-    assert chunked.launched > chunked.iters
-    monkeypatch.setattr(fk, "CHECK_EVERY", 8)
-    capped = fk.cg_solve_fused(*args, tol=1e-9, maxiter=7, eo=True)
-    assert capped.iters == capped.launched == 7      # never past maxiter
+    free = fk.cg_solve_fused_plain(*args, tol=1e-9, maxiter=200, eo=True)
+    assert 10 < free.iters < 200 and free.launched == free.iters
+    for maxiter in (0, 1, 7, free.iters):
+        got = fk.cg_solve_fused_plain(*args, tol=1e-9, maxiter=maxiter,
+                                      eo=True)
+        want = pf.cg_solve_fused(jnp.asarray(theta), jnp.asarray(phi), MASS,
+                                 tol=1e-9, maxiter=maxiter, eo=True,
+                                 interpret=True)
+        assert got.iters == int(want.iters) == maxiter
+        if maxiter:
+            assert _rel(got.x.numpy(), want.x) < 1e-4
+
+
+def test_twin_freezes_converged_chains_bit_for_bit():
+    """A chain that converges first keeps its x and rsq bit for bit while
+    the others run on: its solution is the one of a solve capped at its own
+    iterations."""
+    theta, phi = _phi(9, B=4)
+    theta[0] *= 0.2                       # a smoother chain: more iterations
+    args = (torch.as_tensor(theta), torch.as_tensor(phi), MASS)
+    alone = [fk.cg_solve_fused_plain(args[0][c:c + 1], args[1][c:c + 1],
+                                     MASS, tol=1e-6, maxiter=300, eo=True)
+             for c in range(4)]
+    both = fk.cg_solve_fused_plain(*args, tol=1e-6, maxiter=300, eo=True)
+    n = [r.iters for r in alone]
+    assert both.iters == max(n) and min(n) < max(n)
+    first = n.index(min(n))
+    capped = fk.cg_solve_fused_plain(*args, tol=1e-6, maxiter=min(n),
+                                     eo=True)
+    assert torch.equal(both.x[first], capped.x[first])
+    assert torch.equal(both.rsq[first], capped.rsq[first])
+
+
+def test_twin_nan_stops_a_chain():
+    """A chain whose b holds a NaN is never active (NaN > stop is false, as
+    in JAX): the others' iterations and solutions are those without it."""
+    theta, phi = _phi(8, B=3)
+    args = (torch.as_tensor(theta), MASS)
+    bad = torch.as_tensor(phi).clone()
+    bad[1, 0, 0, 0] = float("nan")
+    got = fk.cg_solve_fused_plain(args[0], bad, MASS, tol=1e-9, maxiter=300,
+                                  eo=True)
+    keep = [0, 2]
+    ref = fk.cg_solve_fused_plain(args[0][keep], bad[keep], MASS, tol=1e-9,
+                                  maxiter=300, eo=True)
+    assert got.iters == ref.iters > 0
+    assert torch.equal(got.x[keep], ref.x) and torch.isnan(got.rsq[1])
+
+
+def test_eo_solve_refuses_odd_sites():
+    """The fused CG's eo solve keeps the even sites only (K11's compact
+    storage): a b or x0 that is not zero on an odd site is refused, on the
+    CPU as on the card."""
+    theta, phi = _phi(9, B=2)
+    t, p = torch.as_tensor(theta), torch.as_tensor(phi)
+    odd = p.clone()
+    odd[0, 0, 1, 0] = 1.0
+    with pytest.raises(ValueError, match="odd sites"):
+        fk.cg_solve_fused(t, odd, MASS, tol=1e-9, maxiter=10, eo=True)
+    with pytest.raises(ValueError, match="odd sites"):
+        fk.cg_solve_fused(t, p, MASS, odd, tol=1e-9, maxiter=10, eo=True)
+    fk.cg_solve_fused(t, odd, MASS, tol=1e-9, maxiter=10, eo=False)
 
 
 @pytest.mark.parametrize("L0,L1", [(7, 8), (8, 9), (2, 8)])
@@ -221,19 +273,26 @@ def test_wrappers_run_twins_on_the_cpu_and_check_shapes():
     assert fk.mdagm(ur, ui, p4, MASS, True, out=out) is out
     t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
     fk.mdagm_cl(t(ur), t(ui), t(p4), MASS, True)
-    rsq = (p4 * p4).sum(dim=(1, 2, 3))
-    fk.cg_update(p4.clone(), p4, p4.clone(), p4.clone(), rsq, rsq * 0,
-                 torch.zeros(2, dtype=torch.int32), 0, False)
+    res = fk.cg_solve_fused(torch.as_tensor(theta), torch.as_tensor(psi),
+                            MASS, tol=1e-9, maxiter=2, eo=False, layout="cf")
+    assert res.iters == res.launched == 2
     plain = {k: _build.PLAIN_CALLS[k] - before[0][k] for k in before[0]}
-    assert plain == dict.fromkeys(_build.KERNELS, 0) | {"K9": 1, "K10": 1,
-                                                        "K11": 1}
+    # the CG's twin: the initial residual and two iterations of K9's twin,
+    # two updates
+    assert plain == dict.fromkeys(_build.KERNELS, 0) | {"K9": 4, "K10": 1,
+                                                        "K11": 2}
     assert dict(_build.LAUNCHES) == before[1]
     with pytest.raises(ValueError):                    # links vs planes
         fk.mdagm(ur[:, :1], ui[:, :1], p4, MASS, True)
     with pytest.raises(ValueError):                    # chains-last shapes
         fk.mdagm_cl(ur, ui, p4, MASS, True)
-    with pytest.raises(ValueError):
-        fk.cg_update(p4, p4, p4, p4, rsq[:2], rsq, torch.zeros(2), 0, False)
+    rel, counters = torch.zeros(2), torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rel must be"):
+        fk.cg_launch(False, ur, ui, p4, None, MASS, True, 1e-9, 10,
+                     p4.clone(), rel, counters)
+    with pytest.raises(ValueError, match="x and x0"):
+        fk.cg_launch(False, ur, ui, p4, p4[:2], MASS, True, 1e-9, 10,
+                     p4.clone(), torch.zeros(4), counters)
 
 
 def test_resolve_layout():
@@ -262,6 +321,12 @@ def test_bound_signatures_match_the_c_entries():
             assert m, f"{lib}: no C entry {fn}"
             params = [a for a in m.group(1).split(",") if a.strip()]
             assert len(params) == len(argtypes), (fn, params, argtypes)
+    # every entry of fermion.cu is bound, K11's whole solve among them
+    fermion = (csrc / "fermion.cu").read_text()
+    names = set(re.findall(r'extern "C" int (\w+)\(', fermion))
+    assert names == set(_build._SIGNATURES["fermion"])
+    assert {"k11_cg_solve", "cg_smem_bytes"} <= names
+    assert "k11_cg_update" not in names
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +352,8 @@ def _links64(theta):
 def _hop_site(sf0, sb0, sf1, sb1, u, ub0, ub1):
     """hop_site: H at sites whose neighbours n + e0, n - e0, n + e1, n - e1
     hold sf0, sb0, sf1, sb1 (4 planes each), u the links at the sites, ub0
-    and ub1 at n - e0 and n - e1 (ur0, ui0, ur1, ui1)."""
+    and ub1 at n - e0 and n - e1 (ur0, ui0, ur1, ui1): its four planes, of
+    torch tensors or numpy arrays."""
     dr, di = sf0[0] - sf0[2], sf0[1] - sf0[3]
     mr, mi = u[0] * dr - u[1] * di, u[0] * di + u[1] * dr
     h0r, h0i, h1r, h1i = mr, mi, -mr, -mi
@@ -300,7 +366,7 @@ def _hop_site(sf0, sb0, sf1, sb1, u, ub0, ub1):
     dr, di = sb1[0] + sb1[3], sb1[1] - sb1[2]
     mr, mi = ub1[2] * dr + ub1[3] * di, ub1[2] * di - ub1[3] * dr
     h0r, h0i, h1r, h1i = h0r + mr, h0i + mi, h1r - mi, h1i + mr
-    return torch.stack((h0r, h0i, h1r, h1i))
+    return h0r, h0i, h1r, h1i
 
 
 def banded_op(urt, uit, p4t, mass, eo, C, row0, tile):
@@ -350,10 +416,10 @@ def banded_op(urt, uit, p4t, mass, eo, C, row0, tile):
                     jp, jm = (j + 1) % L1, (j - 1) % L1
                     if kind != "scale":
                         X = bufs[src]
-                        h = _hop_site(X[:, bb + 1, j], X[:, bb - 1, j],
-                                      X[:, bb, jp], X[:, bb, jm],
-                                      U[:, bb, j], U[:, bb - 1, j],
-                                      U[:, bb, jm])
+                        h = torch.stack(_hop_site(
+                            X[:, bb + 1, j], X[:, bb - 1, j], X[:, bb, jp],
+                            X[:, bb, jm], U[:, bb, j], U[:, bb - 1, j],
+                            U[:, bb, jm]))
                     if kind == "hop":
                         bufs[dst][:, bb, j] = h
                         continue
@@ -470,3 +536,375 @@ def test_operator_plan_takes_scratch_only_past_the_limit(monkeypatch):
                        ((2, (0, 4, 8)), 3)):
         with pytest.raises(ValueError, match="band plan"):
             fk.operator_plan(True, 4, 8, 8, dev, plan, tile)
+
+
+# ---------------------------------------------------------------------------
+# K11's geometry (csrc/fermion.cu, cg_kernel), mirrored in float64 numpy: a
+# chain split into C bands of rows, a CTA each; every set
+# checkerboard-compact (planes, parity halves, rows, half-columns), eo
+# keeping only the even sites
+# of p, x and r; one band wrapping its rows around the lattice, bands in a
+# cluster holding four halo rows a side of p, copied each iteration from
+# the bands that own them; the passes of K9 on the compact sets; each sum a
+# thread's sites in the order of its walk, a butterfly in the warp, the
+# warps in order, the ranks in order. Rows a band never writes are NaN, so
+# a site that reads one shows.
+# ---------------------------------------------------------------------------
+
+def _cg_threads(R, W):
+    """cg_plan's threads: the power of two covering a band's sites of one
+    parity, 32 to 1024."""
+    n = 32
+    while n < min(R * W, 1024):
+        n *= 2
+    return n
+
+
+def _np_group_sum(parts, NT):
+    """cg_sum over the CTAs of a chain: parts[r] (NT,) the threads'
+    partials of rank r."""
+    lanes = np.arange(32)
+    total = 0.0
+    for part in parts:
+        v = part.reshape(-1, 32)             # warp w, lane
+        o = 16
+        while o >= 1:                        # butterfly in the warp
+            v = v + v[:, lanes ^ o]
+            o //= 2
+        s = np.zeros(32)
+        s[:v.shape[0]] = v[:, 0]             # lane w: warp w's sum
+        o = 16
+        while o >= 1:
+            s = s + s[lanes ^ o]
+            o //= 2
+        total = total + s[0]                 # the ranks in order
+    return total
+
+
+def mirror_k11(layout, ur, ui, b, x0, mass, eo, tol, maxiter, C, row0):
+    """K11's solve of numpy float64 planes in ``layout`` (links (B, 2, L0,
+    L1) or (2, L0, L1, B), b and x0 (B, 4, L0, L1) or (4, L0, L1, B)) as
+    cg_kernel runs it, chain by chain: (x, iters, live, rel, odd)."""
+    cl = layout == "cl"
+    B = b.shape[-1] if cl else b.shape[0]
+    L0, L1 = (b.shape[1], b.shape[2]) if cl else (b.shape[2], b.shape[3])
+    W, H = L1 // 2, 4 if C > 1 else 0
+    rows = [hi - lo for lo, hi in zip(row0, row0[1:])]
+    Rm = max(rows)
+    NR = Rm + 2 * H
+    NT = _cg_threads(Rm, W)
+    # b in fp32, as the twins form it (b * even, an fp32 mask) and the
+    # kernels take it
+    a = mass + 2.0
+    bq = float(np.float32(0.25 / a))
+    npar = 1 if eo else 2
+    nan = float("nan")
+    rel = np.full(B, nan)
+    iters = live = 0
+    odd = False
+
+    # the global planes as (plane, row, column, chain): the layout orders
+    # the kernel's loads, not what they read
+    def canon(arr):
+        return arr if cl else arr.transpose(1, 2, 3, 0)
+
+    spinor = {"b": canon(b), "x0": None if x0 is None else canon(x0)}
+    links = np.stack([canon(ur)[0], canon(ui)[0], canon(ur)[1],
+                      canon(ui)[1]])
+    xc = np.full((4, L0, L1, B), nan)
+
+    for c in range(B):
+        cta = []
+        for r in range(C):
+            R, r0 = rows[r], row0[r]
+            d = {"R": R, "r0": r0}
+            for name, halves, nrow in (("U", 2, NR), ("P", npar, NR),
+                                       ("Q", 2, NR), ("X", npar, Rm),
+                                       ("Rr", npar, Rm)):
+                d[name] = np.full((4, halves, nrow, W), nan)
+            d["M"] = d["Q"] if eo else np.full((4, 2, Rm, W), nan)
+            cta.append(d)
+
+        def load(d, name, src, s_lo, g_lo, nr):
+            nonlocal odd
+            i = (g_lo + np.arange(nr)) % L0
+            vals = src[:, i][..., c]
+            arr = d[name]
+            for par in range(2):
+                cols = 2 * np.arange(W)[None, :] + (i[:, None] + par) % 2
+                got = vals[:, np.arange(nr)[:, None], cols]
+                if par and arr.shape[1] == 1:
+                    odd |= bool((got != 0).any())
+                    continue
+                arr[:, par, s_lo:s_lo + nr] = got
+
+        for d in cta:
+            load(d, "U", links, 0, d["r0"] - H, d["R"] + 2 * H)
+            load(d, "Rr", spinor["b"], 0, d["r0"], d["R"])
+            if x0 is not None:
+                load(d, "P", spinor["x0"], 0, d["r0"] - H, d["R"] + 2 * H)
+
+        def half(d, name, par):
+            arr = d[name]
+            return arr[:, par if arr.shape[1] == 2 else 0]
+
+        def cpass(d, kind, tp, lo, n, src, self_, dst, c, row0_self=0,
+                  row0_dst=0):
+            """A pass on rows [lo, lo + n): returns nothing; writes dst."""
+            bb = np.arange(lo, lo + n)
+            q = (d["r0"] - H + bb + tp) % 2
+            up, dn = bb + 1, bb - 1
+            if H == 0:
+                up, dn = up % NR, dn % NR
+            jh = np.arange(W)
+            hf = (jh[None, :] + q[:, None]) % W
+            hb = (jh[None, :] + q[:, None] - 1) % W
+            S = half(d, src, 1 - tp)
+            Us, Un = d["U"][:, tp], d["U"][:, 1 - tp]
+            B_ = bb[:, None]
+            h = np.stack(_hop_site(S[:, up][:, :, jh], S[:, dn][:, :, jh],
+                                   S[:, B_, hf], S[:, B_, hb],
+                                   Us[:, bb][:, :, jh], Un[:, dn][:, :, jh],
+                                   Un[:, B_, hb]))
+            D = half(d, dst, tp)
+            if kind == "hop":
+                D[:, bb - row0_dst] = h
+            else:
+                v = a * half(d, self_, tp)[:, bb - row0_self] - c * h
+                v[2:] = -v[2:]
+                D[:, bb - row0_dst] = v
+
+        def apply(d):
+            R = d["R"]
+            lo = [H and i for i in range(5)]
+            n = [R + 2 * (H - i) if H else NR for i in range(5)]
+            if eo:
+                cpass(d, "hop", 1, lo[1], n[1], "P", None, "Q", 0.0)
+                cpass(d, "combine", 0, lo[2], n[2], "Q", "P", "Q", bq)
+                cpass(d, "hop", 1, lo[3], n[3], "Q", None, "Q", 0.0)
+                cpass(d, "combine", 0, H, R, "Q", "Q", "Q", bq)
+            else:
+                for tp in (0, 1):
+                    cpass(d, "combine", tp, lo[3], n[3], "P", "P", "Q", 0.5)
+                for tp in (0, 1):
+                    cpass(d, "combine", tp, H, R, "Q", "Q", "M", 0.5,
+                          row0_dst=H)
+
+        def own(d, name, par):
+            """(4, R, W) view of a set's own rows."""
+            arr = half(d, name, par)
+            off = 0 if name in ("X", "Rr") or (name == "M" and not eo) \
+                else H
+            return arr[:, off:off + d["R"]]
+
+        def thread_sums(d, prods):
+            """Each thread's sum over its sites in its walk's order: the
+            items (parity, row, half-column) of each parity, item e the
+            thread e % NT's, its four planes in turn."""
+            acc = np.zeros(NT)
+            for prod in prods:                    # (4, R, W) a parity
+                flat = prod.reshape(4, -1)
+                for m in range(0, flat.shape[1], NT):
+                    seg = flat[:, m:m + NT]
+                    for k in range(4):
+                        acc[:seg.shape[1]] += seg[k]
+            return acc
+
+        if x0 is not None:
+            for d in cta:
+                apply(d)
+        bsq_p, rsq_p = [], []
+        for d in cta:
+            bs, rs = [], []
+            for par in range(npar):
+                bv = own(d, "Rr", par).copy()
+                if x0 is not None:
+                    xv = own(d, "P", par).copy()
+                    rv = bv - own(d, "M", par)
+                else:
+                    xv, rv = np.zeros_like(bv), bv
+                own(d, "X", par)[...] = xv
+                own(d, "Rr", par)[...] = rv
+                own(d, "P", par)[...] = rv
+                bs.append(bv * bv)
+                rs.append(rv * rv)
+            bsq_p.append(thread_sums(d, bs))
+            rsq_p.append(thread_sums(d, rs))
+        bsq = _np_group_sum(bsq_p, NT)
+        rsq = _np_group_sum(rsq_p, NT)
+        stop = tol * bsq
+        act = rsq > stop
+        it = 0
+        while act and it < maxiter:
+            if H:
+                for d in cta:
+                    R, r0 = d["R"], d["r0"]
+                    for hr in range(2 * H):
+                        db = hr if hr < H else R + hr
+                        g = (r0 - H + db) % L0
+                        o = max(i for i in range(C) if row0[i] <= g)
+                        d["P"][:, :, db] = cta[o]["P"][:, :, H + g - row0[o]]
+            dots = []
+            for d in cta:
+                apply(d)
+                dots.append(thread_sums(d, [own(d, "P", par) * own(d, "M", par)
+                                            for par in range(npar)]))
+            denom = _np_group_sum(dots, NT)
+            alpha = rsq / max(denom, 1e-30)
+            rn_p = []
+            for d in cta:
+                rs = []
+                for par in range(npar):
+                    X, Rr = own(d, "X", par), own(d, "Rr", par)
+                    P, M = own(d, "P", par), own(d, "M", par)
+                    X += alpha * P
+                    Rr -= alpha * M
+                    rs.append(Rr * Rr)
+                rn_p.append(thread_sums(d, rs))
+            rn = _np_group_sum(rn_p, NT)
+            nxt = rn > stop
+            beta = rn / max(rsq, 1e-30)
+            for d in cta:
+                for par in range(npar):
+                    P, Rr = own(d, "P", par), own(d, "Rr", par)
+                    P[...] = Rr + beta * P
+            rsq = rn
+            it += 1
+            iters = max(iters, it)
+            if nxt:
+                live = max(live, it)
+            act = nxt
+        for d in cta:
+            i = d["r0"] + np.arange(d["R"])
+            for par in range(2):
+                cols = 2 * np.arange(W)[None, :] + (i[:, None] + par) % 2
+                v = (np.zeros((4, d["R"], W)) if par and npar == 1
+                     else half(d, "X", par)[:, :d["R"]])
+                xc[:, i[:, None], cols, c] = v
+        rel[c] = rsq / max(bsq, 1e-30)
+    x = xc if cl else xc.transpose(3, 0, 1, 2)
+    return x, iters, live, rel, odd
+
+
+@pytest.mark.parametrize("L", [4, 8, 16, 64])
+@pytest.mark.parametrize("layout", ["cf", "cl"])
+@pytest.mark.parametrize("eo", [False, True])
+def test_k11_mirror_reproduces_the_twin(L, layout, eo):
+    """The mirror of cg_kernel reproduces cg_planes_plain in float64 to
+    1e-12 (relative to max|x|) with the same iterations, cold and warm,
+    under every plan of C = 1, 2, 4, 8 bands of >= 2 rows (halo rows from
+    up to three bands a side, wrapping), over 3 chains in both layouts; no
+    odd site flagged. At 64^2 the plans are mirrored on cold starts, to
+    keep the test short."""
+    B = 3
+    theta, psi = _fields(40 + L, B=B, L0=L, L1=L, eo=eo)
+    _, guess = _fields(80 + L, B=B, L0=L, L1=L, eo=eo)
+    ur, ui = _links64(theta)
+    b4 = fk.pack_spinor(torch.as_tensor(psi).to(torch.complex128))
+    x04 = fk.pack_spinor(torch.as_tensor(guess).to(torch.complex128)) * 0.1
+    cl = (lambda t: t.permute(1, 2, 3, 0).contiguous())  # noqa: E731
+    if layout == "cl":
+        ur, ui, b4, x04 = cl(ur), cl(ui), cl(b4), cl(x04)
+    tol, maxiter = 1e-14, 200
+    starts = (None,) if L == 64 else (None, x04)
+    for x0 in starts:
+        want, k, rsq, bsq = fk.cg_planes_plain(ur, ui, b4, x0, MASS, tol,
+                                               maxiter, eo, layout == "cl")
+        want = want.numpy()
+        assert 5 < k < maxiter
+        for C, row0 in _plans(L):
+            got, iters, live, rel, odd = mirror_k11(
+                layout, ur.numpy(), ui.numpy(), b4.numpy(),
+                None if x0 is None else x0.numpy(), MASS, eo, tol, maxiter,
+                C, row0)
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            assert err < 1e-12 and iters == k, (C, err, iters, k)
+            assert live == k - 1 and not odd
+            np.testing.assert_allclose(rel, (rsq / bsq).numpy(), rtol=1e-6)
+
+
+def test_k11_mirror_flags_odd_sites_and_caps():
+    """The mirror flags an eo b that is not zero on an odd site, and stops
+    at maxiter with live == iters (a chain still active)."""
+    theta, psi = _fields(91, B=2, L0=8, L1=8, eo=False)
+    ur, ui = _links64(theta)
+    b4 = fk.pack_spinor(torch.as_tensor(psi).to(torch.complex128)).numpy()
+    *_, odd = mirror_k11("cf", ur.numpy(), ui.numpy(), b4, None, MASS, True,
+                         1e-14, 0, 1, (0, 8))
+    assert odd
+    even = fk.parity_masks(8, 8, 0, "cpu")[0].double().numpy()
+    x, iters, live, _, odd = mirror_k11("cf", ur.numpy(), ui.numpy(),
+                                        b4 * even, None, MASS, True, 1e-14,
+                                        3, 2, (0, 4, 8))
+    assert (iters, live, odd) == (3, 3, False)
+    want = fk.cg_planes_plain(ur, ui, torch.as_tensor(b4 * even), None, MASS,
+                              1e-14, 3, True, False)[0].numpy()
+    assert float(np.abs(x - want).max()) < 1e-12 * float(np.abs(want).max())
+
+
+def _np_cg_bytes(L0, L1, C, rows, eo, in_smem):
+    """cg_smem_bytes (csrc/fermion.cu, CgLayout): eo 20 half planes of the
+    band's rows and 8 of the own rows, not eo 24 and 24, of L1 / 2 floats,
+    and the reduction area (64 + 2 + 16 floats)."""
+    ok = (L0 >= 4 and L1 >= 4 and L0 % 2 == 0 and L1 % 2 == 0
+          and 1 <= C <= 8 and 1 <= rows <= L0 and rows * C >= L0)
+    if not ok:
+        return -1
+    H = 4 if C > 1 else 0
+    rs = L1 // 2
+    hs, os_ = (rows + 2 * H) * rs, rows * rs
+    band = 20 * hs + 8 * os_ if eo else 24 * hs + 24 * os_
+    red = 64 + 2 + 16
+    return 4 * (band + red) if in_smem else 4 * red
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """The card's queries of an H100 (132 SMs, 227 KB of shared memory a
+    block), and cg_smem_bytes's count, stubbed."""
+    monkeypatch.setattr(_build, "sm_count", lambda index: N_SM)
+    monkeypatch.setattr(_build, "smem_limit", lambda index: 232448)
+    monkeypatch.setattr(fk, "_cg_bytes", _np_cg_bytes)
+    return torch.device("cuda", 0)
+
+
+def test_cg_plan_covers_every_even_side(h100):
+    """Every even L from 4 to 256 at B = 1, 16, 64, 128 gets a K11 plan, in
+    shared memory or (from 256^2 eo, 192^2 not eo) in scratch: bands that
+    partition the rows, threads a power of two covering a band's row
+    sites; odd or tiny sides, and plans the kernel does not take, raise
+    naming the envelope."""
+    for L in range(4, 257, 2):
+        for B in (1, 16, 64, 128):
+            for eo in (False, True):
+                pl = fk.cg_plan(eo, B, L, L, h100)
+                rows = [hi - lo for lo, hi in zip(pl.row0, pl.row0[1:])]
+                assert pl.row0[0] == 0 and pl.row0[-1] == L
+                assert min(rows) >= 1 and len(rows) == pl.C <= 8
+                assert 32 <= pl.threads <= 1024
+                need = _np_cg_bytes(L, L, pl.C, max(rows), eo, True)
+                if pl.scratch:
+                    red = _np_cg_bytes(L, L, pl.C, max(rows), eo, False)
+                    assert need > 232448
+                    assert pl.scratch == B * pl.C * (need - red) // 4
+                else:
+                    assert need <= 232448
+    for L0, L1 in ((7, 8), (8, 9), (2, 8), (257, 256)):
+        with pytest.raises(ValueError, match="even sides >= 4"):
+            fk.cg_plan(True, 4, L0, L1, h100)
+    for plan in ((2, (0, 3, 7)), (3, (0, 4, 8)), (9, tuple(range(9)) + (8,))):
+        with pytest.raises(ValueError, match="band plan"):
+            fk.cg_plan(True, 4, 8, 8, h100, plan=plan)
+
+
+def test_cg_plans_of_the_paths(h100):
+    """Path A (64^2, 64 chains, eo): one CTA a chain in shared memory;
+    paths B and C (16^2, 128 chains, either layout): one CTA a chain;
+    128^2 in shared memory in a cluster, 256^2 in scratch."""
+    A = fk.cg_plan(True, 64, 64, 64, h100)
+    assert A == fk.CGPlan(1, (0, 64), 1024, 0)
+    assert fk.cg_plan(True, 128, 16, 16, h100) == \
+        fk.CGPlan(1, (0, 16), 128, 0)
+    big = fk.cg_plan(True, 4, 128, 128, h100)
+    assert big.C > 1 and big.scratch == 0
+    assert fk.cg_plan(True, 4, 256, 256, h100).scratch > 0

@@ -7,15 +7,18 @@ Phases, each printed on its own line:
   1. build the CUDA kernels (K1-K11) from fthmc_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once;
   2. the card's name and power limit, as nvidia-smi gives them;
-  3. each kernel against its plain PyTorch twin on the card: K1, K6, K7, K8
-     at the flagship FT-HMC shapes (16^2, 64 chains, 24-layer rncp, hidden
+  3. each kernel against its plain PyTorch twin on the card: K1 at the
+     shapes the paths give it (FT 16^2 x 64, path A 64^2 x 64, path B 16^2
+     x 128, the headline 64^2 x 1024, and 20^2 x 3); K6, K7, K8 at the
+     flagship FT-HMC shapes (16^2, 64 chains, 24-layer rncp, hidden
      (32, 32), 8 components, s_clip 3) on every layer of the flow (all eight
-     (mu, off) masks), K6-K8 also at path C's (16^2, 128 chains) on every
+     (mu, off) masks), also at path C's (16^2, 128 chains) on every
      layer and at 64^2, 8 chains on one, TF32 off, then the whole kernel
      force chain against the autograd force; K2, K4, K5 at the plain-HMC
      headline shapes (64^2, 1024 chains, beta=6, dt=0.04, 25 steps), and
      at 128^2 and 256^2 (16 chains, bands in a cluster), and K3 at 32^2,
-     1024 chains; K5 also against hmc_step's 'xla' path on the same draws;
+     8^2 and 48^2 with 1024 chains, 16^2 with 1000 and 64^2 with 16, bit
+     for bit; K5 also against hmc_step's 'xla' path on the same draws;
   4. the FT-HMC path: flagship FT-HMC with the trained flow at 16^2,
      beta=6, tau=0.5, 8 Omelyan steps, 64 chains, from z0 = f^-1(0),
      through run_fthmc with the default (kernel) force backend; physics
@@ -26,8 +29,10 @@ Phases, each printed on its own line:
      start) with the default backend (K2), 'fused' (K4) and 'fused_hostrng'
      (K5), and K3's 'pallas_cl' at 32^2; each run's launch counters (set to
      0 just before it) and physics checks;
-  7. timings with CUDA events: every kernel and its plain twin (K1 also
-     as the card's time, graph_ms, at the FT shape and at path A's), the
+  7. timings with CUDA events: every kernel and its plain twin (K1 as the
+     card's time, graph_ms, at the FT, path A, path B and headline shapes
+     under every band plan, beside an empty kernel's launch on the same
+     grid, its floor), the
      kernel force chain against the autograd force, K6-K8 at the three shapes of
      phase 3 (launched on prepared pointers, and through their wrappers)
      beside cuDNN running the same layer's convs (a yardstick) and the
@@ -35,8 +40,10 @@ Phases, each printed on its own line:
      those shapes (the "band_plans" line), the flagship FT-HMC's device
      busy share over two trajectories, K2, K4 and K5 under every band plan
      (traj_plans) at 64^2 x 1024, 128^2 x 256 and 256^2 x 64 chains, each
-     held against its twin, with their bounds (the "traj_plans" line), K2
-     against K3 over L (the 'auto' rule), FT-HMC chain-steps/s, and the
+     held against its twin, with their bounds (the "traj_plans" line), K3
+     under every plan of chain tiles at 8^2-64^2 x 1024 chains, each held
+     bit for bit to its twin (the "k3_plans" line), K2 against K3 over L
+     and chain counts (the 'auto' rule), FT-HMC chain-steps/s, and the
      headline's chain-steps/s
      as fthmc_tpu/bench.py defines it for 'auto' and 'fused', with a
      profiler pass for the device's busy share;
@@ -84,7 +91,8 @@ import torch.nn.functional as F
 from fthmc_tpu_torch import fermion as tf
 from fthmc_tpu_torch import lattice
 from fthmc_tpu_torch.config import HMCConfig, LeapfrogConfig
-from fthmc_tpu_torch.hmc import ft_force, hmc_step, run_fthmc, run_hmc
+from fthmc_tpu_torch.hmc import (ft_force, hmc_step, resolve_backend,
+                                 run_fthmc, run_hmc)
 from fthmc_tpu_torch.models.flow import flow_reverse
 from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
 from fthmc_tpu_torch.ops import _build, rng
@@ -130,6 +138,24 @@ MIN_ACCEPTANCE = 0.78
 HMC_CFG = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, n_chains=1024,
                     randinit=False, seed=0)
 CL_L = 32
+# K1 at the shapes the paths give it: FT (16^2 x 64), path A (64^2 x 64),
+# path B (16^2 x 128), the headline's 'xla' step (64^2 x 1024), and an odd
+# lattice with a ragged band (20^2 x 3), each held to its twin (phase 3),
+# the first four also timed under every plan beside an empty kernel's
+# launch on the same grid, its floor (phase 7)
+K1_SHAPES = {"FT": (64, 16), "A": (64, 64), "B": (128, 16),
+             "headline": (1024, 64), "odd": (3, 20)}
+# K3 held bit-equal to its twin (phase 3): CL_L^2 x 1024, 8^2 and 48^2 at
+# 1024 chains, a chain count no tile divides, and 64^2, which the old body
+# could not take; K3's plans of chain tiles timed at 1024 chains at these L
+# (phase 7), and K2 against K3 over L (the 'auto' rule) at 1024 chains and
+# at 128 for the small lattices
+K3_SHAPES = {"32^2x1024": (1024, 32), "8^2x1024": (1024, 8),
+             "48^2x1024": (1024, 48), "16^2x1000": (1000, 16),
+             "64^2x16": (16, 64)}
+K3_PLAN_L = (8, 16, 32, 48, 64)
+AUTO_RULE_SHAPES = ((1024, 8), (1024, 16), (1024, 32), (1024, 48),
+                    (1024, 64), (128, 8), (128, 16))
 # K2, K4 and K5 above what one CTA holds (bands in a cluster): held against
 # their twins at these L with LARGE_CHAINS chains, the headline's beta, dt
 # and steps; the plan sweep runs each plan of traj_plans at these (chains,
@@ -528,7 +554,7 @@ def traj_check(what: str, got, ref, x0, v0, u, cfg) -> dict:
 
 
 def leapfrog_check(what: str, got, ref) -> dict:
-    """K2/K3-style output (x', v') against the twin's: x' within 1e-4
+    """K2's output (x', v') against the twin's: x' within 1e-4
     wrapped, v' within 1e-4 x max|v'| (the kernels repeat the twin op for
     op)."""
     torch.cuda.synchronize()
@@ -613,26 +639,166 @@ def traj_plan_sweep(dev, n_sm: int) -> dict:
     return out
 
 
+def compare_k1(dev) -> tuple[float, float, dict]:
+    """Phase 3: K1 at each of K1_SHAPES (uniform links) against its twin,
+    within 1e-4 x max(1, max|F|) (PERF.md section 2), and two launches
+    bit-equal. Returns (worst error, tightest tolerance, by shape)."""
+    g = torch.Generator(device=dev).manual_seed(2030)
+    out = {}
+    for name, (b, n) in K1_SHAPES.items():
+        x = (torch.rand((b, 2, n, n), generator=g, device=dev) * 2 - 1) \
+            * math.pi
+        got, ref = force(x, BETA), force_plain(x, BETA)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        out[name] = {"chains": b, "L": n, "plan": list(lk.force_plan(n)),
+                     "max_abs_err": float((got - ref).abs().max()),
+                     "tolerance": tol, "bit_equal": torch.equal(got, ref),
+                     "repeat_bit_equal": torch.equal(got, force(x, BETA))}
+        require(out[name]["max_abs_err"] <= tol
+                and out[name]["repeat_bit_equal"], f"K1 {name}: {out[name]}")
+    return (max(r["max_abs_err"] for r in out.values()),
+            min(r["tolerance"] for r in out.values()), out)
+
+
+def k3_check(what: str, x, v, plan=None) -> float:
+    """K3 (under ``plan``) against its twin at the headline's beta, dt and
+    steps: bit-equal, and two launches bit-equal. Returns the largest
+    difference (0.0)."""
+    args = (HMC_CFG.beta, HMC_CFG.dt, HMC_CFG.nstep)
+    got = lk.leapfrog_cl(x, v, *args, plan=plan)
+    again = lk.leapfrog_cl(x, v, *args, plan=plan)
+    ref = lk.leapfrog_cl_plain(x, v, *args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+            f"K3 {what} plan {plan}: not bit-equal to its twin (max diff "
+            f"{err})")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"K3 {what} plan {plan}: two launches differ")
+    return err
+
+
+def compare_k3(dev) -> dict:
+    """Phase 3: K3 at each of K3_SHAPES from near-equilibrium links,
+    bit-equal to its twin (k3_check)."""
+    g = torch.Generator(device=dev).manual_seed(2031)
+    n_sm = sm_count(torch.cuda.current_device())
+    out = {}
+    for name, (b, n) in K3_SHAPES.items():
+        x = near_equilibrium(g, b, n, HMC_CFG.beta, dev)
+        v = torch.randn(x.shape, generator=g, device=dev)
+        out[name] = {"chains": b, "L": n,
+                     "plan": list(lk.traj_plan(n, b, n_sm, "K3")),
+                     "max_abs_err": k3_check(name, x, v)}
+    return out
+
+
+def k3_plan_sweep(dev, n_sm: int) -> dict:
+    """Phase 7: K3 under every plan of traj_plans(L, K3_TILES) at
+    K3_PLAN_L x 1024 chains, each held bit-equal to its twin, then timed as
+    the card's time (graph_ms: at 8^2 and 16^2 back-to-back wrapper calls
+    time the host's call), beside K2's and the bound."""
+    cfg = HMC_CFG
+    args = (cfg.beta, cfg.dt, cfg.nstep)
+    g = torch.Generator(device=dev).manual_seed(2032)
+    out = {}
+    for n in K3_PLAN_L:
+        x = near_equilibrium(g, cfg.n_chains, n, cfg.beta, dev)
+        v = torch.randn(x.shape, generator=g, device=dev)
+        row = {"chains": cfg.n_chains, "L": n,
+               "picked": list(lk.traj_plan(n, cfg.n_chains, n_sm, "K3")),
+               "bound_ms": traj_bounds(cfg.n_chains, n,
+                                       cfg.nstep)["K3"]["bound_ms"],
+               "K2_ms": graph_ms(lambda: lambda: lk.leapfrog(x, v, *args)),
+               "plans": []}
+        for plan in lk.traj_plans(n, lk.K3_TILES):
+            k3_check(f"{n}^2", x, v, plan)
+            row["plans"].append({"plan": list(plan), "ms": graph_ms(
+                lambda: lambda: lk.leapfrog_cl(x, v, *args, plan=plan))})
+        out[f"{n}^2"] = row
+    return out
+
+
+def auto_rule_sweep(dev) -> dict:
+    """Phase 7: K2 against K3 at AUTO_RULE_SHAPES, default plans, as the
+    card's time (graph_ms; the verdict, "faster") and through their
+    wrappers (CUDA events over back-to-back calls, host-bound at 8^2 and
+    16^2), and what 'auto' picks."""
+    cfg = HMC_CFG
+    args = (cfg.beta, cfg.dt, cfg.nstep)
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for b, n in AUTO_RULE_SHAPES:
+        x = near_equilibrium(g, b, n, cfg.beta, dev)
+        v = torch.randn(x.shape, generator=g, device=dev)
+        r = {"auto": resolve_backend("auto", "leapfrog", x.dtype, dev,
+                                     x.shape)}
+        for k, fn in (("K2", lk.leapfrog), ("K3", lk.leapfrog_cl)):
+            r[k] = cuda_ms(lambda: fn(x, v, *args))
+            r[k + "_graph"] = graph_ms(lambda: lambda: fn(x, v, *args))
+        r["faster"] = min(("K2", "K3"), key=lambda k: r[k + "_graph"])
+        r["rule_agrees"] = (r["auto"] == "pallas_cl") == (r["faster"] == "K3")
+        out[f"{n}^2x{b}"] = r
+    return out
+
+
+def k1_timings(dev) -> dict:
+    """Phase 7: K1 at the first four of K1_SHAPES (near-equilibrium links):
+    the card's time (graph_ms; events over back-to-back calls time the
+    host's ctypes call at 16^2) under the default plan and every plan of
+    force_plans(L), each held to its twin, an empty kernel's launch on the
+    default plan's grid in the same harness (the floor), events beside,
+    and the bound (2 fields moved, 8 flops a site)."""
+    lib = _build.library("force")
+    out = {}
+    for name in ("FT", "A", "B", "headline"):
+        b, n = K1_SHAPES[name]
+        xs = near_equilibrium(torch.Generator(device=dev).manual_seed(53), b,
+                              n, BETA, dev)
+        ref = force_plain(xs, BETA)
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        plan = lk.force_plan(n)
+
+        def empty():
+            a = (-(-n // plan.rows), b, plan.threads,
+                 _build.stream_handle(xs))
+            return lambda: _build.check(lib.ft_empty_launch(*a),
+                                        "empty kernel", lib)
+        by_plan = []
+        for p in lk.force_plans(n):
+            err = float((force(xs, BETA, plan=p) - ref).abs().max())
+            require(err <= tol, f"K1 {name} plan {p}: {err}")
+            by_plan.append({"plan": list(p), "graph_ms": graph_ms(
+                lambda p=p: lambda: force(xs, BETA, plan=p))})
+        sites = b * n * n
+        out[name] = {
+            "chains": b, "L": n, "plan": list(plan),
+            "graph_ms": graph_ms(lambda: lambda: force(xs, BETA)),
+            "floor_graph_ms": graph_ms(empty),
+            "event_ms": cuda_ms(lambda: force(xs, BETA)),
+            "plain_ms": cuda_ms(lambda: force_plain(xs, BETA)),
+            **_bound(2 * 4 * 2 * sites, 8 * sites), "by_plan": by_plan}
+    return out
+
+
 def compare_trajectory_kernels(dev):
-    """Phase 3, plain HMC: K2, K4, K5 at the headline shapes and K3 at
-    CL_L^2, each against its plain twin from near-equilibrium links; K5
+    """Phase 3, plain HMC: K2, K4, K5 at the headline shapes, each against
+    its plain twin from near-equilibrium links (K3: compare_k3); K5
     against hmc_step's 'xla' path (the torch loop with K1) on the same
-    generator draws. Returns (errors, tolerances, details, inputs)."""
+    generator draws. Returns (errors, tolerances, details, inputs, with
+    K3's timed CL_L^2 links and momenta)."""
     cfg = HMC_CFG
     B, L, beta, dt, n = cfg.n_chains, cfg.L, cfg.beta, cfg.dt, cfg.nstep
     g = torch.Generator(device=dev).manual_seed(2027)
     x, v, u, seed = traj_inputs(g, B, L, dev)
     x3 = near_equilibrium(g, B, CL_L, beta, dev)
     v3 = torch.randn(x3.shape, generator=g, device=dev)
-    errs, tols, info = {}, {}, {}
-    for k, (a, b), (got, ref) in (
-            ("K2", (x, v), (lk.leapfrog(x, v, beta, dt, n),
-                            lk.leapfrog_plain(x, v, beta, dt, n))),
-            ("K3", (x3, v3), (lk.leapfrog_cl(x3, v3, beta, dt, n),
-                              lk.leapfrog_cl_plain(x3, v3, beta, dt, n)))):
-        info[k] = leapfrog_check(k, got, ref)
-        errs[k] = max(info[k]["x_max_wrapped_err"], info[k]["v_max_abs_err"])
-        tols[k] = min(1e-4, info[k]["v_tolerance"])
+    info = {"K2": leapfrog_check("K2", lk.leapfrog(x, v, beta, dt, n),
+                                 lk.leapfrog_plain(x, v, beta, dt, n))}
+    errs = {"K2": max(info["K2"]["x_max_wrapped_err"],
+                      info["K2"]["v_max_abs_err"])}
+    tols = {"K2": min(1e-4, info["K2"]["v_tolerance"])}
     info["K5"] = traj_check("K5", lk.hmc_traj_hostrng(x, v, u, beta, dt, n),
                             lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, n),
                             x, v, u, cfg)
@@ -1291,10 +1457,8 @@ def main() -> None:
            for name, (cb, cl, _) in COUPLING_SHAPES.items()}
     x, gy, gl = cin["flagship"]
     errs, tols = {}, {}
+    errs["K1"], tols["K1"], k1_by_shape = compare_k1(dev)
     with full_fp32():
-        f_ref = force_plain(x, BETA)
-        errs["K1"] = float((force(x, BETA) - f_ref).abs().max())
-        tols["K1"] = 1e-4 * max(1.0, float(f_ref.abs().max()))
         by_shape = {}
         for name, (_, _, layers) in COUPLING_SHAPES.items():
             pairs = compare_coupling(params, spec, *cin[name], layers)
@@ -1303,7 +1467,6 @@ def main() -> None:
             for k, pr in pairs.items():
                 errs[k] = max(errs.get(k, 0.0), max(e for e, _ in pr))
                 tols[k] = min(tols.get(k, math.inf), min(t for _, t in pr))
-        require(errs["K1"] <= tols["K1"], f"K1 vs plain: {errs['K1']}")
         f_k = ft_force_kernel(params, spec, x, BETA)
         f_a = ft_force(params, spec, x, BETA, device=dev)
         torch.cuda.synchronize()
@@ -1312,7 +1475,7 @@ def main() -> None:
         require(bool(torch.isfinite(f_k).all()), "kernel force not finite")
         require(chain_err <= chain_tol, f"force chain: {chain_err}")
     say("compare", max_abs_err=errs, tolerance=tols,
-        coupling_max_abs_err_by_shape=by_shape,
+        k1_by_shape=k1_by_shape, coupling_max_abs_err_by_shape=by_shape,
         coupling_shapes=COUPLING_SHAPES,
         ft_force_kernel_vs_autograd={"max_abs_err": chain_err,
                                      "tolerance": chain_tol})
@@ -1320,8 +1483,11 @@ def main() -> None:
         compare_trajectory_kernels(dev)
     errs.update(e_h)
     tols.update(t_h)
+    k3_by_shape = compare_k3(dev)
+    errs["K3"] = max(r["max_abs_err"] for r in k3_by_shape.values())
+    tols["K3"] = 0.0      # bit-equal to its twin
     say("compare_hmc", max_abs_err=e_h, tolerance=t_h, details=info,
-        large_lattices=compare_large_lattices(dev))
+        k3_by_shape=k3_by_shape, large_lattices=compare_large_lattices(dev))
 
     # 4. the main path: trained-flow FT-HMC from z0 = f^-1(0)
     t0 = time.perf_counter()
@@ -1378,25 +1544,13 @@ def main() -> None:
     # 7. timings
     layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(TIMED_LAYER)
     _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
-    # K1 at the FT shape and at path A's: the card's time (graph_ms; at
-    # 16^2 events over back-to-back calls time the host's ctypes call) and
-    # events beside, each with its bound (2 fields moved, 8 flops a site)
-    xa = near_equilibrium(torch.Generator(device=dev).manual_seed(53), 64,
-                          64, BETA, dev)
-    k1_by_shape = {}
-    for name, xs in (("FT", x), ("A", xa)):
-        sites = xs.shape[0] * xs.shape[2] * xs.shape[3]
-        k1_by_shape[name] = {
-            "chains": xs.shape[0], "L": xs.shape[2],
-            "graph_ms": graph_ms(lambda xs=xs: lambda: force(xs, BETA)),
-            "event_ms": cuda_ms(lambda xs=xs: force(xs, BETA)),
-            **_bound(2 * 4 * 2 * sites, 8 * sites)}
+    k1 = k1_timings(dev)
     with full_fp32():
-        ms = {"K1": k1_by_shape["FT"]["graph_ms"],
+        ms = {"K1": k1["FT"]["graph_ms"],
               **coupling_card_ms(layer, spec, x, gy, gl, mu, off)}
         wrapper_ms = coupling_wrapper_ms(layer, spec, x, gy, gl, mu, off)
         plain_ms = {
-            "K1": cuda_ms(lambda: force_plain(x, BETA)),
+            "K1": k1["FT"]["plain_ms"],
             "K6": cuda_ms(lambda: coupling_forward_plain(layer, x, mu, off,
                                                          spec)),
             "K7": cuda_ms(lambda: coupling_fwd_res_plain(layer, x, mu, off,
@@ -1444,7 +1598,7 @@ def main() -> None:
                                 sm_count(torch.cuda.current_device()))
     say("band_plans", layer=TIMED_LAYER, kernel_ms_by_plan=plans)
     say("timing", kernel_ms=ms, kernel_wrapper_ms=wrapper_ms,
-        plain_ms=plain_ms, k1_by_shape=k1_by_shape,
+        plain_ms=plain_ms, k1_by_shape=k1,
         ft_force_kernel_ms=force_kernel_ms,
         ft_force_kernel_host_ms=force_host_ms,
         ft_force_host_us_per_launch=force_host_ms * 1e3 / (
@@ -1466,17 +1620,12 @@ def main() -> None:
         "K4": cuda_ms(lambda: lk.hmc_traj_plain(xh, seed, *hargs), reps=3),
         "K5": cuda_ms(lambda: lk.hmc_traj_hostrng_plain(xh, vh, uh, *hargs),
                       reps=3)})
-    # the 'auto' rule: K2 against K3 (boundary transposes included) where
-    # K3 takes the shape
-    g = torch.Generator(device=dev).manual_seed(5)
-    k2_vs_k3 = {}
-    for n in (8, 16, 32, 48):
-        xr = near_equilibrium(g, hc.n_chains, n, hc.beta, dev)
-        vr = torch.randn(xr.shape, generator=g, device=dev)
-        k2_vs_k3[n] = {"K2": cuda_ms(lambda: lk.leapfrog(xr, vr, *hargs)),
-                       "K3": cuda_ms(lambda: lk.leapfrog_cl(xr, vr, *hargs))}
+    n_sm = sm_count(torch.cuda.current_device())
+    say("k3_plans", nstep=hc.nstep, kernel_ms_by_plan=k3_plan_sweep(dev,
+                                                                    n_sm))
+    k2_vs_k3 = auto_rule_sweep(dev)
     say("traj_plans", nstep=hc.nstep, kernel_ms_by_plan=traj_plan_sweep(
-        dev, sm_count(torch.cuda.current_device())))
+        dev, n_sm))
     rates = {b: headline_rate(dev, b) for b in ("auto", "fused")}
     say("timing_hmc", kernel_ms={k: ms[k] for k in ("K2", "K3", "K4", "K5")},
         plain_ms={k: plain_ms[k] for k in ("K2", "K3", "K4", "K5")},

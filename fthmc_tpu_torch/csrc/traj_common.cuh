@@ -1,6 +1,5 @@
-// The device bodies of the trajectory kernels: the band body of K2
-// (leapfrog.cu), K4 and K5 (hmc_traj.cu), and the shared-memory body that
-// K3 (leapfrog.cu) keeps.
+// The device body of the trajectory kernels, the band body: K2 and K3
+// (leapfrog.cu), K4 and K5 (hmc_traj.cu).
 //
 // Replaces the bodies of the TPU kernels _leapfrog_kernel,
 // _leapfrog_cl_kernel and _hmc_traj_body (fthmc_tpu/ops/pallas_lattice.py).
@@ -21,7 +20,8 @@ namespace cg = cooperative_groups;
 
 struct TrajArgs {
   int B, L, nstep;
-  int rows;              // the band body: rows of the largest band
+  int rows;              // rows of the largest band
+  int tile;              // chains a CTA (K3; 1 for K2, K4, K5)
   float beta, dt, hdt;   // hdt = dt / 2
 };
 
@@ -32,6 +32,7 @@ inline TrajArgs traj_args(int B, int L, float beta, float dt, float hdt,
   a.L = L;
   a.nstep = nstep;
   a.rows = L;
+  a.tile = 1;
   a.beta = beta;
   a.dt = dt;
   a.hdt = hdt;
@@ -39,18 +40,23 @@ inline TrajArgs traj_args(int B, int L, float beta, float dt, float hdt,
 }
 
 // ---------------------------------------------------------------------------
-// The band body (K2, K4, K5): fields in registers, a cluster of row bands
+// The band body: fields in registers, a cluster of row bands
 // ---------------------------------------------------------------------------
 //
-// A chain is one thread-block cluster of C CTAs (C <= MAX_BANDS), CTA rank
-// r owning rows [row0[r], row0[r + 1]) (Bands, common.cuh; the plan is
-// chosen in Python, ops/lattice_kernels.traj_plan). Thread t of a CTA owns
-// column j = t % L and a run of S consecutive rows of its band, from local
-// row (t / L) S: T = G L threads, G runs a column, G S >= the band's rows
-// (rows past the band's end are idle). The thread keeps the links x0, x1
-// and momenta p0, p1 of its S sites in registers for the whole
-// trajectory, so a step moves through shared memory only what crosses
-// threads:
+// A group of work, one chain (K2, K4, K5) or a tile of TC chains (K3), is
+// one thread-block cluster of C CTAs (C <= MAX_BANDS), CTA rank r owning
+// rows [row0[r], row0[r + 1]) (Bands, common.cuh; the plan is chosen in
+// Python, ops/lattice_kernels.traj_plan). Thread t of a CTA owns chain
+// c = t % TC of the tile, column j = (t / TC) % L and a run of S
+// consecutive rows of its band, from local row (t / (TC L)) S:
+// T = G TC L threads, G runs a column, G S >= the band's rows (rows past
+// the band's end are idle). A tile's chain is the fastest index, so
+// neighbouring threads hold the same site of neighbouring chains: a
+// shared-memory cell is [row][column][chain], free of bank conflicts,
+// and a tile's last chains past B are masked (their threads compute on
+// zeros and store nothing). The thread keeps the links x0, x1 and momenta
+// p0, p1 of its S sites in registers for the whole trajectory, so a step
+// moves through shared memory only what crosses threads:
 //   1. publish x0 of the run and x1 of its first row; barrier;
 //   2. P = x0 + x1(i+1) - x0(j+1) - x1, x1(i+1) from a register inside the
 //      run, from the next run's first row, or, for the band's last row,
@@ -59,19 +65,20 @@ inline TrajArgs traj_args(int B, int L, float beta, float dt, float hdt,
 //   3. kick with F0 = beta (sin P - sin P(j-1)), F1 = beta (sin P(i-1) -
 //      sin P), sin P(i-1) from a register, from the run above's last row or,
 //      for the band's first row, from the band above's last; drift.
-// That is 4 shared accesses a site a step (plus 3 a run), against 16 in
-// the shared-memory body K3 keeps. A barrier is __syncthreads for C = 1
-// and a cluster barrier otherwise, split into arrive and wait around the
-// sites that need only this CTA's rows: the rows from the bands above and
-// below (wrapping rank C - 1 <-> 0) are read through distributed shared
-// memory after the wait. Neighbour offsets are computed once before the
-// step loop, so the loop has no division; S is a template argument, so the
-// fields stay in registers, and FULL (every band G S rows) drops the
-// per-site predicates (a copy with them was markedly slower). At
-// the headline's plan (one CTA of 1024 threads of 4 sites a chain) a step
-// issues ~75 instructions a site (the accurate sinf ~25, the _rn flops 15,
-// 4 shared accesses and their addresses), which bounds the kernel: it runs
-// at about the SMs' issue rate, not at the fp32 rate the bound counts.
+// That is 4 shared accesses a site a step (plus 3 a run). A barrier is
+// __syncthreads for C = 1 and a cluster barrier otherwise, split into
+// arrive and wait around the sites that need only this CTA's rows: the
+// rows from the bands above and below (wrapping rank C - 1 <-> 0) are read
+// through distributed shared memory after the wait. Neighbour offsets are
+// computed once before the step loop, so the loop has no division; S is a
+// template argument, so the fields stay in registers, and FULL (every band
+// G S rows) drops the per-site predicates (a copy with them was markedly
+// slower). At the headline's plan (one CTA of 1024 threads of 4 sites a
+// chain) a step issues ~75 instructions a site (the accurate sinf ~25, the
+// _rn flops 15, 4 shared accesses and their addresses), which bounds the
+// kernel: it runs at about the SMs' issue rate, not at the fp32 rate the
+// bound counts. A tile (K3) puts TC chains in a CTA, so a small lattice's
+// CTA is a warp or more where one chain (K2 at 8^2) is 8 threads.
 // K4/K5 add cos P0 of each site (kept in shared memory) and the end's
 // delta-form dH, reduced in a fixed order: over the thread's sites, a tree
 // over the CTA, then the CTAs' sums in rank order, read by every CTA of the
@@ -94,17 +101,17 @@ __host__ __device__ inline int pow2_at_least(int n) {
 }
 
 // Shared-memory layout of a CTA, in floats: x0 and sin P of the band's
-// rows (R L each), x1 of each run's first row (indexed by thread), and for
-// K4/K5 cos P0 (R L), the tree of the dH sums (2 pow2_at_least(T)) and the
-// CTA's two sums; K4 also the drawn momenta (2 R L).
+// rows (R L TC each), x1 of each run's first row (indexed by thread), and
+// for K4/K5 cos P0 (R L), the tree of the dH sums (2 pow2_at_least(T)) and
+// the CTA's two sums; K4 also the drawn momenta (2 R L).
 struct BandSmem {
   int xs0, sps, x1f, c0s, red, part, v0s, floats;
 };
 
-__host__ __device__ inline BandSmem band_smem(int L, int R, int T,
-                                              int kind) {
+__host__ __device__ inline BandSmem band_smem(int L, int R, int T, int kind,
+                                              int tile = 1) {
   BandSmem m;
-  const int RL = R * L;
+  const int RL = R * L * tile;
   int o = 0;
   m.xs0 = o;
   o += RL;
@@ -131,22 +138,27 @@ __host__ __device__ inline bool traj_sites_ok(int S) {
   return S == 1 || S == 2 || S == 4 || S == 8 || S == 16;
 }
 
-// Bytes of dynamic shared memory a CTA of the band body takes (kind: 0 K2,
-// 1 K4, 2 K5) for an L^2 lattice, bands of at most `rows` rows, `threads`
-// threads of `sites` sites each; -1 for what the kernels do not take. The
-// Python wrappers hold it against the card's limit before they launch.
+// Bytes of dynamic shared memory a CTA of the band body takes (kind: 0 K2
+// and K3, 1 K4, 2 K5) for an L^2 lattice, bands of at most `rows` rows,
+// `threads` threads of `sites` sites each, tiles of `tile` chains (K3; 1
+// otherwise); -1 for what the kernels do not take. The Python wrappers hold
+// it against the card's limit before they launch.
 extern "C" int traj_band_smem_bytes(int L, int rows, int threads, int sites,
-                                    int kind) {
+                                    int kind, int tile) {
   if (L < 2 || rows < 1 || rows > L || !traj_sites_ok(sites) ||
-      threads < L || threads % L != 0 ||
+      tile < 1 || (tile > 1 && kind != TRAJ_LEAPFROG) ||
+      threads < L * tile || threads % (L * tile) != 0 ||
       threads > traj_max_threads(sites) ||
-      (threads / L) * sites < rows || kind < 0 || kind > 2)
+      (threads / (L * tile)) * sites < rows || kind < 0 || kind > 2)
     return -1;
   return static_cast<int>(sizeof(float)) *
-         band_smem(L, rows, threads, kind).floats;
+         band_smem(L, rows, threads, kind, tile).floats;
 }
 
-// What a thread knows of its sites and neighbours, computed once.
+// What a thread knows of its sites and neighbours, computed once. A shared
+// cell of the band's fields is row * `row` + column TC + chain: `cj`,
+// `cjp` and `cjm` are the cells of the thread's column and of its
+// neighbours in a row, `row` = L TC (with TC = 1, the column and L).
 struct BandGeo {
   int L, C, rank, b;   // lattice side, bands, this CTA's band, chain
   int r0, R;           // the band's first row and rows
@@ -154,27 +166,32 @@ struct BandGeo {
   int g0;              // the run's first local row
   int nv;              // sites of the run inside the band
   int klast;           // k of the band's last row in the run, or -1
+  int row, cj, cjp, cjm;  // shared cells: a row's, the columns' in it
   const float* x1_below;  // x1 of the band below's first row, column j
   const float* sp_above;  // sin P of the band above's last row, column j
 };
 
 template <int S>
 __device__ inline BandGeo band_geo(const Bands& bands, int L, float* sm,
-                                   const BandSmem& m) {
+                                   const BandSmem& m, int tile = 1) {
   BandGeo g;
   g.L = L;
   g.C = bands.C;
   g.rank = g.C > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  g.b = blockIdx.x / g.C;
   g.r0 = bands.row0[g.rank];
   g.R = bands.row0[g.rank + 1] - g.r0;
-  const int t = threadIdx.x;
-  g.j = t % L;
-  g.g0 = (t / L) * S;
+  const int t = threadIdx.x, c = t % tile, q = t / tile;
+  g.b = (blockIdx.x / g.C) * tile + c;
+  g.j = q % L;
+  g.g0 = (q / L) * S;
   g.jp = g.j + 1 == L ? 0 : g.j + 1;
   g.jm = (g.j == 0 ? L : g.j) - 1;
   g.nv = min(max(g.R - g.g0, 0), S);
   g.klast = (g.R - 1 >= g.g0 && g.R - 1 < g.g0 + S) ? g.R - 1 - g.g0 : -1;
+  g.row = L * tile;
+  g.cj = g.j * tile + c;
+  g.cjp = g.jp * tile + c;
+  g.cjm = g.jm * tile + c;
   const int up = (g.rank + g.C - 1) % g.C, dn = (g.rank + 1) % g.C;
   const int R_up = bands.row0[up + 1] - bands.row0[up];
   float* x1f = sm + m.x1f;
@@ -183,8 +200,8 @@ __device__ inline BandGeo band_geo(const Bands& bands, int L, float* sm,
     x1f = cg::this_cluster().map_shared_rank(x1f, dn);
     sps = cg::this_cluster().map_shared_rank(sps, up);
   }
-  g.x1_below = x1f + g.j;
-  g.sp_above = sps + (R_up - 1) * L + g.j;
+  g.x1_below = x1f + g.cj;
+  g.sp_above = sps + (R_up - 1) * g.row + g.cj;
   return g;
 }
 
@@ -226,21 +243,21 @@ __device__ __forceinline__ void band_plaq(float (&P)[S], const float (&x0)[S],
                                           const float (&x1)[S],
                                           const BandGeo& g, float* xs0,
                                           float* x1f) {
-  const int L = g.L, base = g.g0 * L;
+  const int L = g.row, base = g.g0 * L;
 #pragma unroll
   for (int k = 0; k < S; ++k)
-    if (FULL || k < g.nv) xs0[base + k * L + g.j] = x0[k];
+    if (FULL || k < g.nv) xs0[base + k * L + g.cj] = x0[k];
   if (FULL || g.nv > 0) x1f[threadIdx.x] = x1[0];
   const bool arrived = band_arrive(g.C);
   // x1(i+1) of the run's last site when the band continues below: the
-  // next run's first row
+  // next run's first row (the thread a row of cells further on)
   const float next =
       g.klast < 0 && (FULL || g.nv == S) ? x1f[threadIdx.x + L] : 0.f;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     if ((FULL || k < g.nv) && k != g.klast) {
       const float xn = k + 1 == S ? next : x1[k + 1 < S ? k + 1 : k];
-      P[k] = x0[k] + xn - xs0[base + k * L + g.jp] - x1[k];
+      P[k] = x0[k] + xn - xs0[base + k * L + g.cjp] - x1[k];
     }
   }
   band_wait(arrived);
@@ -250,7 +267,7 @@ __device__ __forceinline__ void band_plaq(float (&P)[S], const float (&x0)[S],
 #pragma unroll
     for (int k = 0; k < S; ++k)
       if (k == g.klast)
-        P[k] = x0[k] + below - xs0[base + k * L + g.jp] - x1[k];
+        P[k] = x0[k] + below - xs0[base + k * L + g.cjp] - x1[k];
   }
 }
 
@@ -264,7 +281,7 @@ __device__ void band_leapfrog(float (&x0)[S], float (&x1)[S], float (&p0)[S],
   float* xs0 = sm + m.xs0;
   float* sps = sm + m.sps;
   float* x1f = sm + m.x1f;
-  const int L = g.L, base = g.g0 * L;
+  const int L = g.row, base = g.g0 * L;
   const bool has_run = FULL || g.nv > 0;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
@@ -278,7 +295,7 @@ __device__ void band_leapfrog(float (&x0)[S], float (&x1)[S], float (&p0)[S],
     for (int k = 0; k < S; ++k) {
       if (FULL || k < g.nv) {
         sp[k] = sinf(sp[k]);
-        sps[base + k * L + g.j] = sp[k];
+        sps[base + k * L + g.cj] = sp[k];
       }
     }
     const bool arrived = band_arrive(g.C);
@@ -286,7 +303,7 @@ __device__ void band_leapfrog(float (&x0)[S], float (&x1)[S], float (&p0)[S],
     // sin P)) and drift of site k, sa = sin P(i-1)
     auto kick = [&](int k, float sa) {
       const float f0 =
-          __fmul_rn(a.beta, __fsub_rn(sp[k], sps[base + k * L + g.jm]));
+          __fmul_rn(a.beta, __fsub_rn(sp[k], sps[base + k * L + g.cjm]));
       const float f1 = __fmul_rn(a.beta, __fsub_rn(sa, sp[k]));
       p0[k] = __fsub_rn(p0[k], __fmul_rn(a.dt, f0));
       p1[k] = __fsub_rn(p1[k], __fmul_rn(a.dt, f1));
@@ -296,7 +313,7 @@ __device__ void band_leapfrog(float (&x0)[S], float (&x1)[S], float (&p0)[S],
     // sin P(i-1) of the run's first site: the run above's last row, or,
     // for the band's first row, the band above's last (kicked last)
     const bool first_row = g.g0 == 0;
-    if (has_run && !first_row) kick(0, sps[base - L + g.j]);
+    if (has_run && !first_row) kick(0, sps[base - L + g.cj]);
 #pragma unroll
     for (int k = 1; k < S; ++k)
       if (FULL || k < g.nv) kick(k, sp[k - 1]);
@@ -310,8 +327,8 @@ __device__ void band_leapfrog(float (&x0)[S], float (&x1)[S], float (&p0)[S],
   }
 }
 
-// Device-memory offset of site k of the thread's run in a (B, 2, L, L)
-// chain's direction-0 plane.
+// Offset of site k of the thread's run in its chain's direction-0 plane,
+// (row L + column).
 __device__ __forceinline__ int band_site(const BandGeo& g, int k) {
   return (g.r0 + g.g0 + k) * g.L + g.j;
 }
@@ -353,10 +370,10 @@ __device__ inline void band_sum2(float& dsw, float& dk, const BandGeo& g,
   }
 }
 
-// Checks a plan (C bands of row0, `threads` threads of `sites` sites) of
-// the band body for a kernel of `kind`, and fills a.rows, bands and full
-// (every band G S rows); returns the CTA's shared-memory bytes, or -1 for
-// what the kernels do not take.
+// Checks a plan (C bands of row0, `threads` threads of `sites` sites, tiles
+// of a.tile chains) of the band body for a kernel of `kind`, and fills
+// a.rows, bands and full (every band G S rows); returns the CTA's
+// shared-memory bytes, or -1 for what the kernels do not take.
 inline int band_plan(int kind, int C, const int* row0, int threads,
                      int sites, TrajArgs* a, Bands* bands, bool* full) {
   int R = 0;
@@ -364,8 +381,8 @@ inline int band_plan(int kind, int C, const int* row0, int threads,
       !bands_from(C, row0, a->L, &R, bands))
     return -1;
   a->rows = R;
-  *full = a->L % C == 0 && R == threads / a->L * sites;
-  return traj_band_smem_bytes(a->L, R, threads, sites, kind);
+  *full = a->L % C == 0 && R == threads / (a->L * a->tile) * sites;
+  return traj_band_smem_bytes(a->L, R, threads, sites, kind, a->tile);
 }
 
 // launch.template run<S, FULL>() for the plan's sites a thread and
@@ -391,121 +408,16 @@ int band_dispatch(int sites, bool full, const Launch& launch) {
   }
 }
 
-// A launch of the band body: B chains of C CTAs, in clusters of C, the
-// shared memory opted in to once a device (set_bytes: the kernel's record).
+// A launch of the band body: `groups` chains (or tiles) of C CTAs, in
+// clusters of C, the shared memory opted in to once a device (set_bytes:
+// the kernel's record).
 template <class... Params, class... Args>
-int launch_band(void (*kernel)(Params...), int* set_bytes, int bytes, int B,
-                int C, int threads, void* stream, Args&&... args) {
+int launch_band(void (*kernel)(Params...), int* set_bytes, int bytes,
+                int groups, int C, int threads, void* stream,
+                Args&&... args) {
   const cudaError_t err = ensure_smem(kernel, bytes, set_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_clusters(kernel, B, C, threads, bytes,
+  return static_cast<int>(launch_clusters(kernel, groups, C, threads, bytes,
                                           stream,
                                           std::forward<Args>(args)...));
-}
-
-// ---------------------------------------------------------------------------
-// The shared-memory body (K3)
-// ---------------------------------------------------------------------------
-//
-// One block owns TB chains for a whole trajectory. Their links x, momenta v
-// and the sin P field sit in shared memory throughout: 5 L^2 TB floats a
-// block, opted in to above the 48 KB default (traj_smem_bytes is what the
-// wrapper holds against the card's limit). A step is two phases with a
-// barrier after each: sin P of every plaquette, then kick and drift of
-// every link.
-//
-// Shared-memory layout, in floats, element e = (d L^2 + s) TB + c for link
-// direction d, site s = i L + j and chain c of the block:
-//   xs[2 n], vs[2 n], sp[n] (n = L^2 TB), then 2 x threads for the sums.
-
-constexpr int TRAJ_MAX_THREADS = 512;
-constexpr int CL_CHAINS = 4;   // chains a K3 block holds (16-byte runs)
-
-// Threads of a block: a power of two, 32 to 512.
-__host__ __device__ inline int traj_threads(int L, int TB) {
-  const int n = L * L * TB;
-  int t = 32;
-  while (t < n && t < TRAJ_MAX_THREADS) t *= 2;
-  return t;
-}
-
-__host__ __device__ inline int traj_smem_floats(int L, int TB) {
-  return 5 * L * L * TB + 2 * traj_threads(L, TB);
-}
-
-// Bytes of dynamic shared memory one K3 block takes, or -1 for a lattice
-// the kernel does not take.
-extern "C" int traj_smem_bytes(int L, int TB) {
-  if (L < 2 || TB < 1) return -1;
-  return static_cast<int>(sizeof(float)) * traj_smem_floats(L, TB);
-}
-
-// Device-memory offset of shared-memory element e of the block whose first
-// chain is b0: chains-first (B, 2, L, L) or chains-last (2, L, L, B).
-template <int TB, bool CHAINS_LAST>
-__device__ __forceinline__ size_t field_index(int e, int b0, int B, int LL) {
-  const int c = e % TB, r = e / TB;   // r = d L^2 + s
-  return CHAINS_LAST ? static_cast<size_t>(r) * B + b0 + c
-                     : static_cast<size_t>(b0 + c) * 2 * LL + r;
-}
-
-// Plaquette phase at element e (direction 0) of the shared-memory field.
-template <int TB>
-__device__ __forceinline__ float plaq_smem(const float* xs, int e, int L) {
-  const int n = L * L * TB;
-  const int c = e % TB, s = e / TB, i = s / L, j = s - i * L;
-  const int ip = (i + 1 == L) ? 0 : i + 1;
-  const int jp = (j + 1 == L) ? 0 : j + 1;
-  return xs[e] + xs[n + (ip * L + j) * TB + c] - xs[(i * L + jp) * TB + c] -
-         xs[n + e];
-}
-
-// The whole leapfrog trajectory on the block's shared-memory (xs, vs).
-template <int TB>
-__device__ void leapfrog_smem(float* xs, float* vs, float* sp,
-                              const TrajArgs& a) {
-  const int L = a.L, n = L * L * TB;
-  for (int e = threadIdx.x; e < 2 * n; e += blockDim.x)
-    xs[e] = __fadd_rn(xs[e], __fmul_rn(a.hdt, vs[e]));
-  __syncthreads();
-  for (int step = 0; step < a.nstep; ++step) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      sp[e] = sinf(plaq_smem<TB>(xs, e, L));
-    __syncthreads();
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int c = e % TB, s = e / TB, i = s / L, j = s - i * L;
-      const int im = (i == 0 ? L : i) - 1, jm = (j == 0 ? L : j) - 1;
-      const float s0 = sp[e];
-      const float f0 =
-          __fmul_rn(a.beta, __fsub_rn(s0, sp[(i * L + jm) * TB + c]));
-      const float f1 =
-          __fmul_rn(a.beta, __fsub_rn(sp[(im * L + j) * TB + c], s0));
-      const float v0 = __fsub_rn(vs[e], __fmul_rn(a.dt, f0));
-      const float v1 = __fsub_rn(vs[n + e], __fmul_rn(a.dt, f1));
-      vs[e] = v0;
-      vs[n + e] = v1;
-      xs[e] = __fadd_rn(xs[e], __fmul_rn(a.dt, v0));
-      xs[n + e] = __fadd_rn(xs[n + e], __fmul_rn(a.dt, v1));
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < 2 * n; e += blockDim.x)
-    xs[e] = __fsub_rn(xs[e], __fmul_rn(a.hdt, vs[e]));
-  __syncthreads();
-}
-
-// Opt in to the block's shared memory and launch; returns the CUDA error.
-template <class Kernel, class... Args>
-int launch_traj(Kernel kernel, int blocks, int TB, const TrajArgs& a,
-                void* stream, Args... args) {
-  if (a.L < 2 || a.nstep < 0 || blocks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * traj_smem_floats(a.L, TB);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, traj_threads(a.L, TB), bytes,
-           static_cast<cudaStream_t>(stream)>>>(args..., a);
-  return static_cast<int>(cudaGetLastError());
 }

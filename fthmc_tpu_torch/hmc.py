@@ -140,25 +140,39 @@ BACKENDS = ("auto", "xla", "pallas", "pallas_cl", "fused", "fused_hostrng")
 _KERNEL_BACKENDS = ("pallas", "pallas_cl", "fused", "fused_hostrng")
 
 
-def _select_leapfrog(integrator: str, dtype, device: torch.device) -> str:
+# 'auto' runs leapfrog through K3 up to this L, through K2 above
+AUTO_K3_MAX_L = 16
+
+
+def _select_leapfrog(integrator: str, dtype, device: torch.device,
+                     shape=None) -> str:
     """What 'auto' means: 'xla' on the CPU; on the card 'xla' (K1) for
-    omelyan and K2 ('pallas') for leapfrog, which measured faster than K3
-    (with its boundary transposes) at every L from 8 to 48 with 1024 chains
-    (PERF.md, the 'auto' rule). fp64 on the card raises: no kernel takes
-    it."""
+    omelyan, and for leapfrog of (B, 2, L, L) fields ``shape`` K3
+    ('pallas_cl') up to L = AUTO_K3_MAX_L and K2 ('pallas') above (and
+    where the shape is not given). As the card's time on an NVIDIA H100
+    80GB HBM3 at 700 W, a 25-step trajectory of 1024 chains took K3 0.011
+    and 0.020 ms against K2's 0.025 and 0.027 at 8^2 and 16^2 (128 chains:
+    0.010 / 0.020 and 0.014 / 0.045), and K2 led from 32^2 up (0.061
+    against 0.063; 1.9x at 48^2 and 64^2) (PERF.md section 6, the 'auto'
+    rule). fp64 on the card raises: no kernel takes it."""
     if device.type != "cuda":
         return "xla"
     if dtype != torch.float32:
         raise ValueError(f"backend='auto' on the card takes fp32 fields, got "
                          f"{dtype}; the kernels have no fp64 path")
-    return "xla" if integrator == "omelyan" else "pallas"
+    if integrator == "omelyan":
+        return "xla"
+    if shape is not None and shape[-1] <= AUTO_K3_MAX_L:
+        return "pallas_cl"
+    return "pallas"
 
 
-def resolve_backend(backend: str, integrator: str, dtype, device) -> str:
-    """The backend a plain-HMC trajectory runs on (see the module
-    docstring). Refuses unknown names and 'omelyan' with a trajectory
-    kernel; the kernels' wrappers refuse, at launch, shapes and types they
-    do not take."""
+def resolve_backend(backend: str, integrator: str, dtype, device,
+                    shape=None) -> str:
+    """The backend a plain-HMC trajectory of (B, 2, L, L) fields ``shape``
+    runs on (see the module docstring). Refuses unknown names and
+    'omelyan' with a trajectory kernel; the kernels' wrappers refuse, at
+    launch, shapes and types they do not take."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if integrator not in ("leapfrog", "omelyan"):
@@ -167,7 +181,8 @@ def resolve_backend(backend: str, integrator: str, dtype, device) -> str:
         raise ValueError(f"backend={backend!r} integrates leapfrog only; "
                          f"omelyan runs on 'xla' or 'auto'")
     if backend == "auto":
-        return _select_leapfrog(integrator, dtype, torch.device(device))
+        return _select_leapfrog(integrator, dtype, torch.device(device),
+                                shape)
     return backend
 
 
@@ -189,7 +204,7 @@ def run_leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
     'xla', 'pallas', 'pallas_cl' or 'auto'. Returns (x1, v1), unwrapped."""
     device = resolve_device(device)
     x, v = x.to(device), v.to(device)
-    backend = resolve_backend(backend, integrator, x.dtype, device)
+    backend = resolve_backend(backend, integrator, x.dtype, device, x.shape)
     if backend in ("fused", "fused_hostrng"):
         raise ValueError(f"backend={backend!r} is a whole HMC step "
                          f"(hmc_step), not a trajectory")
@@ -228,7 +243,7 @@ def hmc_step(generator: torch.Generator, x: torch.Tensor,
     (the card by default). Returns (x', q', metrics)."""
     device = resolve_device(device)
     x, q_old = x.to(device), q_old.to(device)
-    backend = resolve_backend(backend, integrator, x.dtype, device)
+    backend = resolve_backend(backend, integrator, x.dtype, device, x.shape)
     return _hmc_step(generator, x, q_old, beta, dt, nstep, backend,
                      integrator)
 
@@ -258,7 +273,7 @@ def _run_setup(cfg, x0, generator, dtype, backend, integrator, device):
     generator = _generator(cfg, generator, device)
     x = _start(cfg, x0, generator, dtype, device)
     return (generator, x,
-            resolve_backend(backend, integrator, x.dtype, device),
+            resolve_backend(backend, integrator, x.dtype, device, x.shape),
             device)
 
 

@@ -43,15 +43,18 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-# (B, L, beta, dt, dt / 2, nstep) of every trajectory entry, then K3's
-# stream, or the band plan (C, row0, threads, sites) and the stream of
-# K2, K4 and K5
+# (B, L, beta, dt, dt / 2, nstep) of every trajectory entry, then the band
+# plan (C, row0, threads, sites), K3's tile, and the stream
 _TRAJ = [_I, _I, _F, _F, _F, _I]
-_BAND = [_I, _IP, _I, _I, _P]
+_BAND = [_I, _IP, _I, _I]
 # argtypes of every C entry, by library (each library also carries
 # ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
-    "force": {"k1_force": [_P, _P, _I, _I, _F, _P]},
+    # K1: (x, f, B, L, beta, rows, threads, sites, stream); a CTA's shared
+    # memory; an empty kernel's launch (the floor K1 is timed beside)
+    "force": {"k1_force": [_P, _P, _I, _I, _F, _I, _I, _I, _P],
+              "force_smem_bytes": [_I] * 4,
+              "ft_empty_launch": [_I, _I, _I, _P]},
     # ... (C, row0, limit, stream) ending the coupling entries: the band
     # plan and the card's shared-memory limit
     "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _P, _I, _I, _I,
@@ -64,16 +67,13 @@ _SIGNATURES = {
     "coupling_bwd": {"k8_coupling_bwd": [_P, _P, _P, _P, _PP, _P, _I, _I, _I,
                                          _IP, _PP, _I, _I, _F, _I, _I, _I,
                                          _I, _IP, _I, _P]},
-    "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ + _BAND,
-                 "k3_leapfrog_cl": [_P] * 4 + _TRAJ + [_P],
-                 "k3_chains_per_block": [],
-                 # shared-memory needs (csrc/traj_common.cuh): K3's block,
-                 # a band-body CTA's
-                 "traj_smem_bytes": [_I, _I],
-                 "traj_band_smem_bytes": [_I] * 5},
-    "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ + _BAND,
-                 "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ + _BAND,
-                 "traj_band_smem_bytes": [_I] * 5},
+    "leapfrog": {"k2_leapfrog": [_P] * 4 + _TRAJ + _BAND + [_P],
+                 "k3_leapfrog_cl": [_P] * 4 + _TRAJ + _BAND + [_I, _P],
+                 # a band-body CTA's shared memory (csrc/traj_common.cuh)
+                 "traj_band_smem_bytes": [_I] * 6},
+    "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ + _BAND + [_P],
+                 "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ + _BAND + [_P],
+                 "traj_band_smem_bytes": [_I] * 6},
     # (pointers, B, L0, L1, a, b, eo, C, row0, [tile,] stream) of the
     # operators: the band plan, and K10's chain tile
     "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,

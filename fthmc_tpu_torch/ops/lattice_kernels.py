@@ -13,14 +13,15 @@ of ``fthmc_tpu/ops/pallas_lattice.py``.
 
 A CPU tensor takes the plain twin (``*_plain``, same signature); a CUDA
 tensor launches the kernel, or raises for what the kernel does not take. K1
-is one thread per (chain, site) and memory-bound. K2, K4 and K5 run the band
-body of csrc/traj_common.cuh: a cluster of C row bands a chain, each thread
-keeping its S sites' links and momenta in registers for the whole
-trajectory, under the plan ``traj_plan`` picks. K3 keeps a block's chains in
-shared memory (the body K2-K5 ran before). All are bounded by operations.
-Their envelope on the card: fp32, (B, 2, L, L), any B (K3: a multiple of
-its chains a block), 2 <= L <= 256 for K2, K4 and K5 (``traj_reach``; eight
-bands of 32 rows, 512 threads of 16 sites) and L <= 53 for K3 on an H100.
+is a band of rows of one chain a CTA, each thread a column and a run of
+rows (``force_plan``), bounded by bytes. K2-K5 run the band body of
+csrc/traj_common.cuh: a cluster of C row bands a chain (K3: a tile of
+chains, the chain the fastest thread index), each thread keeping its S
+sites' links and momenta in registers for the whole trajectory, under the
+plan ``traj_plan`` picks; they are bounded by operations. Their envelope on
+the card: fp32, (B, 2, L, L), any B; K1 2 <= L <= 1024 (a thread a column:
+``FORCE_MAX_L``), K2-K5 2 <= L <= 256 (``traj_reach``; eight bands of 32
+rows, 512 threads of 16 sites).
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from fthmc_tpu_torch.ops import _build, rng
 __all__ = ["force", "force_plain", "leapfrog", "leapfrog_plain",
            "leapfrog_cl", "leapfrog_cl_plain", "hmc_traj", "hmc_traj_plain",
            "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "dh_tolerance",
-           "TrajPlan", "traj_plan", "traj_plans", "traj_plan_of",
-           "traj_reach", "traj_smem_bytes_of"]
+           "ForcePlan", "force_plan", "force_plans", "force_plan_of",
+           "force_smem_bytes_of", "FORCE_MAX_L", "TrajPlan", "traj_plan",
+           "traj_plans", "traj_plan_of", "traj_reach", "traj_smem_bytes_of"]
 
 
 # ---------------------------------------------------------------------------
@@ -142,25 +144,111 @@ def hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep):
 
 
 # ---------------------------------------------------------------------------
-# the band plan of K2, K4 and K5 (csrc/traj_common.cuh)
+# the band plan of K1 (csrc/force.cu)
+# ---------------------------------------------------------------------------
+
+FORCE_MAX_L = 1024       # a thread a column, at most 1024 threads a CTA
+FORCE_SITES = (1, 2, 4, 8)   # sites a thread: the kernel's instances
+# the plan's sites a thread and threads a CTA: the fastest or within 2% of
+# it at FT's, path A's, path B's and the headline's shapes in a sweep on an
+# H100; at 16^2, where a launch takes ~0.002 ms, the plans differ by less
+# than the spread between runs (chip_smoke.py's "timing" line,
+# k1_by_shape; PERF.md section 6)
+FORCE_SITES_PREFERRED = 2
+FORCE_THREADS = 256
+
+
+class ForcePlan(NamedTuple):
+    """Bands of ``rows`` rows a chain (the last one shorter where rows does
+    not divide L), a CTA each, of ``threads`` threads of ``sites`` sites (a
+    column and a run of rows)."""
+    rows: int
+    threads: int
+    sites: int
+
+
+def force_plan_of(L: int, rows: int, sites: int) -> ForcePlan | None:
+    """The plan of bands of ``rows`` rows and ``sites`` sites a thread at
+    L, or None where K1 cannot take it (more than 1024 threads a CTA)."""
+    if not 2 <= L <= FORCE_MAX_L or not 1 <= rows <= L \
+            or sites not in FORCE_SITES:
+        return None
+    threads = -(-rows // sites) * L
+    if threads > FORCE_MAX_L:
+        return None
+    return ForcePlan(rows, threads, sites)
+
+
+def force_smem_bytes_of(L: int, plan: ForcePlan) -> int:
+    """Shared-memory bytes of a K1 CTA: x0 of the band's rows and sin P of
+    the halo row and the band's rows, as ``force_smem_bytes``
+    (csrc/force.cu) counts them (a card test holds the two equal)."""
+    return 4 * (2 * plan.rows + 1) * L
+
+
+def force_plans(L: int) -> list[ForcePlan]:
+    """Every plan of power-of-two rows (and all L rows) and of sites up to
+    the rows a band has, rounded up to a power of two, at L: what the plan
+    sweep times and the tests run."""
+    rows = sorted({1 << e for e in range(L.bit_length()) if 1 << e < L}
+                  | {L})
+    out = []
+    for r in rows:
+        for sites in FORCE_SITES:
+            plan = force_plan_of(L, r, sites)
+            if plan is not None and sites < 2 * r:
+                out.append(plan)
+    return out
+
+
+@lru_cache(maxsize=None)
+def force_plan(L: int) -> ForcePlan:
+    """The plan K1 runs an L^2 lattice under, whatever the chain count:
+    FORCE_SITES_PREFERRED sites a thread, bands of as many rows as
+    FORCE_THREADS threads hold (at least a run a column, at most L). On an
+    H100 a grid under the SM count was no slower where it saved halo rows
+    (16^2 x 64 chains: one band a chain 0.0020 ms, 4 bands 0.0021; PERF.md
+    section 6). Raises above FORCE_MAX_L."""
+    if not 2 <= L <= FORCE_MAX_L:
+        raise ValueError(f"K1 takes 2 <= L <= {FORCE_MAX_L} (a thread a "
+                         f"column, at most {FORCE_MAX_L} threads a CTA), "
+                         f"got L={L}")
+    sites = FORCE_SITES_PREFERRED
+    return force_plan_of(L, min(L, sites * max(1, FORCE_THREADS // L)),
+                         sites)
+
+
+# ---------------------------------------------------------------------------
+# the band plan of K2-K5 (csrc/traj_common.cuh)
 # ---------------------------------------------------------------------------
 
 MAX_BANDS = 8            # bands a chain: the portable cluster (common.cuh)
 TRAJ_SITES = (1, 2, 4, 8, 16)   # sites a thread: the kernels' instances
 # sites a thread each kernel's plan starts from: the fastest on an H100
 # (PERF.md, the plan sweep; K4/K5 at 8 sites hold 128 registers a thread)
-SITES_PREFERRED = {"K2": 8, "K4": 4, "K5": 4}
+SITES_PREFERRED = {"K2": 8, "K3": 4, "K4": 4, "K5": 4}
 MIN_BAND_ROWS = 8        # bands added to fill the card keep this many rows
-KINDS = {"K2": 0, "K4": 1, "K5": 2}   # the smem count's kernel kinds
+KINDS = {"K2": 0, "K3": 0, "K4": 1, "K5": 2}   # the smem count's kinds
+# chains a K3 tile, and the threads a CTA its sites a thread keep: tiles
+# of 2 with the most sites (up to 4) that keep 128 threads made plans
+# within 14% of the fastest at 8^2-32^2 x 1024 chains on an H100, one CTA
+# a tile beating any cluster (chip_smoke.py's "k3_plans" line; PERF.md
+# section 6)
+K3_TILE = 2
+K3_MIN_THREADS = 128
+K3_TILES = (2, 4, 8, 16, 32)   # the tiles K3's plan sweep tries
 
 
 class TrajPlan(NamedTuple):
-    """C bands a chain, CTA r owning rows [row0[r], row0[r + 1]); each CTA
-    ``threads`` threads of ``sites`` sites (a column and a run of rows)."""
+    """C bands a group, CTA r owning rows [row0[r], row0[r + 1]); each CTA
+    ``threads`` threads of ``sites`` sites (a chain of the tile, a column
+    and a run of rows); a group is one chain (K2, K4, K5) or a tile of
+    ``tile`` chains (K3)."""
     C: int
     row0: tuple
     threads: int
     sites: int
+    tile: int = 1
 
     @property
     def rows(self) -> int:
@@ -174,49 +262,52 @@ def max_threads(sites: int) -> int:
     return 512 if sites >= 8 else 1024
 
 
-def traj_plan_of(L: int, C: int, sites: int) -> TrajPlan | None:
-    """The plan of C even bands (differing by at most a row) and ``sites``
-    sites a thread at L, or None where the kernels cannot take it: a
-    column's runs of the largest band would need more threads than the
-    launch bounds allow."""
-    if L < 2 or not 1 <= C <= min(MAX_BANDS, L) or sites not in TRAJ_SITES:
+def traj_plan_of(L: int, C: int, sites: int,
+                 tile: int = 1) -> TrajPlan | None:
+    """The plan of C even bands (differing by at most a row), ``sites``
+    sites a thread and tiles of ``tile`` chains at L, or None where the
+    kernels cannot take it: a column's runs of the largest band would need
+    more threads than the launch bounds allow."""
+    if L < 2 or not 1 <= C <= min(MAX_BANDS, L) or sites not in TRAJ_SITES \
+            or tile < 1:
         return None
     row0 = tuple(r * L // C for r in range(C + 1))
     rows = -(-L // C)
-    threads = -(-rows // sites) * L
+    threads = -(-rows // sites) * L * tile
     if threads > max_threads(sites):
         return None
-    return TrajPlan(C, row0, threads, sites)
+    return TrajPlan(C, row0, threads, sites, tile)
 
 
 def traj_smem_bytes_of(L: int, plan: TrajPlan, kernel: str) -> int:
-    """Shared-memory bytes a CTA of ``kernel`` ('K2', 'K4', 'K5') takes under
+    """Shared-memory bytes a CTA of ``kernel`` ('K2'-'K5') takes under
     ``plan``: the layout of ``band_smem`` (csrc/traj_common.cuh), which the
     card tests hold equal to the library's own count. x0 and sin P of the
-    band's rows, x1 of each run's first row; K4/K5 cos P0 and the dH tree;
-    K4 its drawn momenta."""
+    band's rows (of each chain of the tile), x1 of each run's first row;
+    K4/K5 cos P0 and the dH tree; K4 its drawn momenta."""
     rl, t = plan.rows * L, plan.threads
-    floats = 2 * rl + t
-    if kernel != "K2":
+    floats = 2 * rl * plan.tile + t
+    if kernel in ("K4", "K5"):
         floats += rl + 2 * (1 << (t - 1).bit_length()) + 2
         if kernel == "K4":
             floats += 2 * rl
     return 4 * floats
 
 
-def traj_plans(L: int) -> list[TrajPlan]:
-    """Every plan of power-of-two bands and of sites up to the rows a band
-    has (rounded up to a power of two) at L: what the plan sweep times and
-    the tests run."""
+def traj_plans(L: int, tiles=(1,)) -> list[TrajPlan]:
+    """Every plan of power-of-two bands, of sites up to the rows a band has
+    (rounded up to a power of two) and of the given tiles at L: what the
+    plan sweep times and the tests run (K3: ``tiles=K3_TILES``)."""
     out = []
-    C = 1
-    while C <= min(MAX_BANDS, L):
-        rows = -(-L // C)
-        for sites in TRAJ_SITES:
-            plan = traj_plan_of(L, C, sites)
-            if plan is not None and sites < 2 * rows:
-                out.append(plan)
-        C *= 2
+    for tile in tiles:
+        C = 1
+        while C <= min(MAX_BANDS, L):
+            rows = -(-L // C)
+            for sites in TRAJ_SITES:
+                plan = traj_plan_of(L, C, sites, tile)
+                if plan is not None and sites < 2 * rows:
+                    out.append(plan)
+            C *= 2
     return out
 
 
@@ -243,15 +334,19 @@ def traj_reach() -> int:
 
 @lru_cache(maxsize=None)
 def traj_plan(L: int, B: int, n_sm: int, kernel: str = "K2") -> TrajPlan:
-    """The plan ``kernel`` ('K2', 'K4', 'K5') runs B chains of L^2 sites
-    under on a card of ``n_sm`` SMs: one CTA a chain where it holds the
+    """The plan ``kernel`` ('K2'-'K5') runs B chains of L^2 sites under on a
+    card of ``n_sm`` SMs. K2, K4, K5: one CTA a chain where it holds the
     chain with threads of the kernel's SITES_PREFERRED sites (bands
     doubling while the grid of B x C CTAs is under the SM count and the
     bands keep MIN_BAND_ROWS rows), else the largest cluster, MAX_BANDS
     bands, with the fewest sites a thread from there up that fit. On an
     H100 one CTA a chain was the fastest plan at 64^2 and eight bands the
     fastest at 128^2, where a cluster's barriers cost the same whatever its
-    size (chip_smoke.py's "traj_plans" line; PERF.md). Raises above
+    size (chip_smoke.py's "traj_plans" line; PERF.md). K3: tiles of K3_TILE
+    chains (one where B is), the fewest bands that hold a tile with
+    threads of at most SITES_PREFERRED sites, the most that keep
+    K3_MIN_THREADS threads a CTA (one CTA a tile up to 44^2); above what
+    eight bands hold, K2's plan of one chain a group. Raises above
     ``traj_reach()``."""
     if L < 2 or L > traj_reach():
         raise ValueError(f"the trajectory kernels take 2 <= L <= "
@@ -259,6 +354,14 @@ def traj_plan(L: int, B: int, n_sm: int, kernel: str = "K2") -> TrajPlan:
                          f"most {max_threads(TRAJ_SITES[-1])} threads of "
                          f"{TRAJ_SITES[-1]} sites), got L={L}")
     pref = SITES_PREFERRED[kernel]
+    if kernel == "K3" and B > 1:
+        for C in range(1, min(MAX_BANDS, L) + 1):
+            top = min(pref, 1 << (-(-L // C) - 1).bit_length())
+            fits = [p for p in (traj_plan_of(L, C, s, K3_TILE)
+                                for s in TRAJ_SITES[::-1] if s <= top) if p]
+            if fits:
+                return next((p for p in fits
+                             if p.threads >= K3_MIN_THREADS), fits[-1])
     if traj_plan_of(L, 1, min(pref, 1 << (L - 1).bit_length())) is None:
         return _sites_plan(L, min(MAX_BANDS, L), pref)
     C = 1
@@ -296,23 +399,11 @@ def _device_index(x: torch.Tensor) -> int:
             else torch.cuda.current_device())
 
 
-def _traj_library(what: str, name: str, x: torch.Tensor, chains: int,
-                  *tensors: torch.Tensor):
-    """K3's library, after refusing what it does not take: other dtypes,
-    layouts or devices, and a lattice whose block (of ``chains`` chains)
-    does not fit the card's shared memory."""
-    _build.require_fp32_contiguous(what, x, *tensors)
-    lib = _build.library(name)
-    L = x.shape[2]
-    need = lib.traj_smem_bytes(L, chains)
-    limit = _build.smem_limit(_device_index(x))
-    if not 0 < need <= limit:
-        fits = [n for n in range(2, L)
-                if 0 < lib.traj_smem_bytes(n, chains) <= limit]
-        raise ValueError(f"{what}: L={L} needs {need} bytes of shared "
-                         f"memory a block of {chains} chain(s); the card "
-                         f"allows {limit}, so L <= {max(fits, default=1)}")
-    return lib
+@lru_cache(maxsize=None)
+def _force_bytes(L: int, plan: ForcePlan) -> int:
+    """The library's count of a K1 CTA's shared memory under ``plan``, -1
+    for a plan it does not take."""
+    return _build.library("force").force_smem_bytes(L, *plan)
 
 
 @lru_cache(maxsize=None)
@@ -324,16 +415,16 @@ def _band_bytes(name: str, kernel: str, L: int, plan: TrajPlan) -> int:
             or min(b - a for a, b in zip(plan.row0, plan.row0[1:])) < 1:
         return -1
     return _build.library(name).traj_band_smem_bytes(
-        L, plan.rows, plan.threads, plan.sites, KINDS[kernel])
+        L, plan.rows, plan.threads, plan.sites, KINDS[kernel], plan.tile)
 
 
 def _band_library(what: str, kernel: str, name: str, x: torch.Tensor,
                   plan, *tensors: torch.Tensor):
-    """(library, plan arguments (C, row0, threads, sites)) of a band-body
-    launch (K2, K4, K5), after refusing what it does not take: other dtypes,
-    layouts or devices, L above the plans' reach, and a plan the library's
-    count refuses or the card's shared memory does not hold. ``plan``: a
-    TrajPlan, by default ``traj_plan``'s."""
+    """(library, plan) of a band-body launch (K2-K5), the plan's arguments
+    (C, row0, threads, sites) first, after refusing what it does not take:
+    other dtypes, layouts or devices, L above the plans' reach, and a plan
+    the library's count refuses or the card's shared memory does not hold.
+    ``plan``: a TrajPlan, by default ``traj_plan``'s."""
     _build.require_fp32_contiguous(what, x, *tensors)
     B, _, L, _ = x.shape
     index = _device_index(x)
@@ -343,7 +434,7 @@ def _band_library(what: str, kernel: str, name: str, x: torch.Tensor,
     except ValueError as e:
         raise ValueError(f"{what}: {e}") from None
     plan = TrajPlan(int(plan[0]), tuple(int(r) for r in plan[1]),
-                    int(plan[2]), int(plan[3]))
+                    *(int(p) for p in plan[2:]))
     lib = _build.library(name)
     need = _band_bytes(name, kernel, L, plan)
     limit = _build.smem_limit(index)
@@ -352,7 +443,7 @@ def _band_library(what: str, kernel: str, name: str, x: torch.Tensor,
                          f"bytes of shared memory a CTA (-1: not a plan the "
                          f"kernel takes); the card allows {limit}")
     return lib, (plan.C, _build.int_array(plan.row0), plan.threads,
-                 plan.sites)
+                 plan.sites), plan
 
 
 def _traj_tail(x, beta, dt, nstep):
@@ -363,18 +454,31 @@ def _traj_tail(x, beta, dt, nstep):
     return (B, L, float(beta), float(dt), float(0.5 * dt), int(nstep))
 
 
-def force(x: torch.Tensor, beta: float) -> torch.Tensor:
+def force(x: torch.Tensor, beta: float, *,
+          plan: ForcePlan | None = None) -> torch.Tensor:
     """Gauge force of a batch x: (B, 2, L, L). A CPU tensor takes the plain
-    twin; a CUDA tensor launches K1."""
+    twin; a CUDA tensor launches K1 under ``plan`` (default
+    ``force_plan``'s; another for timing and tests)."""
     if x.ndim != 4 or x.shape[1] != 2 or x.shape[2] != x.shape[3]:
         raise ValueError(f"force takes (B, 2, L, L), got {tuple(x.shape)}")
     if _on_cpu(x):
         return force_plain(x, beta)
     _build.require_fp32_contiguous("K1 force", x)
-    lib = _build.library("force")
     B, _, L, _ = x.shape
+    index = _device_index(x)
+    try:
+        plan = force_plan(L) if plan is None else ForcePlan(*map(int, plan))
+    except ValueError as e:
+        raise ValueError(f"K1 force: {e}") from None
+    need = _force_bytes(L, plan)
+    if not 0 < need <= _build.smem_limit(index):
+        raise ValueError(f"K1 force: the plan {plan} at L={L} needs {need} "
+                         f"bytes of shared memory a CTA (-1: not a plan the "
+                         f"kernel takes); the card allows "
+                         f"{_build.smem_limit(index)}")
+    lib = _build.library("force")
     f = torch.empty_like(x)
-    rc = lib.k1_force(x.data_ptr(), f.data_ptr(), B, L, float(beta),
+    rc = lib.k1_force(x.data_ptr(), f.data_ptr(), B, L, float(beta), *plan,
                       _build.stream_handle(x))
     _build.check(rc, "K1 force", lib)
     _build.LAUNCHES["K1"] += 1
@@ -389,7 +493,7 @@ def leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
     _check_links("K2 leapfrog", x, v)
     if _on_cpu(x):
         return leapfrog_plain(x, v, beta, dt, nstep)
-    lib, pa = _band_library("K2 leapfrog", "K2", "leapfrog", x, plan, v)
+    lib, pa, _ = _band_library("K2 leapfrog", "K2", "leapfrog", x, plan, v)
     tail = _traj_tail(x, beta, dt, nstep)
     xo, vo = torch.empty_like(x), torch.empty_like(v)
     rc = lib.k2_leapfrog(x.data_ptr(), v.data_ptr(), xo.data_ptr(),
@@ -400,30 +504,24 @@ def leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
 
 
 def leapfrog_cl(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
-                nstep: int):
-    """The same trajectory through K3, chains-last inside: (B, 2, L, L) at
-    the boundary, transposed to (2, L, L, B) around the launch, as the JAX
-    wrapper does. On the card B must be a multiple of K3's chains a
-    block."""
+                nstep: int, *, plan: TrajPlan | None = None):
+    """The same trajectory through K3: tiles of chains, the chain the
+    fastest thread index (chains last in the kernel's shared cells), on the
+    (B, 2, L, L) tensors themselves, any B. ``plan``: another than
+    ``traj_plan(..., 'K3')``'s (timing, tests)."""
     _check_links("K3 leapfrog_cl", x, v)
     if _on_cpu(x):
         return leapfrog_cl_plain(x, v, beta, dt, nstep)
-    xt = x.permute(1, 2, 3, 0).contiguous()
-    vt = v.permute(1, 2, 3, 0).contiguous()
-    lib = _build.library("leapfrog")
-    chains = lib.k3_chains_per_block()
-    if x.shape[0] % chains:
-        raise ValueError(f"K3 leapfrog_cl: B={x.shape[0]} is not a multiple "
-                         f"of the {chains} chains a block holds")
-    lib = _traj_library("K3 leapfrog_cl", "leapfrog", xt, chains, vt)
+    lib, pa, plan = _band_library("K3 leapfrog_cl", "K3", "leapfrog", x,
+                                  plan, v)
     tail = _traj_tail(x, beta, dt, nstep)
-    xo, vo = torch.empty_like(xt), torch.empty_like(vt)
-    rc = lib.k3_leapfrog_cl(xt.data_ptr(), vt.data_ptr(), xo.data_ptr(),
-                            vo.data_ptr(), *tail, _build.stream_handle(x))
+    xo, vo = torch.empty_like(x), torch.empty_like(v)
+    rc = lib.k3_leapfrog_cl(x.data_ptr(), v.data_ptr(), xo.data_ptr(),
+                            vo.data_ptr(), *tail, *pa, plan.tile,
+                            _build.stream_handle(x))
     _build.check(rc, "K3 leapfrog_cl", lib)
     _build.LAUNCHES["K3"] += 1
-    return (xo.permute(3, 0, 1, 2).contiguous(),
-            vo.permute(3, 0, 1, 2).contiguous())
+    return xo, vo
 
 
 def hmc_traj(x: torch.Tensor, seed: torch.Tensor, beta: float, dt: float,
@@ -441,7 +539,7 @@ def hmc_traj(x: torch.Tensor, seed: torch.Tensor, beta: float, dt: float,
                          f"on {seed.device}")
     if _on_cpu(x):
         return hmc_traj_plain(x, seed, beta, dt, nstep)
-    lib, pa = _band_library("K4 hmc_traj", "K4", "hmc_traj", x, plan)
+    lib, pa, _ = _band_library("K4 hmc_traj", "K4", "hmc_traj", x, plan)
     tail = _traj_tail(x, beta, dt, nstep)
     B = x.shape[0]
     xo = torch.empty_like(x)
@@ -466,8 +564,8 @@ def hmc_traj_hostrng(x: torch.Tensor, v0: torch.Tensor, u: torch.Tensor,
                          f"got {tuple(u.shape)}")
     if _on_cpu(x):
         return hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep)
-    lib, pa = _band_library("K5 hmc_traj_hostrng", "K5", "hmc_traj", x,
-                            plan, v0, u)
+    lib, pa, _ = _band_library("K5 hmc_traj_hostrng", "K5", "hmc_traj", x,
+                               plan, v0, u)
     tail = _traj_tail(x, beta, dt, nstep)
     B = x.shape[0]
     xo = torch.empty_like(x)

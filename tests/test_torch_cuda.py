@@ -382,7 +382,8 @@ def _close_traj(got, ref, x0, v0, u, beta, dt, nstep):
                                         (4, 128, 3), (2, 256, 2)])
 def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
     """K2, K4 and K5 under the default plan and, at the shapes up to 64^2,
-    under every plan of L (traj_plans); K3 where it takes the shape."""
+    under every plan of L (traj_plans); K3 likewise (its plans of chain
+    tiles, traj_plans(L, K3_TILES)), bit-equal to its twin."""
     g = torch.Generator(device=card).manual_seed(0)
     x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
     v = torch.randn((B, 2, L, L), generator=g, device=card)
@@ -390,26 +391,29 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
     seed = torch.tensor([12345], dtype=torch.int32, device=card)
     beta, dt = 2.0, 0.1
     plans = [None] + (lk.traj_plans(L) if L <= 64 else [])
+    plans3 = [None] + (lk.traj_plans(L, lk.K3_TILES) if L <= 64 else [])
     before = dict(_build.LAUNCHES)
     ref2 = lk.leapfrog_plain(x, v, beta, dt, nstep)
     ref5 = lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, nstep)
     ref4 = lk.hmc_traj_plain(x, seed, beta, dt, nstep)
     v4, u4 = rng.momenta(seed, B, L), rng.accept_uniforms(seed, B)
-    cl = L <= 48                  # inside K3's block
     runs = [lk.leapfrog(x, v, beta, dt, nstep, plan=p) for p in plans]
-    if cl:
-        runs.append(lk.leapfrog_cl(x, v, beta, dt, nstep))
     for got in runs:
         torch.cuda.synchronize()
         assert _wrapped(got[0], ref2[0]) < 1e-4
         assert float((got[1] - ref2[1]).abs().max()) < \
             1e-4 * float(ref2[1].abs().max())
+    ref3 = lk.leapfrog_cl_plain(x, v, beta, dt, nstep)
+    for p in plans3:
+        got = lk.leapfrog_cl(x, v, beta, dt, nstep, plan=p)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref3)), p
     for p in plans:
         _close_traj(lk.hmc_traj_hostrng(x, v, u, beta, dt, nstep, plan=p),
                     ref5, x, v, u, beta, dt, nstep)
         _close_traj(lk.hmc_traj(x, seed, beta, dt, nstep, plan=p), ref4, x,
                     v4, u4, beta, dt, nstep)
-    # K2, K4 and K5 are deterministic: two launches bit-equal
+    # K2-K5 are deterministic: two launches bit-equal
     k4 = lk.hmc_traj(x, seed, beta, dt, nstep)
     assert all(torch.equal(a, b) for a, b in
                zip(k4, lk.hmc_traj(x, seed, beta, dt, nstep)))
@@ -419,11 +423,59 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
     k2 = lk.leapfrog(x, v, beta, dt, nstep)
     assert all(torch.equal(a, b) for a, b in
                zip(k2, lk.leapfrog(x, v, beta, dt, nstep)))
+    k3 = lk.leapfrog_cl(x, v, beta, dt, nstep)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k3, lk.leapfrog_cl(x, v, beta, dt, nstep)))
     n = len(plans)
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"K1": 0, "K2": n + 2, "K3": int(cl), "K4": n + 2,
-                        "K5": n + 2, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
-                        "K10": 0, "K11": 0}
+    assert launched == {"K1": 0, "K2": n + 2, "K3": len(plans3) + 2,
+                        "K4": n + 2, "K5": n + 2, "K6": 0, "K7": 0, "K8": 0,
+                        "K9": 0, "K10": 0, "K11": 0}
+
+
+# K3 at ragged chain counts (a tile's last chains past B) and at the
+# shapes chip_smoke.py holds it to
+@pytest.mark.parametrize("B,L", [(1, 8), (3, 16), (13, 32), (130, 8),
+                                 (16, 64), (5, 48)])
+def test_k3_takes_any_chain_count(card, B, L):
+    g = torch.Generator(device=card).manual_seed(B + L)
+    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
+    v = torch.randn((B, 2, L, L), generator=g, device=card)
+    got = lk.leapfrog_cl(x, v, 2.0, 0.1, 5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, lk.leapfrog_cl_plain(x, v, 2.0, 0.1, 5)))
+
+
+# K1 at the shapes of chip_smoke.py's phase 3 (FT 16^2 x 64, path A 64^2 x
+# 64, path B 16^2 x 128, the headline 64^2 x 1024, an odd 20^2 x 3) and 2^2
+@pytest.mark.parametrize("B,L", [(64, 16), (64, 64), (128, 16), (1024, 64),
+                                 (3, 20), (5, 2)])
+def test_k1_matches_its_twin_under_every_plan(card, B, L):
+    """K1 under its default plan and every plan of force_plans(L) against
+    its twin, within 1e-4 x max(1, max|F|) (PERF.md's tolerance; the kernel
+    repeats the twin op for op); two launches bit-equal; one launch a
+    call."""
+    g = torch.Generator(device=card).manual_seed(L)
+    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
+    ref = lk.force_plain(x, 6.0)
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    plans = [None] + lk.force_plans(L)
+    before = _build.LAUNCHES["K1"]
+    for p in plans:
+        got = lk.force(x, 6.0, plan=p)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= tol, p
+    assert torch.equal(lk.force(x, 6.0), lk.force(x, 6.0))
+    assert _build.LAUNCHES["K1"] - before == len(plans) + 2
+
+
+@pytest.mark.parametrize("L", [2, 3, 8, 16, 20, 64, 256, 1024])
+def test_force_smem_count_is_the_librarys(card, L):
+    """The Python count of a K1 CTA's shared memory (which the CPU tests
+    hold against the H100's limit) is the library's own, for every plan."""
+    for plan in lk.force_plans(L):
+        assert lk._force_bytes(L, plan) == lk.force_smem_bytes_of(L, plan)
 
 
 @pytest.mark.parametrize("L", [2, 3, 8, 20, 64, 128, 256])
@@ -435,6 +487,9 @@ def test_traj_smem_count_is_the_libraries(card, L):
                              ("K5", "hmc_traj")):
             assert lk._band_bytes(name, kernel, L, plan) == \
                 lk.traj_smem_bytes_of(L, plan, kernel)
+    for plan in lk.traj_plans(L, lk.K3_TILES):
+        assert lk._band_bytes("leapfrog", "K3", L, plan) == \
+            lk.traj_smem_bytes_of(L, plan, "K3")
 
 
 def test_trajectory_kernels_refuse_what_they_do_not_take(card):
@@ -452,12 +507,18 @@ def test_trajectory_kernels_refuse_what_they_do_not_take(card):
     bad = lk.TrajPlan(1, (0, 8), 8, 4)   # runs of 4 rows: half of 8 rows
     with pytest.raises(ValueError, match="plan"):
         lk.leapfrog(x, x, 1.0, 0.1, 1, plan=bad)
-    x64 = torch.zeros((4, 2, 64, 64), device=card)   # over K3's block
-    with pytest.raises(ValueError, match="shared memory"):
-        lk.leapfrog_cl(x64, x64, 1.0, 0.1, 1)
-    x6 = torch.zeros((6, 2, 8, 8), device=card)      # B not a multiple of 4
-    with pytest.raises(ValueError, match="multiple"):
-        lk.leapfrog_cl(x6, x6, 1.0, 0.1, 1)
+    with pytest.raises(ValueError, match="L <= 256"):   # K3's reach
+        lk.leapfrog_cl(big, big, 1.0, 0.1, 1)
+    # a tile of 8 chains needs threads in multiples of 64 at 8^2
+    with pytest.raises(ValueError, match="plan"):
+        lk.leapfrog_cl(x, x, 1.0, 0.1, 1,
+                       plan=lk.TrajPlan(1, (0, 8), 32, 8, 8))
+    with pytest.raises(TypeError):
+        lk.leapfrog_cl(x.double(), x.double(), 1.0, 0.1, 1)
+    with pytest.raises(ValueError, match="L <= 1024"):   # K1's envelope
+        lk.force(torch.zeros((1, 2, 1025, 1025), device=card), 1.0)
+    with pytest.raises(ValueError, match="plan"):
+        lk.force(x, 1.0, plan=lk.ForcePlan(8, 8, 4))   # 2 runs a column
     with pytest.raises(TypeError):
         lk.leapfrog(x.double(), x.double(), 1.0, 0.1, 1)
     with pytest.raises(ValueError):
@@ -474,10 +535,12 @@ def test_trajectory_kernels_refuse_what_they_do_not_take(card):
 
 
 @pytest.mark.parametrize("backend,kernel", [
-    ("auto", "K2"), ("pallas", "K2"), ("pallas_cl", "K3"), ("fused", "K4"),
-    ("fused_hostrng", "K5"), ("xla", "K1")])
+    ("auto", "K2"), ("auto", "K3"), ("pallas", "K2"), ("pallas_cl", "K3"),
+    ("fused", "K4"), ("fused_hostrng", "K5"), ("xla", "K1")])
 def test_run_hmc_launches_only_its_kernel(card, backend, kernel):
-    cfg = HMCConfig(beta=2.0, L=8, tau=1.0, nstep=5, ntraj=6, n_chains=8,
+    # 'auto' is K3 up to 16^2 and K2 above (hmc.AUTO_K3_MAX_L)
+    L = 32 if (backend, kernel) == ("auto", "K2") else 8
+    cfg = HMCConfig(beta=2.0, L=L, tau=1.0, nstep=5, ntraj=6, n_chains=8,
                     randinit=True)
     _build.reset_counts()
     x, hist = th.run_hmc(cfg, backend=backend)

@@ -311,6 +311,18 @@ def test_resolve_backend():
     assert th.resolve_backend("auto", "leapfrog", f32, "cuda") == \
         "pallas"
     assert th.resolve_backend("auto", "omelyan", f32, "cuda") == "xla"
+    # the measured rule: K3 up to 16^2, K2 above, whatever the chains
+    for B in (1, 128, 1024):
+        for L, kernel in ((2, "pallas_cl"), (8, "pallas_cl"),
+                          (16, "pallas_cl"), (17, "pallas"),
+                          (32, "pallas"), (64, "pallas")):
+            shape = (B, 2, L, L)
+            assert th.resolve_backend("auto", "leapfrog", f32, "cuda",
+                                      shape) == kernel
+            assert th.resolve_backend("auto", "omelyan", f32, "cuda",
+                                      shape) == "xla"
+            assert th.resolve_backend("auto", "leapfrog", f32, "cpu",
+                                      shape) == "xla"
     for b in ("pallas", "pallas_cl", "fused", "fused_hostrng", "xla"):
         assert th.resolve_backend(b, "leapfrog", f32, "cuda") == b
     # fp64 on the card has no kernel: 'auto' raises instead of running the

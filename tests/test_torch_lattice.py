@@ -1,8 +1,12 @@
-"""fthmc_tpu_torch lattice physics and K1's plain twin against fthmc_tpu.
+"""fthmc_tpu_torch lattice physics and K1's plain twin against fthmc_tpu,
+and a float64 mirror of K1's band indexing (csrc/force.cu) and its plans.
 
 Same numpy inputs (numpy.random.default_rng) go through both packages in
 float64; deterministic functions agree to 1e-12 (roundoff of a few adds and
-one sin/cos per site)."""
+one sin/cos per site). Against the TPU kernel itself (pallas_force in
+interpret mode, fp32) K1's twin agrees to 1e-5, tests/test_pallas.py's own
+bound for pallas_force: two fp32 sines of one angle may differ in the last
+bit, times beta <= 6."""
 import math
 
 import jax
@@ -12,9 +16,14 @@ import pytest
 import torch
 
 from fthmc_tpu import lattice as jl
+from fthmc_tpu.ops.pallas_lattice import pallas_force
 from fthmc_tpu_torch import lattice as tl
 from fthmc_tpu_torch.ops import _build
-from fthmc_tpu_torch.ops.lattice_kernels import force, force_plain
+from fthmc_tpu_torch.ops.lattice_kernels import (FORCE_MAX_L, ForcePlan,
+                                                 force, force_plain,
+                                                 force_plan, force_plan_of,
+                                                 force_plans,
+                                                 force_smem_bytes_of)
 
 TOL = 1e-12
 
@@ -88,6 +97,131 @@ def test_k1_plain_twin_matches_jax_force(L, beta):
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL)
     np.testing.assert_allclose(force_plain(torch.as_tensor(x), beta).numpy(),
                                ref, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("B,L,beta", [(4, 8, 2.0), (3, 20, 6.0),
+                                       (64, 16, 6.0)])
+def test_k1_plain_twin_matches_pallas_force(B, L, beta):
+    """K1's twin against the TPU kernel it replaces, pallas_force, run in
+    interpret mode on the same fp32 links."""
+    x = _links(10 + L, (B, 2, L, L)).astype(np.float32)
+    ref = np.asarray(pallas_force(jnp.asarray(x), beta, block=B,
+                                  interpret=True))
+    got = force_plain(torch.as_tensor(x), beta)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1's band geometry (csrc/force.cu), mirrored in float64: bands of R rows
+# of a chain (the last shorter where R does not divide L), a CTA each;
+# thread t owns column t % L and the run of S rows from local row (t // L)
+# S (rows past the band idle); x0 of the band's rows and sin P of the halo
+# row r0 - 1 and of the band's rows in shared buffers that start NaN, so a
+# site that reads what was never published shows. x1(i+1) comes from the
+# run, or for its last site from a load of the row below; the halo row's
+# sin P is recomputed by the first run's threads.
+# ---------------------------------------------------------------------------
+
+def band_force(x, beta, plan):
+    B, _, L, _ = x.shape
+    R, T, S = plan
+    nb = -(-L // R)
+    t = np.arange(T)
+    j, g0 = t % L, (t // L) * S
+    jp, jm = (j + 1) % L, (j - 1) % L
+    r0 = np.arange(nb) * R
+    rows = np.minimum(R, L - r0)
+    nv = np.clip(rows[:, None] - g0[None, :], 0, S)                # (nb, T)
+    k = np.arange(S)
+    valid = k[None, None, :] < nv[:, :, None]                      # (nb,T,S)
+    i = r0[:, None, None] + g0[None, :, None] + k[None, None, :]
+    site = np.where(valid, i * L + j[None, :, None], 0)
+    x0g, x1g = x[:, 0].reshape(B, -1), x[:, 1].reshape(B, -1)
+    x0 = np.where(valid, x0g[:, site], 0.0)                        # (B,...)
+    x1 = np.where(valid, x1g[:, site], 0.0)
+    cell = np.broadcast_to((g0[None, :, None] + k[None, None, :]) * L
+                           + j[None, :, None], valid.shape)
+    bands = np.broadcast_to(np.arange(nb)[:, None, None], valid.shape)
+    xs0 = np.full((B, nb, R * L), np.nan)
+    sps = np.full((B, nb, (R + 1) * L), np.nan)
+    xs0[:, bands[valid], cell[valid]] = x0[:, valid]
+    run = nv > 0
+    rb = (r0[:, None] + g0[None, :] + nv) % L                      # (nb, T)
+    below = np.where(run, x1g[:, np.where(run, rb * L + j, 0)], 0.0)
+    halo = run & (g0[None, :] == 0)
+    rh = (r0 - 1) % L
+    hs = np.sin(x0g[:, rh[:, None] * L + j] + x1[..., 0]
+                - x0g[:, rh[:, None] * L + jp] - x1g[:, rh[:, None] * L + j])
+    hb = np.broadcast_to(np.arange(nb)[:, None], halo.shape)
+    sps[:, hb[halo], np.broadcast_to(j, halo.shape)[halo]] = hs[:, halo]
+    xn = np.where(k[None, None, :] + 1 < nv[:, :, None],
+                  np.concatenate([x1[..., 1:], x1[..., -1:]], axis=-1),
+                  below[..., None])
+    right = xs0[:, bands, np.where(valid, cell - j[None, :, None]
+                                   + jp[None, :, None], 0)]
+    right = np.where(valid, right, 0.0)
+    sp = np.sin(x0 + xn - right - x1)
+    sps[:, bands[valid], (cell + L)[valid]] = sp[:, valid]
+    left = sps[:, bands, np.where(valid, cell + L - j[None, :, None]
+                                  + jm[None, :, None], 0)]
+    # sin P(i-1): the run's own previous site, else the smem row above
+    # (the run above's last row, or the halo row)
+    above = np.where(k[None, None, :] > 0,
+                     np.concatenate([sp[..., :1], sp[..., :-1]], axis=-1),
+                     sps[:, bands, np.where(valid, cell, 0)])
+    out = np.full(x.shape, np.nan)
+    f0 = beta * (sp - left)
+    f1 = beta * (above - sp)
+    for d, f in enumerate((f0, f1)):
+        flat = out[:, d].reshape(B, -1)
+        flat[:, site[valid]] = f[:, valid]
+        out[:, d] = flat.reshape(B, L, L)
+    return out
+
+
+K1_MIRROR_CASES = [(L, plan) for L in (2, 3, 8, 16, 20, 64)
+                   for plan in force_plans(L)]
+
+
+@pytest.mark.parametrize("L,plan", K1_MIRROR_CASES,
+                         ids=[f"L{L}-R{p.rows}-S{p.sites}"
+                              for L, p in K1_MIRROR_CASES])
+def test_k1_mirror_reproduces_the_twin(L, plan):
+    """K1's indexing (bands, runs, the halo row), in float64, against its
+    twin (float64) to 1e-12, under every plan of L."""
+    x = _links(L * 100 + plan.rows * 10 + plan.sites, (3, 2, L, L))
+    ref = force_plain(torch.as_tensor(x), 2.5).numpy()
+    np.testing.assert_allclose(band_force(x, 2.5, plan), ref, rtol=0,
+                               atol=1e-12)
+
+
+H100_SMEM = 232448       # bytes a block may opt in to
+
+
+def test_force_plan_covers_every_L_within_the_h100s_limits():
+    """Every L from 2 to FORCE_MAX_L has a K1 plan within an H100's shared
+    memory and threads, its bands covering every row, and so does every
+    plan of the sweep; the cells' plans are the fastest or within 5% of it
+    on an H100 (PERF.md section 6)."""
+    for L in range(2, FORCE_MAX_L + 1):
+        plan = force_plan(L)
+        assert plan == force_plan_of(L, plan.rows, plan.sites)
+        assert plan.threads % L == 0 and plan.threads <= 1024
+        assert plan.threads // L * plan.sites >= plan.rows
+        assert force_smem_bytes_of(L, plan) <= H100_SMEM
+    for L in (2, 3, 8, 16, 20, 64, 256, 1024):
+        for plan in force_plans(L):
+            assert force_smem_bytes_of(L, plan) <= H100_SMEM
+            assert plan.threads <= 1024
+    assert force_plan(16) == ForcePlan(16, 128, 2)     # FT, path B
+    assert force_plan(64) == ForcePlan(8, 256, 2)      # path A, headline
+
+
+@pytest.mark.parametrize("L", [1, FORCE_MAX_L + 1, 4096])
+def test_force_plan_raises_above_the_envelope(L):
+    with pytest.raises(ValueError, match=f"L <= {FORCE_MAX_L}"):
+        force_plan(L)
 
 
 def test_force_is_gradient_of_action():

@@ -17,8 +17,9 @@ import torch
 from fthmc_tpu.ops.pallas_lattice import (pallas_hmc_traj_hostrng,
                                           pallas_leapfrog, pallas_leapfrog_cl)
 from fthmc_tpu_torch.ops import _build, rng
-from fthmc_tpu_torch.ops.lattice_kernels import (TrajPlan, hmc_traj,
-                                                 hmc_traj_hostrng,
+from fthmc_tpu_torch.ops.lattice_kernels import (K3_TILE, K3_TILES,
+                                                 TrajPlan,
+                                                 hmc_traj, hmc_traj_hostrng,
                                                  hmc_traj_hostrng_plain,
                                                  hmc_traj_plain, leapfrog,
                                                  leapfrog_cl,
@@ -187,16 +188,19 @@ def test_wrappers_refuse_bad_shapes_and_devices(call):
 
 
 # ---------------------------------------------------------------------------
-# The band body of K2, K4 and K5 (csrc/traj_common.cuh), mirrored in float64:
-# C bands of rows a chain, CTA r's thread t owning column t % L and the run
-# of S rows from local row (t // L) S (rows past the band idle), fields kept
-# per thread; a step publishes x0 of each run and x1 of its first row, reads
-# x1(i+1) from the run, the next run's first row or the band below's first
-# row, publishes sin P and reads sin P(i-1) from the run, the run above's
-# last row or the band above's last row (ranks wrapping C - 1 <-> 0); dH
-# over a thread's sites in order, a tree over the CTA's threads (padded to a
-# power of two), then the CTAs in rank order. Shared buffers start NaN, so a
-# site that reads what was never published shows.
+# The band body of K2-K5 (csrc/traj_common.cuh), mirrored in float64: a
+# group (one chain, or K3's tile of TC chains, a tile's chains past B
+# computing on zeros and storing nothing) is C bands of rows, CTA r's
+# thread t owning chain t % TC of the group, column (t // TC) % L and the
+# run of S rows from local row (t // (TC L)) S (rows past the band idle),
+# fields kept per thread, shared cells (row L + column) TC + chain; a step
+# publishes x0 of each run and x1 of its first row, reads x1(i+1) from the
+# run, the next run's first row or the band below's first row, publishes
+# sin P and reads sin P(i-1) from the run, the run above's last row or the
+# band above's last row (ranks wrapping C - 1 <-> 0); dH over a thread's
+# sites in order, a tree over the CTA's threads (padded to a power of two),
+# then the CTAs in rank order. Shared buffers start NaN, so a site that
+# reads what was never published shows.
 # ---------------------------------------------------------------------------
 
 N_SM = 132               # an H100's SMs
@@ -204,12 +208,13 @@ N_SM = 132               # an H100's SMs
 
 class _BandMirror:
     def __init__(self, L, plan):
-        C, row0, T, S = plan
-        self.L, self.C, self.T, self.S = L, C, T, S
+        C, row0, T, S, TC = plan
+        self.L, self.C, self.T, self.S, self.TC = L, C, T, S, TC
         R = np.diff(np.asarray(row0))
-        self.R, self.RL = R, int(R.max()) * L
+        self.R, self.RL = R, int(R.max()) * L * TC
         t = np.arange(T)
-        self.j, self.g0 = t % L, (t // L) * S
+        self.c, q = t % TC, t // TC
+        self.j, self.g0 = q % L, (q // L) * S
         self.jp, self.jm = (self.j + 1) % L, (self.j - 1) % L
         lr = self.g0[None, :, None] + np.arange(S)[None, None, :]   # (1,T,S)
         self.lr = np.broadcast_to(lr, (C, T, S))
@@ -219,20 +224,36 @@ class _BandMirror:
         self.klast = np.where((last >= 0) & (last < S), last, -1)
         self.up, self.dn = (np.arange(C) - 1) % C, (np.arange(C) + 1) % C
         self.i = np.asarray(row0)[:-1, None, None] + self.lr        # global
-        self.cell = (self.lr * L + self.j[None, :, None])           # smem
+        self.cj = self.j * TC + self.c        # a cell's column and chain
+        self.cell = self.lr * L * TC + self.cj[None, :, None]       # smem
         self.site = self.i * L + self.j[None, :, None]              # global
+        self.chain = np.broadcast_to(self.c[None, :, None], (C, T, S))
+
+    def _cells(self, cols):
+        """Cells of each thread's sites in its band at columns ``cols``."""
+        return self.lr * self.L * self.TC + (cols * self.TC
+                                             + self.c)[None, :, None]
 
     def load(self, f):
-        """(B, 2, L, L) -> two (B, C, T, S) fields, 0 off the band."""
-        flat = f.reshape(f.shape[0], 2, -1)
+        """(B, 2, L, L) -> two (groups, C, T, S) fields, 0 off the band and
+        past B."""
+        B, TC = f.shape[0], self.TC
+        groups = -(-B // TC)
+        pad = np.zeros((groups * TC, 2, self.L * self.L))
+        pad[:B] = f.reshape(B, 2, -1)
+        pad = pad.reshape(groups, TC, 2, -1)
         idx = np.where(self.valid, self.site, 0)
-        return tuple(np.where(self.valid, flat[:, d][:, idx], 0.0)
+        return tuple(np.where(self.valid, pad[:, self.chain, d, idx], 0.0)
                      for d in (0, 1))
 
     def store(self, f0, f1, out):
         flat = out.reshape(out.shape[0], 2, -1)
+        b = (np.arange(f0.shape[0])[:, None, None, None] * self.TC
+             + self.chain[None])
+        live = self.valid[None] & (b < out.shape[0])
+        site = np.broadcast_to(self.site[None], b.shape)
         for d, f in enumerate((f0, f1)):
-            flat[:, d][:, self.site[self.valid]] = f[:, self.valid]
+            flat[b[live], d, site[live]] = f[live]
         return out
 
     def _gather(self, buf, rank, cell, mask):
@@ -255,20 +276,20 @@ class _BandMirror:
         # x1(i+1) of a run's last site: band below's first row, next run's
         has_last = self.klast >= 0
         nxt = (~has_last) & (self.nv == S)
-        below = (self._gather(x1f, self.dn[:, None], self.j[None, :],
+        below = (self._gather(x1f, self.dn[:, None], self.cj[None, :],
                               has_last)
                  + self._gather(x1f, np.arange(C)[:, None],
-                                np.arange(T)[None, :] + L, nxt))
+                                np.arange(T)[None, :] + L * self.TC, nxt))
         k = np.arange(S)[None, None, :]
         from_below = (k == self.klast[:, :, None]) | (k == S - 1)
         shifted = np.concatenate([x1[..., 1:], x1[..., -1:]], axis=-1)
         xn = np.where(from_below, below[..., None], shifted)
-        right = self._gather(xs0, ranks, self.lr * L + self.jp[None, :, None],
-                             self.valid)
+        right = self._gather(xs0, ranks, self._cells(self.jp), self.valid)
         return np.where(self.valid, x0 + xn - right - x1, 0.0)
 
     def leapfrog(self, x0, x1, p0, p1, beta, dt, nstep):
         B, C, T, S, L = x0.shape[0], self.C, self.T, self.S, self.L
+        row = L * self.TC
         hdt = 0.5 * dt
         x0, x1 = x0 + hdt * p0, x1 + hdt * p1
         ranks = np.arange(C)[:, None, None]
@@ -282,14 +303,13 @@ class _BandMirror:
             first = run & (self.g0[None, :] == 0)
             R_up = self.R[self.up]
             above = (self._gather(sps, self.up[:, None],
-                                  (R_up[:, None] - 1) * L + self.j[None, :],
-                                  first)
+                                  (R_up[:, None] - 1) * row
+                                  + self.cj[None, :], first)
                      + self._gather(sps, np.arange(C)[:, None],
-                                    (self.g0[None, :] - 1) * L
-                                    + self.j[None, :], run & ~first))
+                                    (self.g0[None, :] - 1) * row
+                                    + self.cj[None, :], run & ~first))
             sa = np.concatenate([above[..., None], sp[..., :-1]], axis=-1)
-            left = self._gather(sps, ranks, self.lr * L
-                                + self.jm[None, :, None], self.valid)
+            left = self._gather(sps, ranks, self._cells(self.jm), self.valid)
             f0, f1 = beta * (sp - left), beta * (sa - sp)
             p0 = np.where(self.valid, p0 - dt * f0, 0.0)
             p1 = np.where(self.valid, p1 - dt * f1, 0.0)
@@ -368,6 +388,30 @@ def test_band_mirror_reproduces_the_twins(L, plan):
     np.testing.assert_allclose(xm, xn.numpy(), rtol=0, atol=1e-12)
 
 
+K3_MIRROR_CASES = [(L, plan) for L in (2, 3, 8, 20, 32, 48, 64)
+                   for plan in traj_plans(L, K3_TILES)]
+
+
+@pytest.mark.parametrize("L,plan", K3_MIRROR_CASES,
+                         ids=[f"L{L}-C{p.C}-S{p.sites}-TC{p.tile}"
+                              for L, p in K3_MIRROR_CASES])
+def test_k3_mirror_reproduces_the_twin(L, plan):
+    """K3's indexing (tiles of TC chains, the chain fastest, the last tile
+    ragged; runs; bands), in float64, against its twin (float64) to 1e-12,
+    under every plan of K3's sweep at L, for B = 1, 3, 8 and 130 chains."""
+    nstep, beta, dt = 2, 2.0, 0.1
+    g = np.random.default_rng(L * 1000 + plan.C * 100 + plan.sites * 10
+                              + plan.tile)
+    for B in (1, 3, 8, 130):
+        x = g.uniform(-1.0, 1.0, (B, 2, L, L))
+        v = g.normal(size=x.shape)
+        xr, vr = leapfrog_cl_plain(torch.as_tensor(x), torch.as_tensor(v),
+                                   beta, dt, nstep)
+        xm, vm = band_leapfrog(x, v, beta, dt, nstep, L, plan)
+        np.testing.assert_allclose(xm, xr.numpy(), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(vm, vr.numpy(), rtol=0, atol=1e-12)
+
+
 H100_SMEM = 232448       # bytes a block may opt in to
 H100_REGS = 65536        # 32-bit registers an SM
 
@@ -396,7 +440,7 @@ def test_traj_plan_covers_every_L_within_the_h100s_limits(B):
 
 def test_traj_plans_of_the_cells():
     """The headline's plan is the one PERF.md records; 128^2 and 256^2 take
-    bands in a cluster."""
+    bands in a cluster; K3's plans at 8^2-32^2."""
     assert traj_plan(64, 1024, N_SM, "K2") == TrajPlan(1, (0, 64), 512, 8)
     for k in ("K4", "K5"):
         assert traj_plan(64, 1024, N_SM, k) == TrajPlan(1, (0, 64), 1024, 4)
@@ -408,10 +452,46 @@ def test_traj_plans_of_the_cells():
         assert traj_plan(256, 16, N_SM, k) == TrajPlan(
             8, tuple(range(0, 257, 32)), 512, 16)
         assert traj_plan(200, 1, N_SM, k).row0[1] == 25
+    # K3: one CTA a tile of 2 chains, the most sites up to 4 that keep 128
+    # threads (PERF.md section 6)
+    assert traj_plan(8, 1024, N_SM, "K3") == TrajPlan(1, (0, 8), 128, 1, 2)
+    assert traj_plan(16, 1024, N_SM, "K3") == TrajPlan(1, (0, 16), 128, 4,
+                                                        2)
+    assert traj_plan(32, 1024, N_SM, "K3") == TrajPlan(1, (0, 32), 512, 4,
+                                                        2)
+
+
+@pytest.mark.parametrize("B", [1, 3, 1024])
+def test_k3_plan_covers_every_L_within_the_h100s_limits(B):
+    """Every L from 2 to 256 has a K3 plan, of tiles no wider than B needs
+    (every plan of K3's sweep up to 64^2 is one the kernel takes too),
+    within an H100's shared memory, threads and the portable cluster; at
+    B = 1 and 3 the plan stores every site of every chain (the ragged
+    tile's chains past B none); tiles of K3_TILE chains from 2 chains up to
+    128^2, one CTA a tile up to 44^2."""
+    picked = [(L, traj_plan(L, B, N_SM, "K3")) for L in range(2, 257)]
+    swept = [(L, p) for L in (2, 3, 8, 20, 32, 48, 64)
+             for p in traj_plans(L, K3_TILES)]
+    for L, plan in picked:
+        assert plan.tile == (1 if B == 1 or L > 128 else K3_TILE)
+        # one chain: K2's plan, bands filling the SMs from 16^2
+        assert (plan.C == 1) == (L <= 44 if B > 1 else L < 16)
+    for L, plan in picked + swept:
+        assert plan == traj_plan_of(L, plan.C, plan.sites, plan.tile)
+        assert 1 <= plan.C <= min(8, L)
+        assert plan.threads % (L * plan.tile) == 0
+        assert plan.threads <= max_threads(plan.sites)
+        assert traj_smem_bytes_of(L, plan, "K3") <= H100_SMEM
+        if B > 3:
+            continue
+        ids = np.arange(B * 2 * L * L, dtype=float).reshape(B, 2, L, L)
+        np.testing.assert_array_equal(
+            band_leapfrog(ids, np.zeros_like(ids), 0.0, 0.0, 0, L, plan)[0],
+            ids)
 
 
 @pytest.mark.parametrize("L", [1, 257, 1024])
-@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4", "K5"])
 def test_traj_plan_raises_above_the_reach(L, kernel):
     with pytest.raises(ValueError, match="L <= 256"):
         traj_plan(L, 4, N_SM, kernel)

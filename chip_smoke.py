@@ -69,8 +69,27 @@ Phases, each printed on its own line:
      "cg_plans" line), K9 against K10 over L (the 'auto' layout rule),
      s/trajectory, chain-steps/s, CG iterations a solve, and the device
      busy share of paths A, B and C;
-  9. a {"kernels": [...]} JSON line, K1-K11;
-  10. last, {"ok": true, "device": {...}}.
+  9. flow training and flow sampling: K6 against its twin on every layer
+     at the sampler's shapes (8^2 x 4096 chains, the exported 16-layer
+     flow8x8_b2_16l_long; 8^2 x 512, the flagship's width,
+     flow8x8_b3_rncp24), timed there beside its bound; one training step's
+     loss and gradients at the flagship's width (batch 512) on the card
+     against the CPU; the reference configuration (ncp, 16 layers, hidden
+     (8, 8), 8^2, beta=2, batch 64, 1000 epochs) trained through train(),
+     then generate_ensemble with 64 chains (acceptance >= 0.15, the loss
+     falling); the flagship's TrainConfig from fresh weights for one era of
+     100 epochs (its host synchronisations counted), save_checkpoint,
+     load_checkpoint_auto and a second era (the step count and the beta
+     schedule continuing); D_KL of flow8x8_b3_rncp24 at beta=3 over 8192
+     draws against the JAX package's CPU reading; flow sampling with
+     flow8x8_b2_16l_long (8^2, beta=2, 64 chains x 4096 samples, blocks of
+     64) with its counters (set to 0 just before it: K6 exactly once a
+     layer a block), acceptance against the JAX package's CPU reading,
+     chain-samples/s, tau_int(Q) and effective samples/s; bench_train and
+     bench_flow_sampling at their defaults;
+  10. a {"kernels": [...]} JSON line, K1-K11 (K6's launches those of the
+     FT path and the sampling path);
+  11. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -79,6 +98,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -90,10 +110,13 @@ import torch.nn.functional as F
 
 from fthmc_tpu_torch import fermion as tf
 from fthmc_tpu_torch import lattice
-from fthmc_tpu_torch.config import HMCConfig, LeapfrogConfig
+from fthmc_tpu_torch.checkpoint import load_checkpoint_auto, save_checkpoint
+from fthmc_tpu_torch.config import (FlowSpec, HMCConfig, LeapfrogConfig,
+                                    TrainConfig)
 from fthmc_tpu_torch.hmc import (ft_force, hmc_step, resolve_backend,
                                  run_fthmc, run_hmc)
 from fthmc_tpu_torch.models.flow import flow_reverse
+from fthmc_tpu_torch.models import priors
 from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
 from fthmc_tpu_torch.ops import _build, rng
 from fthmc_tpu_torch.ops import fermion_kernels as fk
@@ -113,6 +136,10 @@ from fthmc_tpu_torch.ops.coupling_vjp_kernels import (bwd_call,
 from fthmc_tpu_torch.ops.lattice_kernels import force, force_plain
 from fthmc_tpu_torch.schwinger import (SchwingerConfig, run_fthmc_dyn,
                                        run_hmc_dyn)
+from fthmc_tpu_torch import bench as tbench
+from fthmc_tpu_torch import observables as tobs
+from fthmc_tpu_torch import sampling as tsample
+from fthmc_tpu_torch import train as ttrain
 from fthmc_tpu_torch.weights import load_flow_npz
 
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
@@ -251,6 +278,36 @@ HOST_LOOP_ITERATION_MS = {"A": 0.0262, "B": 0.0270}
 LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
 # (thermalizing, measured) trajectories, sized against the time limit
 DYN_TRAJ = {"A": (100, 100), "B": (100, 400), "C": (100, 300)}
+# Flow training and flow sampling (phase 9). K6 at the sampler's shapes:
+# (exported flow, chains) at 8^2, held to its twin on every layer.
+SAMPLER_K6 = {"16l_long": ("flow8x8_b2_16l_long", 4096),
+              "flagship": ("flow8x8_b3_rncp24", 512)}
+# The flagship flow's training settings (artifacts/flow8x8_b3_rncp24_ftb6
+# .meta.json: 8^2, batch 512, lr 1e-3, grad_clip 1, beta annealed 2 -> 3
+# over half of the steps), cut to 2 eras of 100 epochs.
+FLAGSHIP_TRAIN = TrainConfig(
+    L=8, beta=3.0, beta_init=2.0, beta_anneal_frac=0.5, n_era=2,
+    n_epoch=100, batch_size=512, base_lr=1e-3, grad_clip=1.0, seed=7,
+    flow=FlowSpec(n_layers=24, coupling="rncp", n_mixture=8,
+                  hidden_sizes=(32, 32), s_clip=3.0))
+# The reference configuration (fthmc_tpu/bench.py bench_train's flow: ncp,
+# 16 layers, hidden (8, 8), 2 components; 8^2, beta=2, batch 64, lr 1e-3,
+# TrainConfig's 10 eras of 100 epochs), then flow sampling with 64 chains:
+# the JAX package read an acceptance of 0.202 after the same training, the
+# reference code 0.21-0.25 (BENCH.md:1459).
+REF_TRAIN = TrainConfig(L=8, beta=2.0, batch_size=64, base_lr=1e-3,
+                        flow=FlowSpec(n_layers=16, n_mixture=2,
+                                      hidden_sizes=(8, 8)))
+MIN_TRAINED_ACCEPTANCE = 0.15
+# The JAX package's readings on a CPU (tests/test_torch_sampling.py,
+# jax_reference_readings): D_KL = mean(logq - logp) of flow8x8_b3_rncp24
+# at 8^2, beta=3 over 8192 draws, and flow sampling with
+# flow8x8_b2_16l_long at 8^2, beta=2, 64 chains x 4096 samples, blocks of
+# 64.
+JAX_DKL_RNCP24 = (-335.28973388671875, 0.020102684869653945)  # mean, stderr
+DKL_DRAWS = 8192
+JAX_SAMPLING_ACC, SAMPLING_ACC_MARGIN = 0.25147247314453125, 0.02
+SAMPLING = dict(beta=2.0, L=8, batch_size=64, num_samples=4096, n_chains=64)
 
 
 def say(phase: str, **kw) -> None:
@@ -319,7 +376,7 @@ def _taps(need: np.ndarray, nonzero: np.ndarray) -> int:
                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 
-def coupling_macs(widths, mu: int, off: int) -> dict:
+def coupling_macs(widths, mu: int, off: int, lat: int = L) -> dict:
     """Conv multiply-adds per chain that one coupling layer's outputs depend
     on, from its stripe masks. Forward (K6, K7): the raw conditioner output
     is read on the active stripe only, each earlier conv's output where the
@@ -329,7 +386,8 @@ def coupling_macs(widths, mu: int, off: int) -> dict:
     transposed chain on the active stripe and spread one site a conv; the
     chain's result is read on the frozen stripe (the conditioner's input),
     each earlier transposed conv's where the next one reads it."""
-    frozen, active, _ = (m.astype(bool) for m in plaq_masks((L, L), mu, off))
+    frozen, active, _ = (m.astype(bool) for m in plaq_masks((lat, lat), mu,
+                                                            off))
     n = len(widths) - 1
     need_in = [frozen]          # where conv l's input cotangent is read
     for _ in range(1, n):
@@ -1427,6 +1485,292 @@ def path_busy(name: str, dev, x, s_per_traj: float, params=None,
     return profile_busy(run, cfg.ntraj, s_per_traj)
 
 
+# ---------------------------------------------------------------------------
+# flow training and flow sampling: K6 at the sampler's shapes, training
+# (reverse KL), checkpoints, flow sampling with the exported flows
+# ---------------------------------------------------------------------------
+
+def k6_bound(spec, layer, Bc: int, Lc: int, mu: int, off: int) -> dict:
+    """bounds()'s K6 at Bc chains of Lc^2: the fields, logJ and the layer's
+    weights once; the conv multiply-adds its outputs depend on."""
+    widths = [2, *spec.hidden_sizes, int(layer[-1]["w"].shape[0])]
+    field = 4 * 2 * Bc * Lc * Lc
+    weights = 4 * sum(t.numel() for c in layer for t in c.values())
+    macs = coupling_macs(widths, mu, off, lat=Lc)["K6"]
+    return _bound(2 * field + weights + 4 * Bc, 2 * Bc * macs)
+
+
+def compare_sampler_k6(dev) -> dict:
+    """K6 against its twin on every layer of the exported flows at the
+    sampler's 8^2 shapes (SAMPLER_K6), phase 3's tolerances; the card's
+    time of the timed layer there, its twin's, its bound."""
+    g = torch.Generator(device=dev).manual_seed(2027)
+    out = {}
+    for name, (flow, chains) in SAMPLER_K6.items():
+        params, spec = load_flow_npz(device=dev, name=flow)
+        x = (torch.rand((chains, 2, 8, 8), generator=g, device=dev) * 2
+             - 1) * math.pi
+        pairs = []
+        with full_fp32():
+            for li, layer in enumerate(params):
+                mu, off = layer_mask_params(li)
+                fx, lj = coupling_forward(layer, x, mu, off, spec)
+                fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
+                pairs += [(wrapped_err(fx, fx_p), 1e-4),
+                          (float((lj - lj_p).abs().max()),
+                           1e-4 * max(1.0, float(lj_p.abs().max())))]
+            require(all(e <= t for e, t in pairs), f"K6 at {name}: {pairs}")
+            layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(
+                TIMED_LAYER)
+            gy, gl = torch.zeros_like(x), x.new_zeros(chains)
+            card = coupling_card_ms(layer, spec, x, gy, gl, mu, off)["K6"]
+            plain = cuda_ms(lambda: coupling_forward_plain(layer, x, mu, off,
+                                                           spec), reps=3)
+        out[name] = {"flow": flow, "chains": chains, "L": 8,
+                     "layers": len(params),
+                     "max_abs_err": max(e for e, _ in pairs),
+                     "tolerance": min(t for _, t in pairs),
+                     "pairs_ok": len(pairs), "k6_card_ms": card,
+                     "plain_ms": plain,
+                     **k6_bound(spec, layer, chains, 8, mu, off)}
+    return out
+
+
+def _copy_params(params, dev):
+    return [[{k: v.detach().to(dev) for k, v in c.items()} for c in net]
+            for net in params]
+
+
+def train_grads_card_vs_cpu(dev) -> dict:
+    """One training step's loss and gradients at the flagship's width
+    (batch 512, 8^2, fresh weights) on the card against the port's CPU
+    path, the same z and parameters: relative error in norm <= 1e-4."""
+    cfg = FLAGSHIP_TRAIN
+    state = ttrain.init_train_state(None, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    z = (torch.rand((cfg.batch_size, 2, 8, 8), generator=g, device=dev)
+         * 2 - 1) * math.pi
+    t0 = time.perf_counter()
+    loss, _, grads = ttrain.loss_and_grads(state.params, cfg.flow, z, 2.0)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = ttrain.loss_and_grads(
+        _copy_params(state.params, "cpu"), cfg.flow, z.cpu(), 2.0)
+    t_cpu = time.perf_counter() - t0
+    a = torch.cat([t.flatten() for t in grads_c])
+    b = torch.cat([t.flatten().cpu() for t in grads])
+    rel = float((b - a).norm() / a.norm())
+    rel_loss = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    require(rel <= 1e-4 and rel_loss <= 1e-4,
+            f"training gradients card vs CPU: {rel}, loss {rel_loss}")
+    return {"batch": cfg.batch_size, "grad_rel_err_norm": rel,
+            "loss_rel_err": rel_loss, "tolerance": 1e-4,
+            "card_s_first_call": t_card, "cpu_s": t_cpu}
+
+
+def era_busy(state, cfg, n_epoch: int = 20) -> dict:
+    """profile_busy of an era of ``n_epoch`` steps from ``state`` (its
+    result dropped), per step, against an unprofiled era of the same
+    length: the card's share of an era's wall time, its graph capture and
+    warm-up steps included (a profile of every kernel of 100 steps takes
+    the profiler minutes)."""
+    def era():
+        ttrain.train_era(state, cfg.flow, cfg.batch_size, cfg.L, cfg.beta,
+                         cfg.dkl_factor, cfg.base_lr, n_epoch,
+                         grad_clip=cfg.grad_clip)
+    era()
+    t0 = time.perf_counter()
+    era()
+    return {"era_epochs": n_epoch, **profile_busy(
+        era, n_epoch, (time.perf_counter() - t0) / n_epoch)}
+
+
+def train_reference(dev) -> dict:
+    """REF_TRAIN through train() on the card, then generate_ensemble with
+    64 chains: flow-sampling acceptance >= MIN_TRAINED_ACCEPTANCE, and the
+    last 100 epochs' mean loss below the first 100's."""
+    cfg = REF_TRAIN
+    t0 = time.perf_counter()
+    state, hist = ttrain.train(cfg, device=dev)
+    t_train = time.perf_counter() - t0
+    loss = np.asarray(hist["loss_dkl"], dtype=np.float64)
+    require(np.isfinite(loss).all(), "reference training: loss not finite")
+    first, last = float(loss[:100].mean()), float(loss[-100:].mean())
+    require(last < first, f"reference training: loss {first} -> {last}")
+    busy = era_busy(state, cfg)
+    t0 = time.perf_counter()
+    ens = tsample.generate_ensemble(
+        state.params, cfg.flow, beta=cfg.beta, L=cfg.L, n_chains=64,
+        generator=torch.Generator(dev).manual_seed(5), device=dev)
+    t_ens = time.perf_counter() - t0
+    acc = ens["accept_rate"]
+    require(acc >= MIN_TRAINED_ACCEPTANCE,
+            f"reference flow sampling acceptance {acc} < "
+            f"{MIN_TRAINED_ACCEPTANCE}")
+    return {"epochs": cfg.n_era * cfg.n_epoch, "batch": cfg.batch_size,
+            "train_s": t_train,
+            "steps_per_s": cfg.n_era * cfg.n_epoch / t_train,
+            "loss_first_100": first, "loss_last_100": last,
+            "ess_last_100": float(np.mean(hist["ess"][-100:])),
+            "acceptance": acc, "chi_q": ens["suscept_mean"],
+            "chi_q_err": ens["suscept_err"], "tau_int_q": ens["tau_int_q"],
+            "ensemble": [64, 1024], "ensemble_s": t_ens,
+            "per_step_busy": busy}
+
+
+def _count_syncs(run):
+    """(run()'s value, the host synchronisations CUDA's sync debug mode
+    warns of while it runs)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            value = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return value, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def train_flagship(dev) -> dict:
+    """FLAGSHIP_TRAIN from fresh weights: era 0 through train_era (its host
+    synchronisations counted), save_checkpoint, load_checkpoint_auto, then
+    era 1 through train(start_era=1): losses finite, the step count and the
+    beta schedule continue the first era's."""
+    import tempfile
+    cfg = FLAGSHIP_TRAIN
+    state = ttrain.init_train_state(None, cfg, device=dev)
+    betas0 = ttrain.anneal_betas(cfg, 0, device=dev)
+    t0 = time.perf_counter()
+    (state, h0), syncs = _count_syncs(lambda: ttrain.train_era(
+        state, cfg.flow, cfg.batch_size, cfg.L, cfg.beta, cfg.dkl_factor,
+        cfg.base_lr, cfg.n_epoch, betas=betas0, grad_clip=cfg.grad_clip))
+    t_era0 = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = save_checkpoint(tmp, state, era=0, epoch=cfg.n_epoch,
+                               history=h0, train_cfg=cfg)
+        state1, meta, spec, rcfg = load_checkpoint_auto(tmp, device=dev)
+    require(rcfg == cfg and spec == cfg.flow and meta["era"] == 0,
+            "flagship checkpoint: configuration not restored")
+    require(all(torch.equal(a, b) for a, b in zip(
+        ttrain.param_leaves(state.params), ttrain.param_leaves(
+            state1.params))), "flagship checkpoint: parameters differ")
+    t0 = time.perf_counter()
+    state2, h1 = ttrain.train(rcfg, state1, start_era=meta["era"] + 1)
+    torch.cuda.synchronize()
+    t_era1 = time.perf_counter() - t0
+    loss = np.concatenate([h0["loss_dkl"], np.asarray(h1["loss_dkl"])])
+    require(np.isfinite(loss).all(), "flagship training: loss not finite")
+    require(int(state2.step) == cfg.n_era * cfg.n_epoch,
+            f"flagship training: step {int(state2.step)}")
+    want = ttrain.anneal_betas(cfg, 1, device="cpu").numpy()
+    require(np.array_equal(np.asarray(h1["beta"]), want)
+            and float(h0["beta"][-1]) < float(want[0]),
+            "flagship training: beta schedule does not continue")
+    return {"epochs_per_era": cfg.n_epoch, "batch": cfg.batch_size,
+            "checkpoint": os.path.basename(path),
+            "steps_per_s": {"era0": cfg.n_epoch / t_era0,
+                            "era1": cfg.n_epoch / t_era1},
+            "era0_host_syncs": syncs,
+            "loss": {"first": float(loss[0]),
+                     "era0_last": float(loss[cfg.n_epoch - 1]),
+                     "last": float(loss[-1])},
+            "ess_last": float(h1["ess"][-1]),
+            "per_step_busy": era_busy(state2, cfg),
+            "beta": [float(h0["beta"][0]), float(h0["beta"][-1]),
+                     float(h1["beta"][0]), float(h1["beta"][-1])],
+            "steps": int(state2.step)}
+
+
+def dkl_rncp24(dev) -> dict:
+    """D_KL = mean(logq - logp) of flow8x8_b3_rncp24 at 8^2, beta=3 over
+    DKL_DRAWS prior draws through K6, within 5 standard errors (the two
+    runs' combined) of the JAX package's CPU reading."""
+    params, spec = load_flow_npz(device=dev, name="flow8x8_b3_rncp24")
+    prior = priors.uniform_link_prior(8, device=dev)
+    g = torch.Generator(dev).manual_seed(11)
+    d = []
+    for _ in range(DKL_DRAWS // 1024):
+        _, logq, logp, _ = tsample.propose(params, spec,
+                                           prior.sample_n(g, 1024), 3.0)
+        d.append((logq - logp).double())
+    d = torch.cat(d)
+    mean, se = float(d.mean()), float(d.std() / math.sqrt(d.numel()))
+    jm, jse = JAX_DKL_RNCP24
+    sigma = math.hypot(se, jse)
+    require(abs(mean - jm) <= 5 * sigma,
+            f"D_KL {mean} +- {se} vs JAX {jm} +- {jse}")
+    return {"draws": d.numel(), "dkl": mean, "stderr": se, "jax_dkl": jm,
+            "jax_stderr": jse, "diff_sigmas": (mean - jm) / sigma}
+
+
+def sample_16l_long(dev) -> dict:
+    """Flow sampling with flow8x8_b2_16l_long (SAMPLING) through
+    make_mcmc_ensemble, counts zeroed just before and read just after:
+    acceptance within SAMPLING_ACC_MARGIN of the JAX package's CPU reading,
+    K6 launched exactly once a layer a block (the initial proposals one
+    block), no plain twin; chain-samples/s, tau_int(Q) and effective
+    samples/s, and the card's busy share of a shorter run."""
+    params, spec = load_flow_npz(device=dev, name="flow8x8_b2_16l_long")
+    cfg = SAMPLING
+    nblocks = -(-(cfg["num_samples"] - 1) // cfg["batch_size"])
+    gen = torch.Generator(dev).manual_seed(17)
+    tsample.make_mcmc_ensemble(params, spec, generator=gen,
+                               **{**cfg, "num_samples": 65}, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    hist = tsample.make_mcmc_ensemble(params, spec, generator=gen, **cfg,
+                                      device=dev)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    acc = float(hist["acc"].mean())
+    expect = {**dict.fromkeys(_build.KERNELS, 0),
+              "K6": spec.n_layers * (nblocks + 1)}
+    require(launches == expect and not any(plain.values()),
+            f"flow sampling launches {launches} != {expect}, plain {plain}")
+    require(all(np.isfinite(v).all() for v in hist.values()),
+            "flow sampling: history not finite")
+    require(abs(acc - JAX_SAMPLING_ACC) <= SAMPLING_ACC_MARGIN,
+            f"flow sampling acceptance {acc} vs JAX {JAX_SAMPLING_ACC}")
+    cs = tobs.chain_stats(hist["q"])
+    n = cfg["n_chains"] * cfg["num_samples"]
+    short = {**cfg, "num_samples": 8 * cfg["batch_size"] + 1}
+    n_short = 8
+    t0 = time.perf_counter()
+    tsample.make_mcmc_ensemble(params, spec, generator=gen, **short,
+                               device=dev)
+    t_short = (time.perf_counter() - t0) / n_short
+    busy = profile_busy(lambda: tsample.make_mcmc_ensemble(
+        params, spec, generator=gen, **short, device=dev), n_short, t_short)
+    return {**cfg, "blocks": nblocks, "launches": launches["K6"],
+            "expected": expect["K6"], "acceptance": acc,
+            "jax_acceptance": JAX_SAMPLING_ACC, "wall_s": wall,
+            "chain_samples_per_s": n / wall,
+            "tau_int_q": cs["tau_int_q"], "tau_int_q_err": cs["tau_int_q_err"],
+            "chi_q": cs["chi_q"],
+            "effective_samples_per_s": n / (2 * cs["tau_int_q"]) / wall,
+            "per_block_busy": busy}
+
+
+def flow_training_phase(dev) -> dict:
+    """Phase 9; returns K6's comparisons and the sampling path's count."""
+    k6 = compare_sampler_k6(dev)
+    say("compare_k6_sampler", shapes=k6)
+    say("train_grads", **train_grads_card_vs_cpu(dev))
+    say("train_reference", **train_reference(dev))
+    say("train_flagship", **train_flagship(dev))
+    say("dkl_rncp24", **dkl_rncp24(dev))
+    sampling = sample_16l_long(dev)
+    say("flow_sampling", **sampling)
+    say("bench", train=tbench.bench_train(device=dev),
+        flow_sampling=tbench.bench_flow_sampling(device=dev))
+    return {"k6": k6, "sampling": sampling}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1682,7 +2026,14 @@ def main() -> None:
                             for k, r in dyn.items()},
         device_busy=busy)
 
-    # 9. the kernels line
+    # 9. flow training and flow sampling
+    flow = flow_training_phase(dev)
+    for r in flow["k6"].values():
+        errs["K6"] = max(errs["K6"], r["max_abs_err"])
+        tols["K6"] = min(tols["K6"], r["tolerance"])
+    launches["K6"] += flow["sampling"]["launches"]
+
+    # 10. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -1703,7 +2054,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 10. the device line
+    # 11. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

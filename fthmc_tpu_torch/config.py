@@ -1,5 +1,6 @@
 """Run configuration of the PyTorch port: the flow architecture, the
-integrator and plain-HMC run parameters.
+integrator, plain-HMC run parameters, and flow training with its
+reduce-on-plateau scheduler.
 
 The port's own copy of the dataclasses in ``fthmc_tpu/config.py`` (the port
 imports nothing of the JAX package). Field names and defaults are the same,
@@ -7,10 +8,12 @@ so a FlowSpec recorded in a checkpoint's metadata loads into either.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import os
+from dataclasses import dataclass, field, fields
 from typing import Any
 
-__all__ = ["FlowSpec", "LeapfrogConfig", "HMCConfig", "filter_kwargs"]
+__all__ = ["FlowSpec", "LeapfrogConfig", "HMCConfig", "SchedulerConfig",
+           "TrainConfig", "filter_kwargs"]
 
 
 @dataclass(frozen=True)
@@ -74,6 +77,80 @@ class HMCConfig:
     @property
     def lf(self) -> LeapfrogConfig:
         return LeapfrogConfig(tau=self.tau, nstep=self.nstep)
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Reduce-on-plateau settings of flow training (``train.py``): after
+    ``patience`` epochs without a relative improvement of ``threshold``,
+    the learning rate is multiplied by ``factor``, floored at ``min_lr``,
+    and ``cooldown`` epochs pass before bad epochs count again."""
+    factor: float = 0.5
+    patience: int = 10
+    threshold: float = 1e-4
+    cooldown: int = 0
+    min_lr: float = 1e-5
+
+    def uniquestr(self) -> str:
+        return f"f{self.factor}_p{self.patience}_m{self.min_lr}"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Flow-training run parameters: reverse-KL training of ``flow`` at
+    (L, beta), ``n_era`` eras of ``n_epoch`` steps of ``batch_size`` prior
+    draws, Adam at ``base_lr``."""
+    L: int = 8
+    beta: float = 2.0
+    n_era: int = 10
+    n_epoch: int = 100
+    batch_size: int = 64
+    base_lr: float = 0.001
+    flow: FlowSpec = field(default_factory=FlowSpec)
+    with_force: bool = False      # alternate a force-matching step
+    force_lr_factor: float = 0.01  # its learning rate: base_lr * this
+    force_weight: float = 0.0     # joint objective: dkl_factor * D_KL +
+                                   # force_weight * mean(F_eff^2) on the
+                                   # same prior batch; 0 = off
+    ferm_mass: float = 0.0        # F_eff with the exact two-flavour
+                                   # log-det at this Wilson mass (not
+                                   # ported: train.py raises for > 0)
+    dkl_factor: float = 1.0
+    beta_init: float | None = None  # beta ramps linearly from beta_init to
+                                    # beta over beta_anneal_frac of all
+                                    # steps; None = constant beta
+    beta_anneal_frac: float = 0.7
+    grad_clip: float | None = None  # global-norm gradient clipping; None =
+                                    # off
+    print_freq: int = 50
+    plot_freq: int = 50
+    log_freq: int = 50
+    seed: int = 1331
+    restore: bool = False
+
+    @property
+    def lat(self) -> tuple[int, int]:
+        return (self.L, self.L)
+
+    @property
+    def volume(self) -> int:
+        return self.L * self.L
+
+    def uniquestr(self) -> str:
+        hstr = "".join(str(i) for i in self.flow.hidden_sizes)
+        return "_".join([
+            f"L{self.L}", f"b{self.beta}", f"nb{self.batch_size}",
+            f"act{self.flow.activation}", f"nh{self.flow.n_layers}",
+            f"ns{self.flow.n_mixture}", f"ks{self.flow.kernel_size}",
+            f"hl{hstr}", f"lr{self.base_lr}",
+            f"era{self.n_era}", f"epoch{self.n_epoch}",
+        ])
+
+    def logdir(self, basedir: str = "logs") -> str:
+        lat = "x".join(str(x) for x in self.lat)
+        return os.path.join(
+            basedir, "models", f"lat{lat}", f"beta{self.beta}",
+            self.uniquestr())
 
 
 def filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:

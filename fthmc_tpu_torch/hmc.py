@@ -56,7 +56,8 @@ __all__ = ["TrajMetrics", "leapfrog", "omelyan", "BACKENDS",
            "resolve_backend", "run_leapfrog", "hmc_step", "run_hmc",
            "run_hmc_thinned", "run_hmc_nrun", "run_hmc_chunked", "run_blocks",
            "ft_action", "ft_force", "resolve_remat", "resolve_force_backend",
-           "fthmc_step", "run_fthmc", "run_fthmc_chunked"]
+           "fthmc_step", "run_fthmc", "run_fthmc_thinned",
+           "run_fthmc_chunked"]
 
 
 class TrajMetrics(NamedTuple):
@@ -506,12 +507,8 @@ def fthmc_step(params, spec: FlowSpec, generator: torch.Generator,
                        integrator, flow, force_fn)
 
 
-def run_fthmc(params, spec: FlowSpec, lf: LeapfrogConfig, *, beta: float,
-              ntraj: int, z0: torch.Tensor, generator: torch.Generator,
-              remat="auto", integrator: str = "leapfrog",
-              force_backend: str = "auto", device=None):
-    """Run ntraj batched FT-HMC trajectories from latent z0.
-    Returns (z_final, TrajMetrics history of (ntraj, B) tensors)."""
+def _fthmc_setup(params, spec, beta, z0, remat, force_backend, device):
+    """(z0 on the run's device, its charge, energy flow, force) of a run."""
     device = resolve_device(device)
     z = _on_device(device, z0, params)
     remat = resolve_remat(remat, z.shape)
@@ -520,12 +517,50 @@ def run_fthmc(params, spec: FlowSpec, lf: LeapfrogConfig, *, beta: float,
     flow, force_fn = _flow_and_force(params, spec, beta, remat, backend)
     with torch.no_grad():
         q = lattice.topo_charge(flow(z)[0])
+    return z, q, flow, force_fn
+
+
+def run_fthmc(params, spec: FlowSpec, lf: LeapfrogConfig, *, beta: float,
+              ntraj: int, z0: torch.Tensor, generator: torch.Generator,
+              remat="auto", integrator: str = "leapfrog",
+              force_backend: str = "auto", device=None):
+    """Run ntraj batched FT-HMC trajectories from latent z0.
+    Returns (z_final, TrajMetrics history of (ntraj, B) tensors)."""
+    z, q, flow, force_fn = _fthmc_setup(params, spec, beta, z0, remat,
+                                        force_backend, device)
     history = []
     for _ in range(ntraj):
         z, _, q, m = _fthmc_step(generator, z, q, beta, lf.dt, lf.nstep,
                                  integrator, flow, force_fn)
         history.append(m)
     return z, TrajMetrics(*[torch.stack(f) for f in zip(*history)])
+
+
+def run_fthmc_thinned(params, spec: FlowSpec, lf: LeapfrogConfig, *,
+                      beta: float, ntraj: int, thin: int, z0: torch.Tensor,
+                      generator: torch.Generator, remat="auto",
+                      integrator: str = "leapfrog",
+                      force_backend: str = "auto", device=None):
+    """run_fthmc for long runs: the history keeps the last trajectory of
+    every ``thin`` ((ntraj // thin, B) tensors), and a summary dict holds
+    exact running means over ALL trajectories (acc, plaq, exp_mdh, abs_dh,
+    each a 0-d tensor). ntraj must be a multiple of thin."""
+    if thin < 1 or ntraj % thin:
+        raise ValueError(f"ntraj={ntraj} is not a multiple of thin={thin}")
+    z, q, flow, force_fn = _fthmc_setup(params, spec, beta, z0, remat,
+                                        force_backend, device)
+    sums = dict.fromkeys(("acc", "plaq", "exp_mdh", "abs_dh"),
+                         torch.zeros((), dtype=z.dtype, device=z.device))
+    history = []
+    for i in range(ntraj):
+        z, _, q, m = _fthmc_step(generator, z, q, beta, lf.dt, lf.nstep,
+                                 integrator, flow, force_fn)
+        for k, t in (("acc", m.acc), ("plaq", m.plaq),
+                     ("exp_mdh", m.exp_mdh), ("abs_dh", m.dh.abs())):
+            sums[k] = sums[k] + t.mean()
+        if (i + 1) % thin == 0:
+            history.append(m)
+    return z, _stack(history), {k: v / ntraj for k, v in sums.items()}
 
 
 def run_fthmc_chunked(params, spec: FlowSpec, lf: LeapfrogConfig, *,

@@ -19,13 +19,20 @@ from fthmc_tpu_torch.config import FlowSpec, filter_kwargs
 from fthmc_tpu_torch.device import resolve_device
 from fthmc_tpu_torch.models.flow import flow_out_channels
 
-__all__ = ["FLAGSHIP_NPZ", "flow_params_from_numpy", "save_flow_npz",
-           "load_flow_npz"]
+__all__ = ["DATA_DIR", "FLAGSHIP_NPZ", "FLOWS", "flow_params_from_numpy",
+           "save_flow_npz", "load_flow_npz", "leaf_names"]
 
-# The trained flagship flow: 24-layer rncp, hidden (32, 32), 8 components,
-# s_clip 3 (trained at 8^2, beta=3, fine-tuned at beta=6).
-FLAGSHIP_NPZ = Path(__file__).resolve().parent / "data" / \
-    "flow8x8_b3_rncp24_ftb6.npz"
+DATA_DIR = Path(__file__).resolve().parent / "data"
+# The trained flows of the JAX package (artifacts/<name>), exported here:
+# 16-layer ncp, hidden (8, 8), 2 components at 8^2, beta=2 (b2_16l; _long
+# trained 50 eras); 32 layers with leaky_relu (b2_32l_lrelu); rncp, hidden
+# (32, 32), 8 components, s_clip 3, trained at 8^2 with beta annealed 2 -> 3
+# (b3_rncp24, 24 layers; b3_rncp12_fw10, 12 layers with force_weight 1);
+# and the flagship, b3_rncp24 fine-tuned at beta=6 (b3_rncp24_ftb6).
+FLOWS = ("flow8x8_b2_16l", "flow8x8_b2_16l_long", "flow8x8_b2_32l_lrelu",
+         "flow8x8_b3_rncp12_fw10", "flow8x8_b3_rncp24",
+         "flow8x8_b3_rncp24_ftb6")
+FLAGSHIP_NPZ = DATA_DIR / "flow8x8_b3_rncp24_ftb6.npz"
 
 
 def _conv_shapes(spec: FlowSpec):
@@ -63,6 +70,13 @@ def _key(i: int, j: int, leaf: str) -> str:
     return f"l{i:02d}_c{j}_{leaf}"
 
 
+def leaf_names(params) -> list[str]:
+    """The ``.npz`` names of a flow's tensors, in ``train.param_leaves``
+    order (layer, conv, then w and b)."""
+    return [_key(i, j, leaf) for i, net in enumerate(params)
+            for j in range(len(net)) for leaf in ("w", "b")]
+
+
 def save_flow_npz(path, tree, spec: FlowSpec) -> None:
     """Write the numpy tree as ``path`` (.npz, fp32) and the FlowSpec as the
     ``.json`` beside it."""
@@ -75,9 +89,14 @@ def save_flow_npz(path, tree, spec: FlowSpec) -> None:
         json.dumps(asdict(spec), indent=1) + "\n")
 
 
-def load_flow_npz(path=FLAGSHIP_NPZ, device=None):
+def load_flow_npz(path=FLAGSHIP_NPZ, device=None, name: str | None = None):
     """(params, spec) of a flow written by ``save_flow_npz``, on ``device``
-    (the card by default)."""
+    (the card by default): the file ``path``, or the exported flow ``name``
+    (one of ``FLOWS``) from ``DATA_DIR``."""
+    if name is not None:
+        if name not in FLOWS:
+            raise ValueError(f"unknown flow {name!r}; one of {FLOWS}")
+        path = DATA_DIR / f"{name}.npz"
     path = Path(path)
     spec = FlowSpec(**filter_kwargs(
         FlowSpec, json.loads(path.with_suffix(".json").read_text())))

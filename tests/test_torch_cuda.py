@@ -14,6 +14,7 @@ dH within ``dh_tolerance`` (sum order), and the accept equal except where
 u lies within that bound of exp(-dH)."""
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -637,8 +638,11 @@ def test_fermion_operators_match_plain_twins(card, B, L0, L1, eo):
 
 
 def test_fermion_operators_are_one_kernel_launch(card):
-    """The profiler sees one CUDA kernel an operator, K9 or K10, at the
-    paths' shapes, eo and not (no intermediate passes, no copies)."""
+    """One CUDA kernel an operator, K9 or K10, at the paths' shapes, eo and
+    not: three calls are three launches by the wrapper's own counter, and
+    the profiler's per-name totals (``key_averages``, not the raw event
+    list, which drops a record now and then) name no kernel but
+    ``op_kernel`` (no intermediate passes, no copies)."""
     from torch.profiler import ProfilerActivity, profile
     from fthmc_tpu_torch.ops import fermion_kernels as fk
     t = (lambda a: a.permute(1, 2, 3, 0).contiguous())  # noqa: E731
@@ -648,6 +652,7 @@ def test_fermion_operators_are_one_kernel_launch(card):
         p4 = fk.pack_spinor(psi).contiguous()
         if cl:
             ur, ui, p4 = t(ur), t(ui), t(p4)
+        name = "K10" if cl else "K9"
         for eo in (False, True):
             launch, _ = fk.operator_launch(cl, ur, ui, p4, 0.1, eo, None,
                                            None)
@@ -655,14 +660,17 @@ def test_fermion_operators_are_one_kernel_launch(card):
             with profile(activities=[ProfilerActivity.CUDA]):
                 launch()
                 torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
                     launch()
                 torch.cuda.synchronize()
-            kernels = [e.name for e in prof.events()
-                       if e.device_type.name == "CUDA"]
-            assert len(kernels) == 3 and all("op_kernel" in k
-                                             for k in kernels), kernels
+            counted = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+            assert counted == {**dict.fromkeys(_build.KERNELS, 0), name: 3}
+            kernels = {e.key for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"}
+            assert kernels and all("op_kernel" in k for k in kernels), \
+                kernels
 
 
 def test_fermion_band_bytes_are_the_layout(card):
@@ -872,3 +880,166 @@ def test_fermion_kernels_refuse_what_they_do_not_take(card):
         th7, ps7 = _fermion_fields(card, 2, 8, 7, False)
         tf.cg_solve(th7, ps7, 0.1, tol=1e-8, maxiter=10)   # 'auto': fused
     assert dict(_build.LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# flow training and flow sampling on the card
+# ---------------------------------------------------------------------------
+
+SAMPLE_SPEC = FlowSpec(n_layers=2, coupling="ncp", n_mixture=2,
+                       hidden_sizes=(8, 8))
+
+
+def test_flow_sampling_runs_k6_once_a_layer_a_block(card):
+    """run_ensemble on the card, on latents and uniforms drawn on the CPU,
+    launches K6 once a layer a block (no plain twin) and accepts what the
+    CPU's plain twins accept (but where fp32 roundoff puts a uniform on the
+    other side of the bound), the proposals' logq and logp within 1e-4."""
+    from fthmc_tpu_torch import sampling as ts
+    g = torch.Generator().manual_seed(3)
+    params = init_flow_params(SAMPLE_SPEC, g, device="cpu")
+    n, batch, nblocks = 16, 8, 3
+    z0 = torch.rand((n, 2, 8, 8), generator=g) * 2 * math.pi - math.pi
+    blocks = [(torch.rand((batch * n, 2, 8, 8), generator=g) * 2 * math.pi
+               - math.pi, torch.rand((batch, n), generator=g))
+              for _ in range(nblocks)]
+    ref, _ = ts.run_ensemble(params, SAMPLE_SPEC, 2.0, z0, blocks)
+    cparams = [[{k: v.to(card) for k, v in c.items()} for c in net]
+               for net in params]
+    _build.reset_counts()
+    got, _ = ts.run_ensemble(cparams, SAMPLE_SPEC, 2.0, z0.to(card),
+                             [(z.to(card), u.to(card)) for z, u in blocks])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K6"] == SAMPLE_SPEC.n_layers * (nblocks + 1)
+    assert not any(_build.PLAIN_CALLS.values())
+    same = (got["acc"].cpu() == ref["acc"]).float().mean()
+    assert float(same) >= 0.98
+    z = blocks[0][0]
+    for a, b in zip(ts.propose(params, SAMPLE_SPEC, z, 2.0)[1:3],
+                    ts.propose(cparams, SAMPLE_SPEC, z.to(card), 2.0)[1:3]):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * max(
+            1.0, float(a.abs().max()))
+
+
+def test_graphed_accept_pass_is_the_loop(card):
+    """The sampler's accept pass replayed from its CUDA graph gives the
+    loop's result on every block (the same kernels)."""
+    from fthmc_tpu_torch import sampling as ts
+    g = torch.Generator(card).manual_seed(4)
+    held = ts._GraphedHeld()
+    w0 = torch.randn(64, generator=g, device=card)
+    for _ in range(3):
+        w = torch.randn((64, 64), generator=g, device=card)
+        u = torch.rand((64, 64), generator=g, device=card)
+        src = held(w0, w, u)
+        assert torch.equal(src, ts._held(w0, w, u))
+        assert 0 < int((src >= 0).sum()) < src.numel()
+        w0 = w[-1]
+
+
+def test_flow_sampling_refuses_what_k6_does_not_take(card):
+    """No fallback to the plain flow on the card: a shape K6 does not take
+    (L not a multiple of 4) raises before any launch."""
+    from fthmc_tpu_torch.sampling import make_mcmc_ensemble
+    params = init_flow_params(SAMPLE_SPEC, torch.Generator(card), device=card)
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="K6"):
+        make_mcmc_ensemble(params, SAMPLE_SPEC, beta=2.0, L=6, batch_size=2,
+                           num_samples=3, generator=torch.Generator(card),
+                           device=card)
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_training_gradients_on_the_card_match_the_cpu(card):
+    """loss_and_grads on the card against the CPU on the same z and
+    parameters, with TF32 switched on around the call: the backward must
+    run its convs in full fp32 (1e-4 relative in norm)."""
+    from fthmc_tpu_torch import train as tt
+    g = torch.Generator().manual_seed(5)
+    spec = FlowSpec(n_layers=3, coupling="rncp", n_mixture=4,
+                    hidden_sizes=(16, 16), s_clip=3.0)
+    params = init_flow_params(spec, g, device="cpu")
+    z = torch.rand((64, 2, 8, 8), generator=g) * 2 * math.pi - math.pi
+    cparams = [[{k: v.to(card) for k, v in c.items()} for c in net]
+               for net in params]
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for fw in (0.0, 0.3):
+            l0, _, g0 = tt.loss_and_grads(params, spec, z, 2.5,
+                                          force_weight=fw)
+            l1, _, g1 = tt.loss_and_grads(cparams, spec, z.to(card), 2.5,
+                                          force_weight=fw)
+            assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+            a, b = (torch.cat([t.flatten() for t in gg]) for gg in (g0, g1))
+            assert float((b.cpu() - a).norm() / a.norm()) <= 1e-4
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+@pytest.mark.parametrize("with_force,force_weight", [(False, 0.0),
+                                                     (True, 0.2)])
+def test_train_era_graph_replays_the_eager_steps(card, with_force,
+                                                 force_weight):
+    """On the card an era is one captured step replayed: from the same
+    state and generator it gives the eager loop's parameters, moments,
+    scheduler scalars and metrics (the same kernels; 1e-6 for fp32 reduction
+    order in the capture), and leaves the caller's state untouched."""
+    from fthmc_tpu_torch import train as tt
+    from fthmc_tpu_torch.config import SchedulerConfig, TrainConfig
+    cfg = TrainConfig(L=8, beta=3.0, beta_init=2.0, n_era=2, n_epoch=4,
+                      batch_size=16, flow=SAMPLE_SPEC, grad_clip=0.5)
+    sched = SchedulerConfig(patience=1)
+    state = tt.init_train_state(None, cfg, device=card)
+    before = [t.clone() for t in tt._state_tensors(state)]
+    betas = tt.anneal_betas(cfg, 0, device=card)
+    gen_state = state.generator.get_state()
+    got, hg = tt.train_era(state, cfg.flow, 16, 8, cfg.beta, 1.0, 1e-3, 4,
+                           sched=sched, with_force=with_force, betas=betas,
+                           grad_clip=0.5, force_weight=force_weight)
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, tt._state_tensors(state)))
+    state.generator.set_state(gen_state)
+
+    def step(st, zs, beta_e):
+        return tt._era_step(st, cfg.flow, zs, beta_e, 1.0, 1e-3, sched,
+                            with_force, 0.01, 0.5, force_weight)
+
+    ref, dtypes, he = tt._eager_era(
+        step, state, tt._Draws(state, 8, 16, 2 if with_force else 1), betas)
+    for a, b in zip(tt._state_tensors(got), tt._state_tensors(ref)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    he = he.cpu().numpy()
+    assert list(hg) == list(dtypes)
+    for i, k in enumerate(dtypes):
+        np.testing.assert_allclose(hg[k], he[i], rtol=1e-5, atol=1e-5)
+    assert int(got.step) == 4
+
+
+def test_train_era_reads_the_host_once(card):
+    """An era synchronises with the host once, at its end: CUDA's sync
+    debug mode warns at every synchronising call."""
+    import warnings
+    from fthmc_tpu_torch import train as tt
+    from fthmc_tpu_torch.config import SchedulerConfig, TrainConfig
+    cfg = TrainConfig(L=8, beta=3.0, beta_init=2.0, n_era=2, n_epoch=5,
+                      batch_size=16, flow=SAMPLE_SPEC, grad_clip=1.0)
+    state = tt.init_train_state(None, cfg, device=card)
+    state, _ = tt.train_era(state, cfg.flow, 16, 8, cfg.beta, 1.0, 1e-3, 5,
+                            sched=SchedulerConfig(), grad_clip=1.0)
+    betas = tt.anneal_betas(cfg, 1, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            state, host = tt.train_era(state, cfg.flow, 16, 8, cfg.beta, 1.0,
+                                       1e-3, 5, sched=SchedulerConfig(),
+                                       betas=betas, grad_clip=1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert host["beta"].shape == (5,) and int(state.step) == 10

@@ -167,6 +167,34 @@ def test_run_fthmc_chunked_blocks():
     assert all(t.shape == (5, 4) and t.device.type == "cpu" for t in hist)
 
 
+@pytest.mark.parametrize("backend", ["kernel", "autograd"])
+def test_run_fthmc_thinned_is_every_thin_th_trajectory(backend):
+    """run_fthmc_thinned from the same generator state is run_fthmc's
+    history at trajectories thin - 1, 2 thin - 1, ..., the same final
+    state, and its summary the exact means over every trajectory."""
+    _, _, tspec, tp = both(dtype=torch.float64)
+    z0 = torch.as_tensor(links(5))
+    lf = LeapfrogConfig(tau=0.3, nstep=3)
+    z, hist = th.run_fthmc(tp, tspec, lf, beta=2.0, ntraj=6, z0=z0,
+                           generator=torch.Generator().manual_seed(3),
+                           force_backend=backend, device="cpu")
+    zt, thin_hist, summary = th.run_fthmc_thinned(
+        tp, tspec, lf, beta=2.0, ntraj=6, thin=3, z0=z0,
+        generator=torch.Generator().manual_seed(3), force_backend=backend,
+        device="cpu")
+    assert torch.equal(zt, z)
+    for full, thin in zip(hist, thin_hist):
+        assert thin.shape == (2, 4)
+        assert torch.equal(thin, full[2::3])
+    for k, t in (("acc", hist.acc), ("plaq", hist.plaq),
+                 ("exp_mdh", hist.exp_mdh), ("abs_dh", hist.dh.abs())):
+        assert abs(float(summary[k]) - float(t.mean())) < 1e-12
+    with pytest.raises(ValueError, match="multiple"):
+        th.run_fthmc_thinned(tp, tspec, lf, beta=2.0, ntraj=5, thin=3,
+                             z0=z0, generator=torch.Generator(),
+                             device="cpu")
+
+
 def test_resolve_force_backend():
     spec = TSpec(n_layers=1, coupling="rncp", n_mixture=2, hidden_sizes=(4,))
     f32 = torch.float32

@@ -119,3 +119,45 @@ def test_chip_smoke_refuses_without_card_or_package(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_training_sampling_and_bench_entry_points_raise_without_cuda(
+        no_cuda, tmp_path):
+    """The flow-training slice's entry points default to the card and raise
+    without one; with device='cpu' they run there."""
+    from fthmc_tpu_torch import bench as tb
+    from fthmc_tpu_torch import checkpoint as tck
+    from fthmc_tpu_torch import sampling as tsm
+    from fthmc_tpu_torch import train as tt
+    from fthmc_tpu_torch.config import TrainConfig
+    from fthmc_tpu_torch.models import priors
+    spec = FlowSpec(n_layers=1, coupling="ncp", n_mixture=2,
+                    hidden_sizes=(2,))
+    cfg = TrainConfig(L=8, n_era=1, n_epoch=1, batch_size=2, flow=spec)
+    params = init_flow_params(spec, torch.Generator().manual_seed(0),
+                              device="cpu")
+    state = tt.init_train_state(torch.Generator(), cfg, device="cpu")
+    tck.save_checkpoint(str(tmp_path), state, era=0, epoch=1, train_cfg=cfg)
+    sample = dict(beta=1.0, L=8, batch_size=2, num_samples=3)
+    calls = [
+        lambda **kw: tt.init_train_state(None, cfg, **kw),
+        lambda **kw: tt.train(cfg, **kw),
+        lambda **kw: tt.anneal_betas(TrainConfig(beta_init=1.0), 0, **kw),
+        lambda **kw: tck.load_checkpoint_auto(str(tmp_path), **kw),
+        lambda **kw: tsm.make_mcmc_ensemble(
+            params, spec, generator=torch.Generator(), **sample, **kw),
+        lambda **kw: tsm.generate_ensemble(params, spec, beta=1.0, L=8,
+                                           ensemble_size=3, batch_size=2,
+                                           **kw),
+        lambda **kw: priors.uniform_link_prior(8, **kw),
+        lambda **kw: priors.normal_prior((2, 8, 8), **kw),
+        lambda **kw: load_flow_npz(name="flow8x8_b2_16l", **kw),
+        lambda **kw: tb.bench_train(batch=2, n_layers=1, steps=1, **kw),
+        lambda **kw: tb.bench_flow_sampling(n_chains=1, batch_size=2,
+                                            n_layers=1, num_samples=3,
+                                            repeats=1, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")

@@ -87,9 +87,33 @@ Phases, each printed on its own line:
      layer a block), acceptance against the JAX package's CPU reading,
      chain-samples/s, tau_int(Q) and effective samples/s; bench_train and
      bench_flow_sampling at their defaults;
-  10. a {"kernels": [...]} JSON line, K1-K11 (K6's launches those of the
-     FT path and the sampling path);
-  11. last, {"ok": true, "device": {...}}.
+  10. the rest of the dynamical sector: K11_bf16 (K11 on bf16 storage, the
+     mixed CG's inner solve) against its twin (cg_planes_bf16_plain) at
+     G's, E's and B's shapes, eo and not (sweeps within 2, d within 5e-2
+     relative, two launches bit-equal; the band plans beside fp32 K11's,
+     128^2 and 256^2 too); whole mixed solves (cg_solve_mixed) at G's and
+     B's shapes, tol 1e-9 and 1e-12, cold and warm, each chain's fp32 true
+     residual recomputed by K9 / K10 within tol, their iterations and host
+     reads; paths D (nested plain HMC, 64^2), E (Hasenbusch, 32^2, m=0.02),
+     F (nested FT-HMC with the trained flow, 16^2, beta=5) and G (the
+     mixed CG, 64^2) through run_hmc_dyn / run_fthmc_dyn at the JAX
+     package's production rows (DYN, DYN_READING), each with its launch
+     counters (set to 0 just before it, held to dyn_expected: K1 a gauge
+     force as force_evaluations counts them, K7/K8 a layer a force of
+     either scale, one K11 launch a solve, the mixed CG one K9 a host read
+     and one K11_bf16 a cycle) and its physics gates; K11_bf16 against
+     fp32 K11 at 64^2 x 64 in turns (ms an iteration); s/trajectory,
+     chain-steps/s, CG iterations and host reads a solve, busy shares;
+     chiral_condensate and pion_correlator on the card against the CPU
+     port (1e-4), and the pion correlator on path B's final 128
+     configurations beside the JAX package's (pulls printed, not gated);
+     fermion-aware training (ferm_mass 0.1, force_weight 0.5) at 8^2: one
+     step's loss and gradients against the CPU (1e-4), then an era of 20
+     epochs (eager: train.FERM_ERA_GRAPHED);
+  11. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
+     those of the FT path and the sampling path, K9's the operator path's
+     and path G's);
+  12. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -134,8 +158,8 @@ from fthmc_tpu_torch.ops.coupling_vjp_kernels import (bwd_call,
                                                       coupling_fwd_res_plain,
                                                       ft_force_kernel)
 from fthmc_tpu_torch.ops.lattice_kernels import force, force_plain
-from fthmc_tpu_torch.schwinger import (SchwingerConfig, run_fthmc_dyn,
-                                       run_hmc_dyn)
+from fthmc_tpu_torch.schwinger import (SchwingerConfig, force_evaluations,
+                                       run_fthmc_dyn, run_hmc_dyn)
 from fthmc_tpu_torch import bench as tbench
 from fthmc_tpu_torch import observables as tobs
 from fthmc_tpu_torch import sampling as tsample
@@ -227,6 +251,10 @@ SOURCES = {
             "fthmc_tpu/ops/pallas_fermion.py:192"),
     "K11": ("fthmc_tpu_torch/csrc/fermion.cu",
             "fthmc_tpu/ops/pallas_fermion.py:321"),
+    # K11 on bf16 storage: the mixed CG's inner solve, an XLA while_loop in
+    # the JAX package (_cg_solve_mixed's inner), no Pallas kernel
+    "K11_bf16": ("fthmc_tpu_torch/csrc/fermion.cu",
+                 "fthmc_tpu/fermion.py:259"),
 }
 # Dynamical fermions (fthmc_tpu_torch.schwinger): the JAX package's own
 # production runs, which used its fused CG, and what they read (acceptance,
@@ -278,6 +306,75 @@ HOST_LOOP_ITERATION_MS = {"A": 0.0262, "B": 0.0270}
 LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
 # (thermalizing, measured) trajectories, sized against the time limit
 DYN_TRAJ = {"A": (100, 100), "B": (100, 400), "C": (100, 300)}
+# The rest of the dynamical sector (phase 10): the JAX package's production
+# rows of its nested, Hasenbusch and mixed-CG samplers, run from a
+# thermalized state that is not in the repo (here: near-equilibrium links,
+# or z0 = f^-1(0) for FT, then thermalized), eo, warm-started, force solves
+# at 1e-9 and the Metropolis solves at 1e-12:
+#  D  artifacts/round3/schw_mts_L64b6.json, row plain:8:2:tau=2.0: nested
+#     plain HMC, 64^2, beta=6, m=0.1, 64 chains, tau=2, 8 outer Omelyan
+#     steps, n_inner 2, maxiter 2000;
+#  E  artifacts/round3/schw_mts_L32m002.json, row plain:4:2:tau=1.0:hb=0.2x2:
+#     Hasenbusch, 32^2, beta=6, m=0.02, 64 chains, tau=1, nstep 4, n_mid 2,
+#     n_inner 2, dm 0.2, maxiter 4000;
+#  F  artifacts/round3/schw_mts_scan_b5_part2.json, row ft:8:3 with the
+#     flagship flow flow8x8_b3_rncp24_ftb6: nested FT-HMC, 16^2, beta=5,
+#     m=0.1, 64 chains, tau=0.5, 8 outer steps, n_inner 3, maxiter 1500;
+#  G  artifacts/round3/cgab_L64_mixed.json, row plain:12:0:tau=2.0: the
+#     mixed CG (cg_backend 'mixed'), 64^2, beta=6, m=0.1, 64 chains, tau=2,
+#     12 Omelyan steps, maxiter 2000.
+DYN.update({
+    "D": SchwingerConfig(L=64, beta=6.0, mass=MASS, tau=2.0, nstep=8,
+                         n_inner=2, n_chains=64, cg_tol_force=1e-9,
+                         cg_tol_mh=1e-12, cg_maxiter=2000),
+    "E": SchwingerConfig(L=32, beta=6.0, mass=0.02, tau=1.0, nstep=4,
+                         n_mid=2, n_inner=2, hasenbusch_dm=0.2, n_chains=64,
+                         cg_tol_force=1e-9, cg_tol_mh=1e-12,
+                         cg_maxiter=4000),
+    "F": SchwingerConfig(L=16, beta=5.0, mass=MASS, tau=0.5, nstep=8,
+                         n_inner=3, n_chains=64, cg_tol_force=1e-9,
+                         cg_tol_mh=1e-12, cg_maxiter=1500),
+    "G": SchwingerConfig(L=64, beta=6.0, mass=MASS, tau=2.0, nstep=12,
+                         n_chains=64, cg_tol_force=1e-9, cg_tol_mh=1e-12,
+                         cg_maxiter=2000)})
+DYN_READING.update({"D": (0.7928059697151184, 0.9980745911598206,
+                          0.9148449897766113),
+                    "E": (0.9874267578125, 1.000128984451294,
+                          0.9155676364898682),
+                    "F": (0.7916666865348816, 0.9873201847076416,
+                          0.8967482447624207),
+                    "G": (0.895263671875, 1.0111162662506104,
+                          0.9148247241973877)})
+DYN_TRAJ.update({"D": (30, 60), "E": (30, 60), "F": (30, 60),
+                 "G": (30, 60)})
+# the CG backend of a path other than the default 'auto' (K11)
+DYN_CG = {"G": "mixed"}
+# FT paths: acceptance floors (C: the first port's; F: the JAX package's
+# 0.79 less the margin C's gate leaves its own reading)
+MIN_FT_ACCEPTANCE = {"C": 0.60, "F": 0.72}
+# K11_bf16 held against its twin (chains, L, layout): G's shape (64^2,
+# chains-first), E's (32^2), B's (16^2 chains-last); each eo and not
+K11_BF16_SHAPES = {"G": (64, 64, "cf"), "E": (64, 32, "cf"),
+                   "B": (128, 16, "cl")}
+# whole mixed solves (chains, L, layout) at the force's and the Metropolis
+# tolerance, their fp32 residual recomputed by K9 / K10
+MIXED_SHAPES = {"G": (64, 64, "cf"), "B": (128, 16, "cl")}
+# The JAX package's pion correlator on its plain 16^2, beta=6, m=0.1
+# ensemble (128 configurations; artifacts/round3/pion_b6_crosscheck.json,
+# "plain"): C(t) and its error, t = 0..15
+JAX_PION_B6 = (
+    (0.5264300107955933, 0.12561459839344025, 0.06197701394557953,
+     0.035227857530117035, 0.02128889411687851, 0.01345006376504898,
+     0.009099602699279785, 0.007000624667853117, 0.006377531215548515,
+     0.007019390352070332, 0.009147072210907936, 0.013374602422118187,
+     0.02084498666226864, 0.03425975143909454, 0.060413211584091187,
+     0.12462140619754791),
+    (0.0018140056636184454, 0.0007972432649694383, 0.0006234035827219486,
+     0.0004501506336964667, 0.00033686906681396067, 0.000260732980677858,
+     0.00020981949637643993, 0.00017777641187421978, 0.0001686097530182451,
+     0.00018088241631630808, 0.00020874812616966665, 0.0002578975399956107,
+     0.0003282017132733017, 0.0004068039415869862, 0.0005124892923049629,
+     0.000706827559042722))
 # Flow training and flow sampling (phase 9). K6 at the sampler's shapes:
 # (exported flow, chains) at 8^2, held to its twin on every layer.
 SAMPLER_K6 = {"16l_long": ("flow8x8_b2_16l_long", 4096),
@@ -1231,22 +1328,63 @@ def _blocked(t: torch.Tensor) -> tuple[float, float]:
             float(per.reshape(10, -1).mean(dim=1).std() / math.sqrt(10)))
 
 
-def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
+def _run_dyn(name: str, cfg, x0, gen, dev, params=None, spec=None,
+             log=None):
+    """run_hmc_dyn (run_fthmc_dyn with the flow) of ``cfg`` on the path's
+    CG backend (DYN_CG, else the default), the default set back after."""
+    tf.set_cg_backend(DYN_CG.get(name, "auto"))
+    try:
+        if params is None:
+            return run_hmc_dyn(cfg, x0=x0, generator=gen, device=dev,
+                               cg_log=log)
+        return run_fthmc_dyn(params, spec, cfg, z0=x0, generator=gen,
+                             device=dev, cg_log=log)
+    finally:
+        tf.set_cg_backend("auto")
+
+
+def dyn_expected(name: str, cfg, log, n_layers: int | None) -> dict:
+    """The launches a run of path ``name`` must make: K1 a gauge force of
+    force_evaluations (single scale: every force); with the flow K7 and K8
+    a layer a force of any scale and K6 a layer an energy flow (two a
+    trajectory and the start charge); one K11 launch a solve, or with the
+    mixed CG one K9 / K10 residual a host read (a refinement cycle and the
+    start) and one K11_bf16 a cycle."""
+    n = force_evaluations(cfg)
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect["K1"] = (n.get("dyn", 0) + n.get("gauge", 0)) * cfg.ntraj
+    if DYN_CG.get(name) == "mixed":
+        op = "K10" if fk.resolve_layout(cfg.cg_layout, cfg.L,
+                                        cfg.L) == "cl" else "K9"
+        expect[op] = log.reads()
+        expect["K11_bf16"] = log.reads() - log.count()
+    else:
+        expect["K11"] = log.count()
+    if n_layers is not None:
+        flows = sum(n.values()) * cfg.ntraj
+        expect.update({"K6": n_layers * (2 * cfg.ntraj + 1),
+                       "K7": n_layers * flows, "K8": n_layers * flows})
+    return expect
+
+
+def dyn_path(name: str, dev, x0, params=None, spec=None):
     """Path ``name`` of DYN through run_hmc_dyn (or run_fthmc_dyn with the
-    flow), its launch counters set to 0 just before it and read just after,
-    and its physics against the JAX package's reading: acceptance within
-    0.03 of it (A, B) or >= 0.60 (C); <plaq> within min(0.002, 5 sigma +
-    1 / (beta V)) of it (A, B: sigma the blocked standard error of the run,
-    10 blocks; 1 / (beta V) the thermalization allowance, twice the
+    flow), its launch counters set to 0 just before it and read just after
+    and held to dyn_expected, and its physics against the JAX package's
+    reading: acceptance within 0.03 of it (plain paths) or at least
+    MIN_FT_ACCEPTANCE (FT); <plaq> within min(0.002, 5 sigma + 1 / (beta
+    V)) of it (plain: sigma the blocked standard error of the run, 10
+    blocks; 1 / (beta V) the thermalization allowance, twice the
     plaquette's shift when topology stays frozen from the start) or 0.003
-    (C); exactness: <exp(-dH)> within 0.03 of 1 (A, B) and, for C, whose
-    exp(-dH) has tails too heavy for a mean over a few hundred trajectories
-    (single trajectories reach exp(-dH) ~ 10^3; the JAX package read 0.884
-    over 4096), the same identity in a bounded form: reversibility and
-    area preservation give p(-dH) = exp(-dH) p(dH), hence <(1 - exp(-dH))
-    h(dH)> = 0 for every even h; with h = exp(-|dH|) the summand lies in
-    [-1, 1/4], and its mean must lie within 5 blocked standard errors of
-    0. <exp(-dH)> of C is printed beside the JAX package's."""
+    (FT); exactness: <exp(-dH)> within 0.03 of 1 (plain) and, for FT,
+    whose exp(-dH) has tails too heavy for a mean over a few hundred
+    trajectories (single trajectories reach exp(-dH) ~ 10^3; the JAX
+    package read 0.884 over 4096 at C), the same identity in a bounded
+    form: reversibility and area preservation give p(-dH) = exp(-dH)
+    p(dH), hence <(1 - exp(-dH)) h(dH)> = 0 for every even h; with h =
+    exp(-|dH|) the summand lies in [-1, 1/4], and its mean must lie within
+    5 blocked standard errors of 0. <exp(-dH)> of FT is printed beside the
+    JAX package's. Returns (the path's line, its final links)."""
     cfg = DYN[name]
     therm, meas = DYN_TRAJ[name]
     cfg = dataclasses.replace(cfg, ntraj=therm + meas)
@@ -1254,24 +1392,13 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(41)
     _build.reset_counts()
     t0 = time.perf_counter()
-    if params is None:
-        x, hist = run_hmc_dyn(cfg, x0=x0, generator=gen, device=dev,
-                              cg_log=log)
-    else:
-        x, hist = run_fthmc_dyn(params, spec, cfg, z0=x0, generator=gen,
-                                device=dev, cg_log=log)
+    x, hist = _run_dyn(name, cfg, x0, gen, dev, params, spec, log)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-    n_force = 2 * cfg.nstep * cfg.ntraj           # Omelyan, unmerged kicks
     layout = fk.resolve_layout(cfg.cg_layout, cfg.L, cfg.L)
-    # one K11 launch a solve: the CG launches no operator of its own
-    expect = dict.fromkeys(_build.KERNELS, 0)
-    expect.update({"K1": n_force, "K11": log.count()})
-    if params is not None:
-        n_layers = len(params)
-        expect.update({"K6": n_layers * (2 * cfg.ntraj + 1),
-                       "K7": n_layers * n_force, "K8": n_layers * n_force})
+    expect = dyn_expected(name, cfg, log,
+                          None if params is None else len(params))
     sl = slice(therm, None)
     ptraj = hist.plaq[sl].mean(dim=1)
     stderr = float(ptraj.reshape(10, -1).mean(dim=1).std() / math.sqrt(10))
@@ -1286,6 +1413,10 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
         dh > 0, torch.exp(-dh) - torch.exp(-2 * dh), torch.exp(dh) - 1))
     r = {"path": name, "L": cfg.L, "chains": cfg.n_chains, "beta": cfg.beta,
          "mass": cfg.mass, "tau": cfg.tau, "nstep": cfg.nstep,
+         "n_inner": cfg.n_inner, "n_mid": cfg.n_mid,
+         "hasenbusch_dm": cfg.hasenbusch_dm,
+         "cg_backend": DYN_CG.get(name, "auto"),
+         "forces_per_traj": force_evaluations(cfg),
          "layout": layout, "ft": params is not None, "therm": therm,
          "measured": meas, "acceptance": float(hist.acc[sl].mean()),
          "exp_mdh": float(hist.exp_mdh[sl].mean()),
@@ -1299,8 +1430,9 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
          "plaq_bound": bound, "jax_reading": DYN_READING[name],
          "plaq_excess_by_block": blocks.tolist(),
          "plaq_first_traj": float(hist.plaq[0].mean()),
-         "cg_iters_mean": {k: log.mean_iters(k) for k in ("force", "mh")},
+         "cg_iters_mean": {k: log.mean_iters(k) for k in log.solves},
          "cg_solves": log.count(), "cg_iterations": log.launched(),
+         "cg_host_reads": log.reads(),
          "run_s": t_run, "s_per_traj": t_run / cfg.ntraj,
          "chain_steps_per_s": cfg.n_chains * cfg.nstep * cfg.ntraj / t_run,
          "launches": launches, "expected": expect, "plain_calls": plain}
@@ -1315,14 +1447,14 @@ def dyn_path(name: str, dev, x0, params=None, spec=None) -> dict:
         require(abs(r["exp_mdh"] - 1.0) <= 0.03,
                 f"path {name} <exp(-dH)> {r['exp_mdh']}")
     else:
-        require(r["acceptance"] >= 0.60,
+        require(r["acceptance"] >= MIN_FT_ACCEPTANCE[name],
                 f"path {name} acceptance {r['acceptance']}")
         require(abs(bounded) <= 5 * bounded_se,
                 f"path {name} <(1 - exp(-dH)) exp(-|dH|)> {bounded} "
                 f"+- {bounded_se}")
     require(abs(r["plaq"] - plaq_j) <= bound,
             f"path {name} plaq {r['plaq']} vs {plaq_j} (bound {bound})")
-    return r
+    return r, x
 
 
 def fermion_timings(dev, inp) -> dict:
@@ -1463,11 +1595,13 @@ def fermion_bounds(B: int, L: int, iters: int = 0) -> dict:
     once; an iteration 120 flops a site, four hop passes of 44 and two
     combines of 12 on half the sites and the update's 40, 10 an element of
     the even half: <p, Mp>, x, r, <r, r>, p, 2 each) for B chains of
-    L^2."""
+    L^2; K11_bf16 the same solve on bf16 planes (2 bytes an element)."""
     sites = B * L * L
     op = _bound(12 * 4 * sites, 112 * sites)
     return {"K9": op, "K10": op,
-            "K11": _bound(12 * 4 * sites + 4 * B, 120 * iters * sites)}
+            "K11": _bound(12 * 4 * sites + 4 * B, 120 * iters * sites),
+            # bf16 links, b and x: half the bytes, the same operations
+            "K11_bf16": _bound(12 * 2 * sites + 4 * B, 120 * iters * sites)}
 
 
 def path_busy(name: str, dev, x, s_per_traj: float, params=None,
@@ -1476,13 +1610,292 @@ def path_busy(name: str, dev, x, s_per_traj: float, params=None,
     the flow) against the path's own s/trajectory."""
     cfg = dataclasses.replace(DYN[name], ntraj=2)
     gen = torch.Generator(device=dev).manual_seed(43)
-    if params is None:
-        run = lambda: run_hmc_dyn(cfg, x0=x, generator=gen,  # noqa: E731
-                                  device=dev)
-    else:
-        run = lambda: run_fthmc_dyn(params, spec, cfg, z0=x,  # noqa: E731
-                                    generator=gen, device=dev)
-    return profile_busy(run, cfg.ntraj, s_per_traj)
+    return profile_busy(lambda: _run_dyn(name, cfg, x, gen, dev, params,
+                                         spec), cfg.ntraj, s_per_traj)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dynamical sector: K11 on bf16 and the mixed CG, paths D-G,
+# the fermion observables, fermion-aware training
+# ---------------------------------------------------------------------------
+
+def _bf16_planes(x, eo: bool, layout: str, seed: int = 3):
+    """(bf16 link planes, bf16 planes of a heatbath right-hand side) of
+    links x in ``layout``."""
+    phi, _ = tf.pf_refresh(torch.Generator(device=x.device).manual_seed(seed),
+                           x, MASS, eo=eo)
+    op = fk._PackedOperator(x, layout)
+    return (op.ur.bfloat16(), op.ui.bfloat16(),
+            op.pack(phi).bfloat16().contiguous())
+
+
+def compare_k11_bf16(dev) -> tuple[float, float, dict]:
+    """K11_bf16 against its twin (cg_planes_bf16_plain) on the same bf16 r
+    at each shape of K11_BF16_SHAPES (near-equilibrium links at beta = 6,
+    eo and not), the mixed CG's inner tol and sweep cap: the sweeps within
+    2, d within 5e-2 relative in norm (the kernel rounds on store, the twin
+    as the JAX loop does, alpha and beta too), one K11_bf16 launch and no
+    other, two launches bit-equal; the band plan beside fp32 K11's, also
+    at 128^2 and 256^2 (4 chains). Returns (max|d - d_twin|, 5e-2 x
+    max|d_twin|) nearest its tolerance, and the cases."""
+    g = torch.Generator(device=dev).manual_seed(2030)
+    cases, pairs = {}, []
+    for key, (B, n, layout) in K11_BF16_SHAPES.items():
+        x = near_equilibrium(g, B, n, 6.0, dev)
+        cl = layout == "cl"
+        for eo in (True, False):
+            ur, ui, r16 = _bf16_planes(x, eo, layout)
+            twin, k_twin = fk.cg_planes_bf16_plain(
+                ur, ui, r16, MASS, fk.MIXED_INNER_TOL, fk.MIXED_INNER_MAX,
+                eo, cl)
+            outs = []
+            _build.reset_counts()
+            for _ in (0, 1):
+                d = torch.empty_like(r16)
+                rel = torch.empty(B, device=dev)
+                counters = torch.zeros(3, dtype=torch.int32, device=dev)
+                fk.cg_launch(cl, ur, ui, r16, None, MASS, eo,
+                             fk.MIXED_INNER_TOL, fk.MIXED_INNER_MAX, d, rel,
+                             counters)()
+                outs.append((d, counters.tolist()))
+            launches = dict(_build.LAUNCHES)
+            (d, (k, _, odd)), (d2, _) = outs
+            err = float((d.float() - twin.float()).norm()
+                        / twin.float().norm())
+            pairs.append((float((d.float() - twin.float()).abs().max()),
+                          5e-2 * float(twin.float().abs().max())))
+            name = f"{key}_{layout}_{'eo' if eo else 'full'}"
+            cases[name] = {
+                "sweeps": [k, k_twin], "rel_vs_twin": err,
+                "bit_equal": torch.equal(d, d2),
+                "plan_bf16": list(fk.cg_plan(eo, B, n, n, dev,
+                                             bf16=True)[:3]),
+                "plan_fp32": list(fk.cg_plan(eo, B, n, n, dev)[:3])}
+            require(not odd and abs(k - k_twin) <= 2 and err <= 5e-2,
+                    f"K11_bf16 {name}: {cases[name]}")
+            require(cases[name]["bit_equal"], f"K11_bf16 repeat {name}")
+            require(launches == dict.fromkeys(_build.KERNELS, 0)
+                    | {"K11_bf16": 2}, f"K11_bf16 launches {name}: "
+                    f"{launches}")
+    plans = {f"{n}^2_{'eo' if eo else 'full'}": {
+        "bf16": list(fk.cg_plan(eo, 4, n, n, dev, bf16=True)[:3]),
+        "fp32": list(fk.cg_plan(eo, 4, n, n, dev)[:3])}
+        for n in (128, 256) for eo in (True, False)}
+    err, tol = _worst(pairs)
+    return err, tol, {"cases": cases, "large_plans": plans}
+
+
+def mixed_solves(dev) -> dict:
+    """Whole mixed-precision solves (cg_solve_mixed) at MIXED_SHAPES, eo,
+    at tol 1e-9 (the force's) and 1e-12 (the Metropolis'), cold and from a
+    warm start: each chain's fp32 true residual, recomputed by K9 / K10,
+    within tol; the solution within 1e-3 relative in norm of fp32 K11's
+    (compare_k11's rule for two fp32 CGs); the iterations (operator
+    applications), the refinement cycles and the host reads a solve,
+    beside fp32 K11's iterations."""
+    g = torch.Generator(device=dev).manual_seed(2031)
+    out = {}
+    for key, (B, n, layout) in MIXED_SHAPES.items():
+        x = near_equilibrium(g, B, n, 6.0, dev)
+        phi, _ = tf.pf_refresh(torch.Generator(device=dev).manual_seed(5), x,
+                               MASS, eo=True)
+        warm = fk.cg_solve_fused(x, phi, MASS, tol=1e-4, maxiter=2000,
+                                 layout=layout).x
+        op = fk._PackedOperator(x, layout)
+        apply = fk.mdagm_cl if layout == "cl" else fk.mdagm
+        dims = (0, 1, 2) if layout == "cl" else (1, 2, 3)
+        for tol in (1e-9, 1e-12):
+            for start, x0 in (("cold", None), ("warm", warm)):
+                t0 = time.perf_counter()
+                res = fk.cg_solve_mixed(x, phi, MASS, x0, tol=tol,
+                                        maxiter=2000, layout=layout)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ref = fk.cg_solve_fused(x, phi, MASS, x0, tol=tol,
+                                        maxiter=2000, layout=layout)
+                b4, x4 = op.pack(phi), op.pack(res.x)
+                r = b4 - apply(op.ur, op.ui, x4, MASS, True)
+                rel = ((r * r).sum(dim=dims) / (b4 * b4).sum(dim=dims))
+                err = _rel(res.x, ref.x)
+                name = f"{key}_{layout}_tol{tol:g}_{start}"
+                out[name] = {"iters": res.iters, "cycles": res.reads - 1,
+                             "host_reads": res.reads,
+                             "fp32_k11_iters": ref.iters,
+                             "true_rel_residual_max": float(rel.max()),
+                             "rel_vs_fp32": err, "wall_ms": wall * 1e3}
+                require(float(rel.max()) <= tol,
+                        f"mixed solve {name}: {out[name]}")
+                require(err <= 1e-3,
+                        f"mixed solve {name} vs K11: {out[name]}")
+    return out
+
+
+def k11_bf16_timings(dev, x) -> dict:
+    """K11_bf16 and fp32 K11 at path A's / G's shape (64^2, 64 chains, eo,
+    chains-first), cold solves of K11_TIMED_ITERS iterations (tol 0) and
+    their set-ups (maxiter 0), each the card's time by graph_ms, in turns
+    (fp32, bf16, bf16, fp32): ms an iteration each, beside the bf16 twin's
+    solve and K11_bf16's bound (its bytes half fp32 K11's)."""
+    n = K11_TIMED_ITERS
+    _, planes32 = _k11_planes(x, True, False)
+    ur, ui, r16 = _bf16_planes(x, True, "cf")
+    B = r16.shape[0]
+
+    def maker16(maxiter):
+        d = torch.empty_like(r16)
+        rel = torch.empty(B, device=dev)
+        counters = torch.zeros(3, dtype=torch.int32, device=dev)
+        return lambda: fk.cg_launch(False, ur, ui, r16, None, MASS, True,
+                                    0.0, maxiter, d, rel, counters)
+
+    makers = {"fp32": (_k11_maker(planes32, False, n)[0],
+                       _k11_maker(planes32, False, 0)[0]),
+              "bf16": (maker16(n), maker16(0))}
+    times = {"fp32": [], "bf16": []}
+    for k in ("fp32", "bf16", "bf16", "fp32"):
+        solve, setup = (graph_ms(m, reps=5) for m in makers[k])
+        times[k].append((solve, setup))
+    out = {}
+    for k, v in times.items():
+        solve, setup = min(v)
+        out[k] = {"solve_ms": solve, "setup_ms": setup,
+                  "iteration_ms": (solve - setup) / n, "readings": v}
+    out["bf16"]["plain_ms"] = cuda_ms(lambda: fk.cg_planes_bf16_plain(
+        ur, ui, r16, MASS, 0.0, n, True, False), reps=1, repeats=3)
+    out["bf16"].update(fermion_bounds(B, x.shape[-1], n)["K11_bf16"])
+    out["fp32"].update(fermion_bounds(B, x.shape[-1], n)["K11"])
+    out.update({"chains": B, "L": x.shape[-1], "iterations": n,
+                "plan_bf16": list(fk.cg_plan(True, B, 64, 64, dev,
+                                             bf16=True)[:3]),
+                "plan_fp32": list(fk.cg_plan(True, B, 64, 64, dev)[:3])})
+    return out
+
+
+def observables_card_vs_cpu(dev) -> dict:
+    """chiral_condensate (8 noises) and pion_correlator on the card against
+    the CPU port on the same links (16^2, 8 near-equilibrium chains) and
+    the same noise: 1e-4 relative (both solves at 1e-10 / 1e-12)."""
+    x = near_equilibrium(torch.Generator(device=dev).manual_seed(61), 8, 16,
+                         6.0, dev)
+    g = torch.Generator().manual_seed(62)
+    eta = torch.complex(torch.randn((8, 8, 16, 16, 2), generator=g),
+                        torch.randn((8, 8, 16, 16, 2), generator=g)) \
+        * math.sqrt(0.5)
+    cc = tf.chiral_condensate_from(eta.to(dev), x, MASS, tol=1e-10)
+    cc_cpu = tf.chiral_condensate_from(eta, x.cpu(), MASS, tol=1e-10)
+    pc = tf.pion_correlator(x, MASS, tol=1e-12)
+    pc_cpu = tf.pion_correlator(x.cpu(), MASS, tol=1e-12)
+    r = {"chiral_rel": _rel(cc.cpu(), cc_cpu),
+         "pion_rel": _rel(pc.cpu(), pc_cpu),
+         "chiral_mean": float(cc.mean()), "tolerance": 1e-4}
+    require(r["chiral_rel"] <= 1e-4 and r["pion_rel"] <= 1e-4,
+            f"observables card vs CPU: {r}")
+    return r
+
+
+def pion_on_path_b(xb) -> dict:
+    """The pion correlator on path B's final 128 configurations (16^2,
+    beta=6, m=0.1) beside the JAX package's on its own plain ensemble of
+    the same theory: the pulls (mean - JAX) / sqrt(se^2 + se_JAX^2), se the
+    standard error over the 128 chains. Printed, not gated: the two runs'
+    topological sectors may differ."""
+    t0 = time.perf_counter()
+    c = tf.pion_correlator(xb, MASS, tol=1e-10).double()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mean = c.mean(dim=0).cpu().numpy()
+    se = (c.std(dim=0) / math.sqrt(c.shape[0])).cpu().numpy()
+    jm, jse = (np.asarray(a) for a in JAX_PION_B6)
+    pulls = (mean - jm) / np.sqrt(se ** 2 + jse ** 2)
+    require(bool(np.isfinite(mean).all()) and bool((mean > 0).all()),
+            "pion correlator on path B: not finite or not positive")
+    return {"configs": int(c.shape[0]), "corr": mean.tolist(),
+            "corr_err": se.tolist(), "jax_corr": list(JAX_PION_B6[0]),
+            "pulls": pulls.tolist(),
+            "max_abs_pull": float(np.abs(pulls).max()),
+            "mean_abs_pull": float(np.abs(pulls).mean()), "wall_s": wall}
+
+
+def ferm_training(dev) -> dict:
+    """Fermion-aware training (ferm_mass = 0.1, force_weight = 0.5) with
+    the reference flow (ncp, 16 layers, hidden (8, 8)) at 8^2, beta=2,
+    batch 64: one step's loss and gradients on the card against the CPU on
+    the same z and parameters (1e-4 relative in norm), then an era of 20
+    epochs through train_era (graphed or eager, as FERM_ERA_GRAPHED says):
+    metrics finite, steps/s."""
+    cfg = dataclasses.replace(REF_TRAIN, force_weight=0.5, ferm_mass=0.1)
+    state = ttrain.init_train_state(None, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(71)
+    z = (torch.rand((cfg.batch_size, 2, 8, 8), generator=g, device=dev)
+         * 2 - 1) * math.pi
+    loss, aux, grads = ttrain.loss_and_grads(
+        state.params, cfg.flow, z, cfg.beta, force_weight=0.5, ferm_mass=0.1)
+    loss_c, aux_c, grads_c = ttrain.loss_and_grads(
+        _copy_params(state.params, "cpu"), cfg.flow, z.cpu(), cfg.beta,
+        force_weight=0.5, ferm_mass=0.1)
+    a = torch.cat([t.flatten() for t in grads_c])
+    b = torch.cat([t.flatten().cpu() for t in grads])
+    rel = float((b - a).norm() / a.norm())
+    rel_loss = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    require(rel <= 1e-4 and rel_loss <= 1e-4,
+            f"ferm_mass gradients card vs CPU: {rel}, loss {rel_loss}")
+    n_epoch = 20
+    t0 = time.perf_counter()
+    state, hist = ttrain.train_era(state, cfg.flow, cfg.batch_size, cfg.L,
+                                   cfg.beta, cfg.dkl_factor, cfg.base_lr,
+                                   n_epoch, force_weight=0.5, ferm_mass=0.1)
+    wall = time.perf_counter() - t0
+    require(all(np.isfinite(v).all() for v in hist.values()),
+            "ferm_mass era: metrics not finite")
+    return {"batch": cfg.batch_size, "grad_rel_err_norm": rel,
+            "loss_rel_err": rel_loss, "tolerance": 1e-4,
+            "force_sq": float(aux["force_sq"]),
+            "era_graphed": ttrain.FERM_ERA_GRAPHED, "era_epochs": n_epoch,
+            "era_steps_per_s": n_epoch / wall,
+            "era_force_sq_last": float(hist["force_sq"][-1])}
+
+
+def dynamical_rest_phase(dev, params, spec, xb) -> dict:
+    """Phase 10: K11_bf16 against its twin, whole mixed solves, paths D, E,
+    F and G (each with its own launch counts), K11_bf16's and K11's times,
+    the observables, the pion correlator on path B's configurations, and
+    fermion-aware training. Returns what the kernels line needs."""
+    t_phase = time.perf_counter()
+    err, tol, info = compare_k11_bf16(dev)
+    say("compare_k11_bf16", max_abs_err=err, tolerance=tol, **info)
+    say("mixed_solves", solves=mixed_solves(dev))
+    rest = {}
+    for k, seed, nb, nl in (("D", 53, 64, 64), ("E", 54, 64, 32),
+                            ("G", 56, 64, 64)):
+        rest[k], _ = dyn_path(k, dev, near_equilibrium(
+            torch.Generator(device=dev).manual_seed(seed), nb, nl, 6.0, dev))
+    zf, _ = flow_reverse(params, torch.zeros((64, 2, 16, 16), device=dev),
+                         spec)
+    rest["F"], _ = dyn_path("F", dev, zf, params, spec)
+    xg = near_equilibrium(torch.Generator(device=dev).manual_seed(57), 64,
+                          64, 6.0, dev)
+    timing = k11_bf16_timings(dev, xg)
+    starts = {"D": (xg, ()), "E": (near_equilibrium(
+        torch.Generator(device=dev).manual_seed(58), 64, 32, 6.0, dev), ()),
+              "F": (zf, (params, spec)), "G": (xg, ())}
+    busy = {k: path_busy(k, dev, x0, rest[k]["s_per_traj"], *fl)
+            for k, (x0, fl) in starts.items()}
+    say("timing_dynamical_rest", k11_bf16_vs_k11=timing,
+        s_per_traj={k: r["s_per_traj"] for k, r in rest.items()},
+        chain_steps_per_s={k: r["chain_steps_per_s"]
+                           for k, r in rest.items()},
+        cg_iters_mean={k: r["cg_iters_mean"] for k, r in rest.items()},
+        cg_solves_per_traj={k: r["cg_solves"] / (r["therm"] + r["measured"])
+                            for k, r in rest.items()},
+        cg_host_reads_per_solve={k: r["cg_host_reads"] / r["cg_solves"]
+                                 for k, r in rest.items()},
+        device_busy=busy)
+    say("observables", card_vs_cpu=observables_card_vs_cpu(dev),
+        pion_path_b=pion_on_path_b(xb))
+    say("ferm_training", **ferm_training(dev))
+    say("dynamical_rest", seconds=time.perf_counter() - t_phase)
+    return {"err": err, "tol": tol, "timing": timing,
+            "launches": {k: r["launches"] for k, r in rest.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1989,15 +2402,13 @@ def main() -> None:
         shapes=K11_SHAPES, cases=k11_cases)
     say("fermion_band_plans", eo=True, kernel_ms_by_plan=fermion_plan_sweep(
         inp, sm_count(torch.cuda.current_device())))
-    dyn = {"A": dyn_path("A", dev, near_equilibrium(
-               torch.Generator(device=dev).manual_seed(51), 64, 64, 6.0,
-               dev)),
-           "B": dyn_path("B", dev, near_equilibrium(
-               torch.Generator(device=dev).manual_seed(52), 128, 16, 6.0,
-               dev))}
+    dyn, final = {}, {}
+    for k, seed, nb, nl in (("A", 51, 64, 64), ("B", 52, 128, 16)):
+        dyn[k], final[k] = dyn_path(k, dev, near_equilibrium(
+            torch.Generator(device=dev).manual_seed(seed), nb, nl, 6.0, dev))
     zc, _ = flow_reverse(params, torch.zeros((128, 2, 16, 16), device=dev),
                          spec)
-    dyn["C"] = dyn_path("C", dev, zc, params, spec)
+    dyn["C"], _ = dyn_path("C", dev, zc, params, spec)
     # the sampling paths launch no K9 or K10 (their CG is K11 alone): the
     # operator's own entry point is the path that does
     ops = operator_path(inp)
@@ -2033,7 +2444,16 @@ def main() -> None:
         tols["K6"] = min(tols["K6"], r["tolerance"])
     launches["K6"] += flow["sampling"]["launches"]
 
-    # 10. the kernels line
+    # 10. the rest of the dynamical sector: K11_bf16, the mixed CG, paths
+    # D-G, the observables, fermion-aware training
+    rest = dynamical_rest_phase(dev, params, spec, final["B"])
+    errs["K11_bf16"], tols["K11_bf16"] = rest["err"], rest["tol"]
+    ms["K11_bf16"] = rest["timing"]["bf16"]["solve_ms"]
+    plain_ms["K11_bf16"] = rest["timing"]["bf16"]["plain_ms"]
+    launches["K11_bf16"] = rest["launches"]["G"]["K11_bf16"]
+    launches["K9"] += rest["launches"]["G"]["K9"]
+
+    # 11. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -2042,7 +2462,8 @@ def main() -> None:
                 "K5": tb_h["K5"]})
     fb_a, fb_b = (fermion_bounds(64, 64, K11_TIMED_ITERS),
                   fermion_bounds(128, 16))
-    bnd.update({"K9": fb_a["K9"], "K10": fb_b["K10"], "K11": fb_a["K11"]})
+    bnd.update({"K9": fb_a["K9"], "K10": fb_b["K10"], "K11": fb_a["K11"],
+                "K11_bf16": fb_a["K11_bf16"]})
     say("bounds", layer=TIMED_LAYER, mu=mu, off=off,
         flops={k: v["flops"] for k, v in bnd.items()},
         bytes={k: v["bytes"] for k, v in bnd.items()})
@@ -2054,7 +2475,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 11. the device line
+    # 12. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

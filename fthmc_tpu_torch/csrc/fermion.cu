@@ -67,6 +67,16 @@
 // arithmetic op for op (hop_site and combine), the update
 // cg_update_plain's.
 //
+// K11 has a second storage type, bf16 (k11_cg_solve_bf16): the inner solve
+// of the mixed-precision CG (fthmc_tpu/fermion.py _cg_solve_mixed's bf16
+// inner while_loop). Its links, b, x0 and x are bf16 in device memory and
+// every set of its band region is bf16 on chip (halving the region's
+// bytes, so cg_plan may pick fewer bands); each value is rounded to bf16
+// where it is stored, and the hops, alpha, beta and both sums run in fp32
+// registers (the JAX loop rounds alpha and beta to bf16 too: the same
+// algorithm, not the same bits). The layout (CgLayout) counts elements;
+// cg_smem_bytes turns them into bytes by the storage type.
+//
 // Bounds: K9 and K10 must read p and four link planes and write four
 // planes, 48 bytes a site a chain (12.6 MB at 64^2, B=64: 3.8 us at
 // 3.35 TB/s); their arithmetic is 112 flops a site (each eo hop pass 44
@@ -84,6 +94,7 @@
 #include <stdint.h>
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -105,6 +116,23 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
+// Storage conversions: an element of a set (fp32 or bf16) as fp32, and an
+// fp32 value rounded to the storage type (round to nearest even).
+__device__ __forceinline__ float f32(float v) { return v; }
+__device__ __forceinline__ float f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class T>
+__device__ __forceinline__ T rnd(float v);
+template <>
+__device__ __forceinline__ float rnd<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 rnd<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // h = (H s) at one site: s the source planes (plane stride ps); Us and Un
 // the links ur0, ui0, ur1, ui1 (plane stride us) read at the site and at
 // its neighbours (one array for K9 and K10; K11 keeps the two parities of
@@ -112,22 +140,25 @@ __device__ __forceinline__ float sub(float a, float b) {
 // site's neighbours n + e0, n - e0, n + e1, n - e1, self its own (the
 // links share the planes' offsets). The four hop directions in
 // hop_planes' order.
-__device__ __forceinline__ void hop_site(const float* s, int ps,
-                                         const float* Us, const float* Un,
-                                         int us, int self, int f0, int b0,
-                                         int f1, int b1, float h[4]) {
+// Every element is read through f32, so the sets may hold bf16 (K11's
+// mixed-precision instance); the arithmetic is fp32 either way.
+template <class T>
+__device__ __forceinline__ void hop_site(const T* s, int ps, const T* Us,
+                                         const T* Un, int us, int self,
+                                         int f0, int b0, int f1, int b1,
+                                         float h[4]) {
   // forward 0: u0(n) psi(n + e0), (d, -d), d = t0 - t1
-  float dr = sub(s[f0], s[2 * ps + f0]);
-  float di = sub(s[ps + f0], s[3 * ps + f0]);
-  float u_r = Us[self], u_i = Us[us + self];
+  float dr = sub(f32(s[f0]), f32(s[2 * ps + f0]));
+  float di = sub(f32(s[ps + f0]), f32(s[3 * ps + f0]));
+  float u_r = f32(Us[self]), u_i = f32(Us[us + self]);
   float mr = sub(mul(u_r, dr), mul(u_i, di));
   float mi = add(mul(u_r, di), mul(u_i, dr));
   float h0r = mr, h0i = mi, h1r = -mr, h1i = -mi;
   // backward 0: conj(u0(n - e0)) psi(n - e0), (e, e), e = s0 + s1
-  dr = add(s[b0], s[2 * ps + b0]);
-  di = add(s[ps + b0], s[3 * ps + b0]);
-  u_r = Un[b0];
-  u_i = Un[us + b0];
+  dr = add(f32(s[b0]), f32(s[2 * ps + b0]));
+  di = add(f32(s[ps + b0]), f32(s[3 * ps + b0]));
+  u_r = f32(Un[b0]);
+  u_i = f32(Un[us + b0]);
   mr = add(mul(u_r, dr), mul(u_i, di));
   mi = sub(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -135,10 +166,10 @@ __device__ __forceinline__ void hop_site(const float* s, int ps,
   h1r = add(h1r, mr);
   h1i = add(h1i, mi);
   // forward 1: u1(n) psi(n + e1), (w, -i w), w = t0 + i t1
-  dr = sub(s[f1], s[3 * ps + f1]);
-  di = add(s[ps + f1], s[2 * ps + f1]);
-  u_r = Us[2 * us + self];
-  u_i = Us[3 * us + self];
+  dr = sub(f32(s[f1]), f32(s[3 * ps + f1]));
+  di = add(f32(s[ps + f1]), f32(s[2 * ps + f1]));
+  u_r = f32(Us[2 * us + self]);
+  u_i = f32(Us[3 * us + self]);
   mr = sub(mul(u_r, dr), mul(u_i, di));
   mi = add(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -146,10 +177,10 @@ __device__ __forceinline__ void hop_site(const float* s, int ps,
   h1r = add(h1r, mi);
   h1i = sub(h1i, mr);
   // backward 1: conj(u1(n - e1)) psi(n - e1), (v, i v), v = s0 - i s1
-  dr = add(s[b1], s[3 * ps + b1]);
-  di = sub(s[ps + b1], s[2 * ps + b1]);
-  u_r = Un[2 * us + b1];
-  u_i = Un[3 * us + b1];
+  dr = add(f32(s[b1]), f32(s[3 * ps + b1]));
+  di = sub(f32(s[ps + b1]), f32(s[2 * ps + b1]));
+  u_r = f32(Un[2 * us + b1]);
+  u_i = f32(Un[3 * us + b1]);
   mr = add(mul(u_r, dr), mul(u_i, di));
   mi = sub(mul(u_r, di), mul(u_i, dr));
   h0r = add(h0r, mr);
@@ -550,9 +581,15 @@ struct CgLayout {
   int H, R, NR;       // halo rows a side, largest band, band rows
   int rs;             // row stride, W
   CgSet U, P, Q, M, X, Rr;
-  int total;          // floats of a band region
+  int total;          // elements of a band region
   int red;            // floats of the reduction area
 };
+
+// Floats from a region's start to its reduction area: the region's
+// elements of `elem` bytes, rounded up to a float.
+__host__ __device__ inline int cg_red_at(const CgLayout& l, int elem) {
+  return (l.total * elem + 3) / 4;
+}
 
 __host__ __device__ inline CgSet cg_set(int* off, int halves, int rows,
                                         int rs, int row0) {
@@ -589,15 +626,19 @@ __host__ __device__ inline CgLayout cg_layout(int L0, int L1, int C, int R,
   return l;
 }
 
+// T, the storage type: float, or __nv_bfloat16 for the inner solve of the
+// mixed-precision CG (links, vectors and intermediates in bf16, in device
+// memory and on chip; the arithmetic and the sums in fp32).
+template <class T>
 struct CgArgs {
-  const float* ur;  // links (B, 2, L0, L1), or (2, L0, L1, B) chains-last
-  const float* ui;
-  const float* b;   // right-hand side (B, 4, L0, L1), or (4, L0, L1, B)
-  const float* x0;  // start, b's shape, or null (zero)
-  float* x;         // the solution, b's shape
+  const T* ur;      // links (B, 2, L0, L1), or (2, L0, L1, B) chains-last
+  const T* ui;
+  const T* b;       // right-hand side (B, 4, L0, L1), or (4, L0, L1, B)
+  const T* x0;      // start, b's shape, or null (zero)
+  T* x;             // the solution, b's shape
   float* rel;       // (B,) final |r|^2 / max(|b|^2, 1e-30)
   int* counters;    // int32 (3,), see k11_cg_solve
-  float* scratch;   // null: the bands in shared memory
+  T* scratch;       // null: the bands in shared memory
   int B;
   float a, bq, tol;  // a = m + 2, bq = 1 / (4 a)
   int maxiter;
@@ -606,15 +647,16 @@ struct CgArgs {
 };
 
 // What a CTA knows of its group and band.
+template <class T>
 struct CgBand {
   int C, rank, group;  // group: the chain
   int r0, R;     // first own row (global), own rows
-  float* base;   // the band region (shared memory or scratch)
+  T* base;       // the band region (shared memory or scratch)
   float* red;    // the reduction area (shared memory)
 };
 
-__device__ __forceinline__ float* cg_at(float* base, const CgSet& s,
-                                        int par) {
+template <class T>
+__device__ __forceinline__ T* cg_at(T* base, const CgSet& s, int par) {
   return base + s.off + par * s.ps;
 }
 
@@ -643,10 +685,10 @@ __device__ __forceinline__ void cg_decode(int e, int nr, const CgLayout& ly,
 // the links (plane k from ur = src0 for even k, ui = src1 for odd, of
 // direction k / 2). A set of one parity keeps the even sites, and an odd
 // site that is not zero sets *odd (the compact storage would drop it).
-template <bool CL>
-__device__ void cg_load(const CgArgs& A, const CgBand& bd, const float* src0,
-                        const float* src1, const CgSet& s, int s_lo,
-                        int g_lo, int nr, bool* odd) {
+template <bool CL, class T>
+__device__ void cg_load(const CgArgs<T>& A, const CgBand<T>& bd,
+                        const T* src0, const T* src1, const CgSet& s,
+                        int s_lo, int g_lo, int nr, bool* odd) {
   const CgLayout& ly = A.ly;
   const int n = 4 * nr * ly.L1;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -654,7 +696,7 @@ __device__ void cg_load(const CgArgs& A, const CgBand& bd, const float* src0,
     cg_decode(e, nr, ly, k, rr, j);
     int i = (g_lo + rr) % ly.L0;
     if (i < 0) i += ly.L0;
-    const float v =
+    const T v =
         src1 == nullptr
             ? __ldg(src0 + cg_gidx<CL>(4, k, i, j, bd.group, A.B, ly.L0,
                                        ly.L1))
@@ -663,7 +705,7 @@ __device__ void cg_load(const CgArgs& A, const CgBand& bd, const float* src0,
                                                         ly.L1));
     const int par = (i + j) & 1;
     if (par && s.ps == 0) {
-      if (v != 0.f) *odd = true;  // NaN too
+      if (f32(v) != 0.f) *odd = true;  // NaN too
       continue;
     }
     cg_at(bd.base, s, par)[k * s.ks + (s_lo + rr) * ly.rs + (j >> 1)] = v;
@@ -671,15 +713,15 @@ __device__ void cg_load(const CgArgs& A, const CgBand& bd, const float* src0,
 }
 
 // Writes the own rows of X to x (eo: zeros on the odd sites).
-template <bool CL>
-__device__ void cg_store(const CgArgs& A, const CgBand& bd) {
+template <bool CL, class T>
+__device__ void cg_store(const CgArgs<T>& A, const CgBand<T>& bd) {
   const CgLayout& ly = A.ly;
   const int n = 4 * bd.R * ly.L1;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     int k, rr, j;
     cg_decode(e, bd.R, ly, k, rr, j);
     const int i = bd.r0 + rr, par = (i + j) & 1;
-    float v = 0.f;
+    T v = rnd<T>(0.f);
     if (!par || ly.X.ps)
       v = cg_at(bd.base, ly.X, par)[k * ly.X.ks + rr * ly.rs + (j >> 1)];
     A.x[cg_gidx<CL>(4, k, i, j, bd.group, A.B, ly.L0, ly.L1)] = v;
@@ -692,17 +734,18 @@ __device__ void cg_store(const CgArgs& A, const CgBand& bd) {
 // sets (src read at the other parity). Row neighbours wrap around the band
 // where it holds the lattice (H = 0). DOT: also adds p dst over the
 // thread's sites to acc (p the P set), in the order the update sweeps
-// visit them.
-template <int KIND, bool DOT>
-__device__ void cg_pass(const CgLayout& ly, const CgBand& bd, int tp, int lo,
-                        int n, const CgSet& src, const CgSet& self,
+// visit them. Each value is rounded to the storage type as it is stored,
+// and the dot takes the stored value.
+template <int KIND, bool DOT, class T>
+__device__ void cg_pass(const CgLayout& ly, const CgBand<T>& bd, int tp,
+                        int lo, int n, const CgSet& src, const CgSet& self,
                         const CgSet& dst, float a, float c, float& acc) {
-  const float* S = cg_at(bd.base, src, 1 - tp);
-  const float* Us = cg_at(bd.base, ly.U, tp);
-  const float* Un = cg_at(bd.base, ly.U, 1 - tp);
-  const float* F = cg_at(bd.base, self, tp);
-  float* D = cg_at(bd.base, dst, tp);
-  const float* Pp = cg_at(bd.base, ly.P, tp);
+  const T* S = cg_at(bd.base, src, 1 - tp);
+  const T* Us = cg_at(bd.base, ly.U, tp);
+  const T* Un = cg_at(bd.base, ly.U, 1 - tp);
+  const T* F = cg_at(bd.base, self, tp);
+  T* D = cg_at(bd.base, dst, tp);
+  const T* Pp = cg_at(bd.base, ly.P, tp);
   const int W = ly.W, rs = ly.rs;
   const int fo = self.row0 * rs, dof = dst.row0 * rs;
   for (Walk it(n, W, threadIdx.x, blockDim.x); it.q < 1; it.next()) {
@@ -722,11 +765,12 @@ __device__ void cg_pass(const CgLayout& ly, const CgBand& bd, int tp, int lo,
              b * rs + hf, b * rs + hb, hv);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float v = KIND == HOP
-                          ? hv[k]
-                          : combine(k, a, F[at - fo + k * self.ks], c, hv[k]);
+      const T v = rnd<T>(
+          KIND == HOP ? hv[k]
+                      : combine(k, a, f32(F[at - fo + k * self.ks]), c,
+                                hv[k]));
       D[at - dof + k * dst.ks] = v;
-      if (DOT) acc = add(acc, mul(Pp[at + k * ly.P.ks], v));
+      if (DOT) acc = add(acc, mul(f32(Pp[at + k * ly.P.ks]), f32(v)));
     }
   }
 }
@@ -736,8 +780,8 @@ __device__ void cg_pass(const CgLayout& ly, const CgBand& bd, int tp, int lo,
 // [i, R + 2 H - i) of pass i), every row where one CTA holds the lattice.
 // eo leaves out K9's odd-site SCALE passes: a vector on the even sites
 // has zeros there. Returns this thread's sum of p M p.
-template <bool EO>
-__device__ float cg_apply(const CgLayout& ly, const CgBand& bd, float a,
+template <bool EO, class T>
+__device__ float cg_apply(const CgLayout& ly, const CgBand<T>& bd, float a,
                           float bq) {
   const int H = ly.H, R = bd.R;
   const int lo1 = H ? 1 : 0, n1 = H ? R + 6 : ly.NR;
@@ -770,7 +814,8 @@ __device__ float cg_apply(const CgLayout& ly, const CgBand& bd, float a,
 // chain. slot alternates between consecutive calls: a slot is written
 // again only after every thread has passed the barrier of the call
 // between.
-__device__ float cg_sum(float v, const CgBand& bd, int slot) {
+template <class T>
+__device__ float cg_sum(float v, const CgBand<T>& bd, int slot) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   float* wp = bd.red + slot * 32;
   for (int o = 16; o >= 1; o >>= 1)
@@ -796,8 +841,9 @@ __device__ float cg_sum(float v, const CgBand& bd, int slot) {
 // (every rank's own rows of p written): halo row hr's owner tab[2 hr] and
 // its band row there tab[2 hr + 1], through distributed shared memory or
 // the scratch (read past L1).
-template <bool SM>
-__device__ void cg_halo(const CgArgs& A, const CgBand& bd, const int* tab) {
+template <bool SM, class T>
+__device__ void cg_halo(const CgArgs<T>& A, const CgBand<T>& bd,
+                        const int* tab) {
   const CgLayout& ly = A.ly;
   cg::this_cluster().sync();
   const int span = ly.NR * ly.rs;
@@ -809,7 +855,7 @@ __device__ void cg_halo(const CgArgs& A, const CgBand& bd, const int* tab) {
     const int o = tab[2 * hr], sb = tab[2 * hr + 1];
     const int db = hr < ly.H ? hr : bd.R + hr;
     const int at = ly.P.off + ph * span + c;
-    float v;
+    T v;
     if constexpr (SM)
       v = *cg::this_cluster().map_shared_rank(bd.base + at + sb * ly.rs, o);
     else
@@ -827,20 +873,21 @@ __device__ void cg_halo(const CgArgs& A, const CgBand& bd, const int* tab) {
 // active and at most maxiter times, and stops at its own convergence
 // (JAX's alpha = beta = 0 from then on; a NaN rsq stops it, as NaN > stop
 // is false). No chain waits for another.
-template <bool CL, bool SM, bool EO>
+template <bool CL, bool SM, bool EO, class T>
 __global__ void __launch_bounds__(CG_MAX_THREADS)
-    cg_kernel(const __grid_constant__ CgArgs A) {
+    cg_kernel(const __grid_constant__ CgArgs<T> A) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const CgLayout& ly = A.ly;
-  CgBand bd;
+  CgBand<T> bd;
   bd.C = A.bands.C;
   bd.rank = bd.C > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   bd.group = static_cast<int>(blockIdx.x) / bd.C;
   bd.r0 = A.bands.row0[bd.rank];
   bd.R = A.bands.row0[bd.rank + 1] - bd.r0;
-  bd.base = SM ? sm : A.scratch + static_cast<size_t>(blockIdx.x) * ly.total;
-  bd.red = SM ? sm + ly.total : sm;
+  bd.base = SM ? reinterpret_cast<T*>(sm)
+               : A.scratch + static_cast<size_t>(blockIdx.x) * ly.total;
+  bd.red = SM ? sm + cg_red_at(ly, sizeof(T)) : sm;
   int* tab = reinterpret_cast<int*>(bd.red + 2 * 32 + 2);
   const int H = ly.H, R = bd.R;
   if (static_cast<int>(threadIdx.x) < 2 * H) {
@@ -853,10 +900,11 @@ __global__ void __launch_bounds__(CG_MAX_THREADS)
     tab[2 * hr + 1] = H + g - A.bands.row0[o];
   }
   bool odd = false;
-  cg_load<CL>(A, bd, A.ur, A.ui, ly.U, 0, bd.r0 - H, R + 2 * H, &odd);
-  cg_load<CL>(A, bd, A.b, nullptr, ly.Rr, 0, bd.r0, R, &odd);
+  cg_load<CL, T>(A, bd, A.ur, A.ui, ly.U, 0, bd.r0 - H, R + 2 * H, &odd);
+  cg_load<CL, T>(A, bd, A.b, nullptr, ly.Rr, 0, bd.r0, R, &odd);
   if (A.x0 != nullptr)
-    cg_load<CL>(A, bd, A.x0, nullptr, ly.P, 0, bd.r0 - H, R + 2 * H, &odd);
+    cg_load<CL, T>(A, bd, A.x0, nullptr, ly.P, 0, bd.r0 - H, R + 2 * H,
+                   &odd);
   if (odd) atomicOr(A.counters + 2, 1);
   __syncthreads();
 
@@ -866,24 +914,24 @@ __global__ void __launch_bounds__(CG_MAX_THREADS)
   if (A.x0 != nullptr) cg_apply<EO>(ly, bd, A.a, A.bq);
   float bs = 0.f, r2 = 0.f;
   for (int par = 0; par < npar; ++par) {
-    float* P = cg_at(bd.base, ly.P, par) + H * rs;
-    float* X = cg_at(bd.base, ly.X, par);
-    float* Rr = cg_at(bd.base, ly.Rr, par);
-    const float* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
+    T* P = cg_at(bd.base, ly.P, par) + H * rs;
+    T* X = cg_at(bd.base, ly.X, par);
+    T* Rr = cg_at(bd.base, ly.Rr, par);
+    const T* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
     for (Walk it(R, cpr, threadIdx.x, blockDim.x); it.q < 1; it.next()) {
       const int o = it.r * rs + it.c;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float bv = Rr[o + k * ly.Rr.ks];
+        const float bv = f32(Rr[o + k * ly.Rr.ks]);
         bs = add(bs, mul(bv, bv));
         float rv = bv, xv = 0.f;
         if (A.x0 != nullptr) {
-          xv = P[o + k * ly.P.ks];
-          rv = sub(bv, M[o + k * ly.M.ks]);
+          xv = f32(P[o + k * ly.P.ks]);
+          rv = f32(rnd<T>(sub(bv, f32(M[o + k * ly.M.ks]))));
         }
-        X[o + k * ly.X.ks] = xv;
-        Rr[o + k * ly.Rr.ks] = rv;
-        P[o + k * ly.P.ks] = rv;
+        X[o + k * ly.X.ks] = rnd<T>(xv);
+        Rr[o + k * ly.Rr.ks] = rnd<T>(rv);
+        P[o + k * ly.P.ks] = rnd<T>(rv);
         r2 = add(r2, mul(rv, rv));
       }
     }
@@ -902,20 +950,21 @@ __global__ void __launch_bounds__(CG_MAX_THREADS)
     float acc = 0.f;
     if (act) {
       for (int par = 0; par < npar; ++par) {
-        const float* P = cg_at(bd.base, ly.P, par) + H * rs;
-        float* X = cg_at(bd.base, ly.X, par);
-        float* Rr = cg_at(bd.base, ly.Rr, par);
-        const float* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
+        const T* P = cg_at(bd.base, ly.P, par) + H * rs;
+        T* X = cg_at(bd.base, ly.X, par);
+        T* Rr = cg_at(bd.base, ly.Rr, par);
+        const T* M = cg_at(bd.base, ly.M, par) + (H - ly.M.row0) * rs;
         for (Walk w(R, cpr, threadIdx.x, blockDim.x); w.q < 1; w.next()) {
           const int o = w.r * rs + w.c;
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            float* xp = X + o + k * ly.X.ks;
-            float* rp = Rr + o + k * ly.Rr.ks;
-            *xp = add(*xp, mul(alpha, P[o + k * ly.P.ks]));
-            const float rv = sub(*rp, mul(alpha, M[o + k * ly.M.ks]));
+            T* xp = X + o + k * ly.X.ks;
+            T* rp = Rr + o + k * ly.Rr.ks;
+            *xp = rnd<T>(add(f32(*xp), mul(alpha, f32(P[o + k * ly.P.ks]))));
+            const T rv =
+                rnd<T>(sub(f32(*rp), mul(alpha, f32(M[o + k * ly.M.ks]))));
             *rp = rv;
-            acc = add(acc, mul(rv, rv));
+            acc = add(acc, mul(f32(rv), f32(rv)));
           }
         }
       }
@@ -926,14 +975,14 @@ __global__ void __launch_bounds__(CG_MAX_THREADS)
     if (act) {
       const float beta = rn / fmaxf(rsq, 1e-30f);
       for (int par = 0; par < npar; ++par) {
-        float* P = cg_at(bd.base, ly.P, par) + H * rs;
-        const float* Rr = cg_at(bd.base, ly.Rr, par);
+        T* P = cg_at(bd.base, ly.P, par) + H * rs;
+        const T* Rr = cg_at(bd.base, ly.Rr, par);
         for (Walk w(R, cpr, threadIdx.x, blockDim.x); w.q < 1; w.next()) {
           const int o = w.r * rs + w.c;
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            float* pp = P + o + k * ly.P.ks;
-            *pp = add(Rr[o + k * ly.Rr.ks], mul(beta, *pp));
+            T* pp = P + o + k * ly.P.ks;
+            *pp = rnd<T>(add(f32(Rr[o + k * ly.Rr.ks]), mul(beta, f32(*pp))));
           }
         }
       }
@@ -945,7 +994,7 @@ __global__ void __launch_bounds__(CG_MAX_THREADS)
     act = next;
   }
   __syncthreads();
-  cg_store<CL>(A, bd);
+  cg_store<CL, T>(A, bd);
   if (bd.rank == 0 && threadIdx.x == 0) {
     A.rel[bd.group] = rsq / fmaxf(bsq, 1e-30f);
     atomicMax(A.counters, iters);
@@ -966,15 +1015,17 @@ bool aligned16(const void* q) {
   return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
 }
 
-int g_cg_smem[8][64];  // opt-in set so far, by K11 instance and device
+// opt-in set so far, by K11 instance (fp32, then bf16) and device
+int g_cg_smem[16][64];
 
 // A K11 launch: groups clusters of C CTAs.
-template <bool CL, bool SM, bool EO>
-int launch_cg(const CgArgs& A, int groups, int threads, int bytes,
+template <bool CL, bool SM, bool EO, class T>
+int launch_cg(const CgArgs<T>& A, int groups, int threads, int bytes,
               void* stream) {
-  auto kernel = &cg_kernel<CL, SM, EO>;
+  auto kernel = &cg_kernel<CL, SM, EO, T>;
+  const int bf = sizeof(T) == 2 ? 8 : 0;
   const cudaError_t err =
-      ensure_smem(kernel, bytes, g_cg_smem[(CL ? 4 : 0) + (SM ? 2 : 0) +
+      ensure_smem(kernel, bytes, g_cg_smem[bf + (CL ? 4 : 0) + (SM ? 2 : 0) +
                                            (EO ? 1 : 0)]);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_clusters(kernel, groups, A.bands.C, threads,
@@ -1060,18 +1111,66 @@ extern "C" int k10_mdagm_cl(const float* ur, const float* ui, const float* p,
 }
 
 // Bytes of a K11 CTA's dynamic shared memory under a plan of C bands of at
-// most `rows` rows: the band region and the reduction area (in_smem 1), or
-// the reduction area alone, the band region in device scratch (0); -1 for
-// what the kernel does not take. The band region is the difference.
+// most `rows` rows, its sets of `elem` bytes an element (4: fp32, 2: bf16):
+// the band region and the reduction area (in_smem 1), or the reduction area
+// alone, the band region in device scratch (0); -1 for what the kernel does
+// not take. The band region is the difference.
 extern "C" int cg_smem_bytes(int L0, int L1, int C, int rows, int eo,
-                             int in_smem) {
+                             int in_smem, int elem) {
   if (!sides_ok(L0, L1) || C < 1 || C > MAX_BANDS || rows < 1 ||
-      rows > L0 || rows * C < L0)
+      rows > L0 || rows * C < L0 || (elem != 4 && elem != 2))
     return -1;
   const CgLayout l = cg_layout(L0, L1, C, rows, eo);
-  return static_cast<int>(sizeof(float)) * (in_smem ? l.total + l.red
-                                                    : l.red);
+  return static_cast<int>(sizeof(float)) *
+         (in_smem ? cg_red_at(l, elem) + l.red : l.red);
 }
+
+namespace {
+
+// Binds a K11 launch of storage type T; see the entries below.
+template <class T>
+int launch_k11(const void* ur, const void* ui, const void* b, const void* x0,
+               void* x, float* rel, int* counters, void* scratch, int B,
+               int L0, int L1, float a, float bq, int eo, float tol,
+               int maxiter, int C, const int* row0, int threads, int cl,
+               void* stream) {
+  CgArgs<T> A;
+  int R = 0;
+  if (B < 1 || maxiter < 0 || !sides_ok(L0, L1) || threads < 32 ||
+      threads > CG_MAX_THREADS || threads % 32 != 0 ||
+      !bands_from(C, row0, L0, &R, &A.bands))
+    return static_cast<int>(cudaErrorInvalidValue);
+  A.ur = static_cast<const T*>(ur);
+  A.ui = static_cast<const T*>(ui);
+  A.b = static_cast<const T*>(b);
+  A.x0 = static_cast<const T*>(x0);
+  A.x = static_cast<T*>(x);
+  A.rel = rel;
+  A.counters = counters;
+  A.scratch = static_cast<T*>(scratch);
+  A.B = B;
+  A.a = a;
+  A.bq = bq;
+  A.tol = tol;
+  A.maxiter = maxiter;
+  A.ly = cg_layout(L0, L1, C, R, eo);
+  const int sm = scratch == nullptr;
+  const int bytes = static_cast<int>(sizeof(float)) *
+                    (sm ? cg_red_at(A.ly, sizeof(T)) + A.ly.red : A.ly.red);
+  const int g = B, n = threads;
+  switch ((cl ? 4 : 0) + (sm ? 2 : 0) + (eo ? 1 : 0)) {
+    case 0: return launch_cg<false, false, false>(A, g, n, bytes, stream);
+    case 1: return launch_cg<false, false, true>(A, g, n, bytes, stream);
+    case 2: return launch_cg<false, true, false>(A, g, n, bytes, stream);
+    case 3: return launch_cg<false, true, true>(A, g, n, bytes, stream);
+    case 4: return launch_cg<true, false, false>(A, g, n, bytes, stream);
+    case 5: return launch_cg<true, false, true>(A, g, n, bytes, stream);
+    case 6: return launch_cg<true, true, false>(A, g, n, bytes, stream);
+    default: return launch_cg<true, true, true>(A, g, n, bytes, stream);
+  }
+}
+
+}  // namespace
 
 // K11: B chains' whole CG solves of (M) x = b, M the normal operator of
 // k9_mdagm (eo: its Schur form), in one launch: a cluster of C CTAs (the
@@ -1085,43 +1184,29 @@ extern "C" int cg_smem_bytes(int L0, int L1, int C, int rows, int eo,
 // odd site (eo; the result is then not the solve). scratch: null (the
 // bands in shared memory, which must fit) or B * C band regions
 // (cg_smem_bytes). tol on |r|^2 / |b|^2; a = m + 2, bq = 1 / (4 a).
-extern "C" int k11_cg_solve(const float* ur, const float* ui, const float* b,
-                            const float* x0, float* x, float* rel,
-                            int* counters, float* scratch, int B, int L0,
+extern "C" int k11_cg_solve(const void* ur, const void* ui, const void* b,
+                            const void* x0, void* x, float* rel,
+                            int* counters, void* scratch, int B, int L0,
                             int L1, float a, float bq, int eo, float tol,
                             int maxiter, int C, const int* row0,
                             int threads, int cl, void* stream) {
-  CgArgs A;
-  int R = 0;
-  if (B < 1 || maxiter < 0 || !sides_ok(L0, L1) || threads < 32 || threads > CG_MAX_THREADS || threads % 32 != 0 ||
-      !bands_from(C, row0, L0, &R, &A.bands))
-    return static_cast<int>(cudaErrorInvalidValue);
-  A.ur = ur;
-  A.ui = ui;
-  A.b = b;
-  A.x0 = x0;
-  A.x = x;
-  A.rel = rel;
-  A.counters = counters;
-  A.scratch = scratch;
-  A.B = B;
-  A.a = a;
-  A.bq = bq;
-  A.tol = tol;
-  A.maxiter = maxiter;
-  A.ly = cg_layout(L0, L1, C, R, eo);
-  const int sm = scratch == nullptr;
-  const int bytes = static_cast<int>(sizeof(float)) *
-                    (sm ? A.ly.total + A.ly.red : A.ly.red);
-  const int g = B, n = threads;
-  switch ((cl ? 4 : 0) + (sm ? 2 : 0) + (eo ? 1 : 0)) {
-    case 0: return launch_cg<false, false, false>(A, g, n, bytes, stream);
-    case 1: return launch_cg<false, false, true>(A, g, n, bytes, stream);
-    case 2: return launch_cg<false, true, false>(A, g, n, bytes, stream);
-    case 3: return launch_cg<false, true, true>(A, g, n, bytes, stream);
-    case 4: return launch_cg<true, false, false>(A, g, n, bytes, stream);
-    case 5: return launch_cg<true, false, true>(A, g, n, bytes, stream);
-    case 6: return launch_cg<true, true, false>(A, g, n, bytes, stream);
-    default: return launch_cg<true, true, true>(A, g, n, bytes, stream);
-  }
+  return launch_k11<float>(ur, ui, b, x0, x, rel, counters, scratch, B, L0,
+                           L1, a, bq, eo, tol, maxiter, C, row0, threads, cl,
+                           stream);
+}
+
+// K11 on bf16 storage, the inner solve of the mixed-precision CG: as
+// k11_cg_solve, with ur, ui, b, x0 and x bf16 (and the band region bf16,
+// cg_smem_bytes with elem 2). Every value is rounded to bf16 where it is
+// stored; the hops, alpha, beta and the sums are fp32.
+extern "C" int k11_cg_solve_bf16(const void* ur, const void* ui,
+                                 const void* b, const void* x0, void* x,
+                                 float* rel, int* counters, void* scratch,
+                                 int B, int L0, int L1, float a, float bq,
+                                 int eo, float tol, int maxiter, int C,
+                                 const int* row0, int threads, int cl,
+                                 void* stream) {
+  return launch_k11<__nv_bfloat16>(ur, ui, b, x0, x, rel, counters, scratch,
+                                   B, L0, L1, a, bq, eo, tol, maxiter, C,
+                                   row0, threads, cl, stream);
 }

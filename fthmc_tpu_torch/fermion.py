@@ -19,10 +19,19 @@ the CG solution held fixed, the counterpart of jax.grad through XLA code.
 CG backends (``cg_solve``): 'xla' is a torch complex CG on ``apply_mdagm``
 (the counterpart of ``_cg_solve_xla``); 'fused' is
 ``ops/fermion_kernels.cg_solve_fused`` (K11, the whole solve in one
-launch, on the card, its twin on the CPU); 'auto', the default, is
-'fused' on the card and 'xla' on the CPU. On the card 'fused' outside the kernels' envelope
-raises, where the JAX package falls back to XLA unasked. 'mixed' is not
-ported yet.
+launch, on the card, its twin on the CPU); 'mixed' is
+``ops/fermion_kernels.cg_solve_mixed`` (the counterpart of
+``_cg_solve_mixed``: fp32 refinement cycles, each a K9 / K10 residual and
+a K11_bf16 inner solve on the card, the twins on the CPU); 'auto', the
+default, is 'fused' on the card and 'xla' on the CPU. On the card 'fused'
+outside the kernels' envelope raises, where the JAX package falls back to
+XLA unasked.
+
+Also here: Hasenbusch mass preconditioning (``hasenbusch_refresh``,
+``ratio_action_lin``, ``ratio_action_exact``), the dense operator and the
+exact two-flavour log-determinant (``dirac_dense``, ``logdet_mdagm``), and
+the observables ``chiral_condensate`` and ``pion_correlator``, whose
+solves go through ``cg_solve``.
 """
 from __future__ import annotations
 
@@ -31,18 +40,19 @@ import math
 import torch
 
 from fthmc_tpu_torch.device import resolve_device
-from fthmc_tpu_torch.ops.fermion_kernels import CGResult, cg_solve_fused
+from fthmc_tpu_torch.ops.fermion_kernels import (CGResult, cg_solve_fused,
+                                                  cg_solve_mixed)
 
 __all__ = ["dirac", "dirac_dag", "apply_mdagm", "cg_solve", "set_cg_backend",
            "pf_refresh", "pf_refresh_from", "pf_action_exact",
            "pf_action_lin", "pf_force", "pf_force_at", "CGResult",
            "parity_mask", "dirac_hat", "dirac_hat_dag", "apply_mdagm_eo",
-           "CG_BACKENDS", "CGLog"]
+           "CG_BACKENDS", "CGLog", "dirac_dense", "logdet_mdagm",
+           "chiral_condensate", "chiral_condensate_from", "pion_correlator",
+           "hasenbusch_refresh", "hasenbusch_refresh_from",
+           "ratio_action_lin", "ratio_action_exact", "ratio_force_at"]
 
 CG_BACKENDS = ("auto", "xla", "fused", "mixed")
-_MIXED_TODO = ("cg backend 'mixed' (bf16 inner CG with fp32 refinement) is "
-               "not ported yet: ROADMAP queue 1, 'dynamical fermions, the "
-               "rest'")
 
 
 def _links(theta: torch.Tensor):
@@ -145,35 +155,39 @@ def set_cg_backend(name: str) -> None:
 
 
 def resolve_cg_backend(backend: str | None, device) -> str:
-    """'xla' or 'fused' for a solve on ``device``."""
+    """'xla', 'fused' or 'mixed' for a solve on ``device``."""
     backend = backend or _CG_BACKEND
     if backend not in CG_BACKENDS:
         raise ValueError(f"unknown cg backend {backend!r}; one of "
                          f"{CG_BACKENDS}")
-    if backend == "mixed":
-        raise NotImplementedError(_MIXED_TODO)
     if backend == "auto":
         return "fused" if torch.device(device).type == "cuda" else "xla"
     return backend
 
 
 class CGLog:
-    """Iterations of the solves a run makes, by kind ('force' or 'mh'), for
-    a caller that passes one: each entry (iters, launched)."""
+    """Iterations of the solves a run makes, by kind ('force' and 'mh'; the
+    Hasenbusch sampler's 'refresh', 'heavy' and 'ratio' too), for a caller
+    that passes one: each entry (iters, launched, reads)."""
 
     def __init__(self):
-        self.solves: dict[str, list[tuple[int, int]]] = {"force": [],
-                                                         "mh": []}
+        self.solves: dict[str, list[tuple[int, int, int]]] = {"force": [],
+                                                              "mh": []}
 
     def add(self, kind: str, res: CGResult) -> None:
-        self.solves[kind].append((res.iters, res.launched))
+        self.solves.setdefault(kind, []).append((res.iters, res.launched,
+                                                 res.reads))
 
     def mean_iters(self, kind: str) -> float:
-        s = self.solves[kind]
-        return sum(i for i, _ in s) / max(len(s), 1)
+        s = self.solves.get(kind, [])
+        return sum(e[0] for e in s) / max(len(s), 1)
 
     def launched(self) -> int:
-        return sum(n for s in self.solves.values() for _, n in s)
+        return sum(e[1] for s in self.solves.values() for e in s)
+
+    def reads(self) -> int:
+        """The solves' host reads of the device's state, in all."""
+        return sum(e[2] for s in self.solves.values() for e in s)
 
     def count(self) -> int:
         return sum(len(s) for s in self.solves.values())
@@ -206,7 +220,7 @@ def _cg_solve_xla(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
         p = r + beta[..., None, None, None].to(b.dtype) * p
         rsq = torch.where(active, rsq_new, rsq)
         k += 1
-    return CGResult(x, k, rsq / torch.clamp_min(bsq, 1e-30), k)
+    return CGResult(x, k, rsq / torch.clamp_min(bsq, 1e-30), k, k + 1)
 
 
 def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
@@ -215,12 +229,13 @@ def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
     """Batched CG for (D^dag D) x = b, or with eo the Schur system on
     even-masked b. tol is on |r|^2 / |b|^2. ``backend`` overrides the
     process default (``set_cg_backend``); ``layout`` ('auto', 'cf', 'cl')
-    is the packed planes' layout for 'fused'."""
+    is the packed planes' layout for 'fused' and 'mixed'."""
     backend = resolve_cg_backend(backend, b.device)
     theta = theta.detach()
-    if backend == "fused":
-        return cg_solve_fused(theta, b, mass, x0, tol=tol, maxiter=maxiter,
-                              eo=eo, layout=layout)
+    if backend in ("fused", "mixed"):
+        solve = cg_solve_fused if backend == "fused" else cg_solve_mixed
+        return solve(theta, b, mass, x0, tol=tol, maxiter=maxiter, eo=eo,
+                     layout=layout)
     return _cg_solve_xla(theta, b, mass, x0, tol=tol, maxiter=maxiter, eo=eo)
 
 
@@ -293,3 +308,188 @@ def pf_force(theta, phi, mass: float, *, tol: float = 1e-8,
     res = cg_solve(theta, phi, mass, x0, tol=tol, maxiter=maxiter, eo=eo,
                    backend=backend, layout=layout)
     return pf_force_at(theta, phi, res.x, mass, eo), res
+
+
+# ---------------------------------------------------------------------------
+# the dense operator and the exact log-determinant
+# ---------------------------------------------------------------------------
+
+def dirac_dense(theta: torch.Tensor, mass: float) -> torch.Tensor:
+    """The Wilson operator of one configuration theta (2, L0, L1) as a real
+    (2n, 2n) matrix, the real representation [[Re D, -Im D], [Im D, Re
+    D]] of the complex (n, n) D, n = 2 L0 L1: det of it is |det D|^2 =
+    det(D^dag D). Batched theta (..., 2, L0, L1) gives (..., 2n, 2n).
+    O(n^2) storage: the training volume (n = 128 at 8^2) only."""
+    L0, L1 = theta.shape[-2:]
+    n = 2 * L0 * L1
+    basis = torch.eye(n, dtype=torch.complex64, device=theta.device)
+    cols = dirac(theta[..., None, :, :, :], basis.reshape(n, L0, L1, 2),
+                 mass)                                 # row j = D e_j
+    d = cols.reshape(cols.shape[:-3] + (n,)).transpose(-1, -2)
+    return torch.cat((torch.cat((d.real, -d.imag), dim=-1),
+                      torch.cat((d.imag, d.real), dim=-1)), dim=-2)
+
+
+def logdet_mdagm(theta: torch.Tensor, mass: float) -> torch.Tensor:
+    """ln det(D^dag D) per configuration, theta (..., 2, L0, L1) -> (...):
+    the exact two-flavour fermion log-determinant through the dense real
+    representation and ``torch.linalg.slogdet`` (differentiable, twice
+    too). Dense: the training volume only, never in samplers."""
+    return torch.linalg.slogdet(dirac_dense(theta, mass)).logabsdet
+
+
+# ---------------------------------------------------------------------------
+# observables
+# ---------------------------------------------------------------------------
+
+def _noise(generator: torch.Generator, shape) -> torch.Tensor:
+    """CN(0, 1) complex64 noise of ``shape`` (real parts, then imaginary)."""
+    re = torch.randn(shape, generator=generator, dtype=torch.float32,
+                     device=generator.device)
+    im = torch.randn(shape, generator=generator, dtype=torch.float32,
+                     device=generator.device)
+    return torch.complex(re, im) * math.sqrt(0.5)
+
+
+def chiral_condensate_from(eta: torch.Tensor, theta: torch.Tensor,
+                           mass: float, *, tol: float = 1e-8,
+                           maxiter: int = 2000) -> torch.Tensor:
+    """<psibar psi> = (1/V) Tr D^{-1} per chain, estimated on the noise eta
+    (n_noise, ..., L0, L1, 2): mean over the noises of Re<eta, D^{-1} eta>
+    / (2 L0 L1), with D^{-1} eta = M^{-1} D^dag eta from ``cg_solve`` (all
+    noises in one batched solve, each chain frozen at its own
+    convergence)."""
+    theta = theta.detach()
+    n, lead = eta.shape[0], theta.shape[:-3]
+    th = theta.expand((n,) + tuple(theta.shape)).reshape((-1,)
+                                                         + theta.shape[-3:])
+    e = eta.to(torch.complex64).reshape((-1,) + eta.shape[-3:])
+    res = cg_solve(th, dirac_dag(th, e, mass), mass, tol=tol,
+                   maxiter=maxiter)
+    vals = _cdot(e, res.x).real.reshape((n,) + tuple(lead))
+    return vals.mean(dim=0) / (2 * theta.shape[-2] * theta.shape[-1])
+
+
+def chiral_condensate(generator: torch.Generator, theta: torch.Tensor,
+                      mass: float, *, n_noise: int = 8, tol: float = 1e-8,
+                      maxiter: int = 2000) -> torch.Tensor:
+    """Stochastic <psibar psi> per chain on n_noise Gaussian noise vectors
+    drawn from ``generator`` (each noise's real parts, then its imaginary
+    parts), through ``chiral_condensate_from``."""
+    shape = theta.shape[:-3] + theta.shape[-2:] + (2,)
+    eta = torch.stack([_noise(generator, shape) for _ in range(n_noise)])
+    return chiral_condensate_from(eta.to(theta.device), theta, mass, tol=tol,
+                                  maxiter=maxiter)
+
+
+def pion_correlator(theta: torch.Tensor, mass: float, *, tol: float = 1e-10,
+                    maxiter: int = 2000) -> torch.Tensor:
+    """Zero-momentum pion correlator C(t) = sum_{x1, spins} |S(x; 0)|^2
+    from a point source at the origin, S = D^{-1} e_s = M^{-1} D^dag e_s
+    (both spin columns in one batched ``cg_solve``); time is axis 0.
+    theta (B, 2, L0, L1) -> (B, L0); (2, L0, L1) -> (L0,)."""
+    theta = theta.detach()
+    lead = theta.shape[:-3]
+    L0, L1 = theta.shape[-2:]
+    th = theta.reshape((-1,) + theta.shape[-3:])
+    nb = th.shape[0]
+    src = torch.zeros((2, nb, L0, L1, 2), dtype=torch.complex64,
+                      device=theta.device)
+    src[0, :, 0, 0, 0] = 1.0
+    src[1, :, 0, 0, 1] = 1.0
+    th2 = th.expand((2,) + tuple(th.shape)).reshape((-1,) + th.shape[1:])
+    src = src.reshape((-1, L0, L1, 2))
+    res = cg_solve(th2, dirac_dag(th2, src, mass), mass, tol=tol,
+                   maxiter=maxiter)
+    dens = (res.x.abs() ** 2).reshape((2, nb, L0, L1, 2)).sum(dim=(0, -1))
+    return dens.sum(dim=-1).reshape(tuple(lead) + (L0,))
+
+
+# ---------------------------------------------------------------------------
+# Hasenbusch mass preconditioning (hep-lat/0107019): det(D^dag D) =
+# det(W^dag W) det(R^-1), W = D(m1), m1 = m + dm, R = W M^-1 W^dag, as a
+# heavy term S1 = phi1^dag (W^dag W)^-1 phi1 (pf_action_* at m1) and a
+# ratio term S2 = phi2^dag W M^-1 W^dag phi2 (light solves, an O(dm) force)
+# ---------------------------------------------------------------------------
+
+def _dagger_apply(theta, psi, mass: float, eo: bool):
+    return (dirac_hat_dag if eo else dirac_dag)(theta, psi, mass)
+
+
+def _apply(theta, psi, mass: float, eo: bool):
+    return (dirac_hat if eo else dirac)(theta, psi, mass)
+
+
+def hasenbusch_refresh_from(chi1: torch.Tensor, chi2: torch.Tensor, theta,
+                            m_light: float, m_heavy: float, *,
+                            tol: float = 1e-12, maxiter: int = 1000,
+                            eo: bool = False, layout: str = "auto"):
+    """The heatbath of both Hasenbusch terms on the caller's chi1, chi2
+    (CN(0, 1), (..., L0, L1, 2); eo: masked to the even sites here): phi1
+    = W^dag chi1, phi2 = W (W^dag W)^-1 D^dag chi2 (one heavy solve), so
+    that S1 + S2 at the start is s0 = |chi1|^2 + |chi2|^2 exactly. Returns
+    (phi1, phi2, s0, the heavy solve's CGResult)."""
+    theta = theta.detach()
+    chi1, chi2 = chi1.to(torch.complex64), chi2.to(torch.complex64)
+    with torch.no_grad():
+        if eo:
+            mask = parity_mask(chi1.shape, 0, chi1.device)
+            chi1, chi2 = chi1 * mask, chi2 * mask
+        phi1 = _dagger_apply(theta, chi1, m_heavy, eo)
+        rhs = _dagger_apply(theta, chi2, m_light, eo)
+        res = cg_solve(theta, rhs, m_heavy, tol=tol, maxiter=maxiter, eo=eo,
+                       layout=layout)
+        phi2 = _apply(theta, res.x, m_heavy, eo)
+        s0 = _cdot(chi1, chi1).real + _cdot(chi2, chi2).real
+    return phi1, phi2, s0, res
+
+
+def hasenbusch_refresh(generator: torch.Generator, theta, m_light: float,
+                       m_heavy: float, *, tol: float = 1e-12,
+                       maxiter: int = 1000, eo: bool = False,
+                       layout: str = "auto"):
+    """``hasenbusch_refresh_from`` on chi1 and chi2 drawn from
+    ``generator`` in JAX's order: chi1's real parts, its imaginary parts,
+    then chi2's."""
+    shape = theta.shape[:-3] + theta.shape[-2:] + (2,)
+    chi1 = _noise(generator, shape).to(theta.device)
+    chi2 = _noise(generator, shape).to(theta.device)
+    return hasenbusch_refresh_from(chi1, chi2, theta, m_light, m_heavy,
+                                   tol=tol, maxiter=maxiter, eo=eo,
+                                   layout=layout)
+
+
+def ratio_action_lin(theta, phi2, y_sol, m_light: float, m_heavy: float,
+                     eo: bool = False):
+    """The variational form of the ratio action, 2 Re<Y, b(theta)> - <Y,
+    M(theta) Y> with b = W^dag(theta) phi2 and Y = y_sol held fixed: S2 at
+    the exact solve, and its gradient the exact ratio force (both the W^dag
+    and the M dependence)."""
+    op = apply_mdagm_eo if eo else apply_mdagm
+    y = y_sol.detach()
+    b = _dagger_apply(theta, phi2, m_heavy, eo)
+    return 2.0 * _cdot(y, b).real - _cdot(y, op(theta, y, m_light)).real
+
+
+def ratio_action_exact(theta, phi2, m_light: float, m_heavy: float, *,
+                       tol: float = 1e-12, maxiter: int = 2000, x0=None,
+                       eo: bool = False, layout: str = "auto"):
+    """S2 = (W^dag phi2)^dag M^-1 (W^dag phi2) from a tight light solve.
+    Returns (s2, CGResult)."""
+    with torch.no_grad():
+        b = _dagger_apply(theta.detach(), phi2, m_heavy, eo)
+    res = cg_solve(theta, b, m_light, x0, tol=tol, maxiter=maxiter, eo=eo,
+                   layout=layout)
+    return _cdot(b, res.x).real, res
+
+
+def ratio_force_at(theta, phi2, y_sol, m_light: float, m_heavy: float,
+                   eo: bool = False):
+    """d/dtheta of sum(ratio_action_lin) at fixed Y by torch.autograd, in
+    theta's dtype."""
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(
+            ratio_action_lin(th, phi2, y_sol, m_light, m_heavy, eo).sum(),
+            th)
+    return g

@@ -26,7 +26,8 @@ import torch
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
            "build_all", "library", "bind", "check", "smem_limit",
            "sm_count", "stream_handle",
-           "require_fp32_contiguous", "ptr_array", "int_ptrs", "int_array"]
+           "require_fp32_contiguous", "require_contiguous", "ptr_array",
+           "int_ptrs", "int_array"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -36,8 +37,9 @@ SOURCES = ("force", "coupling_fwd", "coupling_bwd", "leapfrog", "hmc_traj",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# K11_bf16: K11's bf16 instance, the mixed-precision CG's inner solve
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11")
+           "K11", "K11_bf16")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -47,6 +49,7 @@ _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # plan (C, row0, threads, sites), K3's tile, and the stream
 _TRAJ = [_I, _I, _F, _F, _F, _I]
 _BAND = [_I, _IP, _I, _I]
+_K11 = [_P] * 8 + [_I, _I, _I, _F, _F, _I, _F, _I, _I, _IP, _I, _I, _P]
 # argtypes of every C entry, by library (each library also carries
 # ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
@@ -81,12 +84,13 @@ _SIGNATURES = {
                 "k10_mdagm_cl": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,
                                             _I, _P],
                 # (pointers, B, L0, L1, a, b, eo, tol, maxiter, C, row0,
-                # threads, cl, stream) of the whole CG solve
-                "k11_cg_solve": [_P] * 8 + [_I, _I, _I, _F, _F, _I, _F, _I,
-                                            _I, _IP, _I, _I, _P],
-                # a CTA's band (csrc/fermion.cu, OpLayout), K11's (CgLayout)
+                # threads, cl, stream) of the whole CG solve, fp32 and bf16
+                "k11_cg_solve": _K11,
+                "k11_cg_solve_bf16": _K11,
+                # a CTA's band (csrc/fermion.cu, OpLayout), K11's (CgLayout,
+                # by its element's bytes)
                 "fermion_smem_bytes": [_I] * 5,
-                "cg_smem_bytes": [_I] * 6},
+                "cg_smem_bytes": [_I] * 7},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -203,10 +207,16 @@ def stream_handle(t: torch.Tensor) -> int:
 
 def require_fp32_contiguous(what: str, *tensors: torch.Tensor) -> None:
     """The kernels take contiguous fp32 tensors on one CUDA device."""
+    require_contiguous(what, torch.float32, *tensors)
+
+
+def require_contiguous(what: str, dtype: torch.dtype,
+                       *tensors: torch.Tensor) -> None:
+    """Contiguous tensors of ``dtype`` on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: kernels take float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: kernels take {dtype}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():

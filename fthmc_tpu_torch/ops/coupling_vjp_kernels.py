@@ -176,15 +176,17 @@ def bwd_call(a, x: int, gy: int, gl: int, gx: int, res, scratch, mu: int,
 
 
 @torch.no_grad()
-def flow_vjp_kernel(params, spec: FlowSpec, z: torch.Tensor,
-                    cotangent) -> torch.Tensor:
-    """d/dz of S(f(z)) - log|det df/dz| for an action S whose gradient at
-    the flow output y = f(z) is ``cotangent(y)``, through the per-layer
+def flow_vjp_kernel(params, spec: FlowSpec, z: torch.Tensor, cotangent,
+                    logdet_cotangent: float = -1.0) -> torch.Tensor:
+    """d/dz of S(f(z)) + gl log|det df/dz| for an action S whose gradient
+    at the flow output y = f(z) is ``cotangent(y)``, gl the log-det
+    cotangent (-1: S_eff's own log-det term; 0: the pull-back of S alone,
+    the nested FT integrator's fermion force), through the per-layer
     kernels: K7 forward over every layer keeping residuals, the cotangent
-    at y, then K8 back through every layer with gl = -1. On the CPU every
+    at y, then K8 back through every layer with that gl. On the CPU every
     step is its plain twin. z: (B, 2, L, L)."""
     if z.device.type == "cuda":
-        return _flow_vjp_cuda(params, spec, z, cotangent)
+        return _flow_vjp_cuda(params, spec, z, cotangent, logdet_cotangent)
     xs, residuals = [], []
     x = z
     for i, layer in enumerate(params):
@@ -193,7 +195,8 @@ def flow_vjp_kernel(params, spec: FlowSpec, z: torch.Tensor,
         x, _, res = coupling_fwd_res(layer, x, mu, off, spec)
         residuals.append(res)
     gy = cotangent(x)
-    gl = torch.full((z.shape[0],), -1.0, dtype=z.dtype, device=z.device)
+    gl = torch.full((z.shape[0],), logdet_cotangent, dtype=z.dtype,
+                    device=z.device)
     for i in range(len(params) - 1, -1, -1):
         mu, off = layer_mask_params(i)
         gy = coupling_bwd(params[i], xs[i], residuals[i], gy, gl, mu, off,
@@ -201,7 +204,8 @@ def flow_vjp_kernel(params, spec: FlowSpec, z: torch.Tensor,
     return gy
 
 
-def _flow_vjp_cuda(params, spec: FlowSpec, z: torch.Tensor, cotangent):
+def _flow_vjp_cuda(params, spec: FlowSpec, z: torch.Tensor, cotangent,
+                   logdet_cotangent: float):
     """flow_vjp_kernel on the card, its launch path lean: one workspace for
     every layer's output, residuals and logJ (K7's logJ is not needed here)
     and the band scratch, and one for two cotangent fields; each launch
@@ -239,7 +243,7 @@ def _flow_vjp_cuda(params, spec: FlowSpec, z: torch.Tensor, cotangent):
     _build.require_fp32_contiguous("flow_vjp_kernel cotangent", z, gy)
     if gy.shape != z.shape:
         raise ValueError("flow_vjp_kernel: the cotangent must match z")
-    gl = torch.full((B,), -1.0, dtype=z.dtype, device=z.device)
+    gl = torch.full((B,), logdet_cotangent, dtype=z.dtype, device=z.device)
     gx = torch.empty((2, *z.shape), dtype=z.dtype, device=z.device)
     g_in, g_base = gy.data_ptr(), gx.data_ptr()
     for k, i in enumerate(range(n - 1, -1, -1)):

@@ -7,6 +7,9 @@ built on them: the counterpart of ``fthmc_tpu/ops/pallas_fermion.py``.
                                               (_mdagm_call_cl)
   K11 ``cg_solve_fused``  csrc/fermion.cu  <- cg_solve_fused, its
                                               while_loop included
+  K11_bf16 (``cg_solve_mixed``'s inner solve, K11 on bf16 storage)
+                          csrc/fermion.cu  <- _cg_solve_mixed's bf16 inner
+                                              while_loop (fermion.py)
 
 K9 and K10 apply the normal operator D^dag D, or the even-odd Schur
 Dhat^dag Dhat, to packed real planes [Re s0, Im s0, Re s1, Im s1]: K9 on
@@ -18,7 +21,9 @@ shared memory, so the CTAs need nothing of each other. K11 is the whole
 CG solve in one launch, on either layout: a chain is a cluster of row
 bands (``cg_plan``), the operator's passes those of K9, the vectors
 and the loop on the card, and the host reads the iteration counters once
-a solve.
+a solve. ``cg_solve_mixed`` is the mixed-precision CG: an fp32
+refinement loop on the host, each cycle a K9 / K10 residual and one
+K11_bf16 launch.
 
 The twins' math has one source, ``hop_planes`` and ``normal_op_planes``
 (ports of ``_hop_planes`` and ``normal_op_planes``), with a roll callable
@@ -47,7 +52,8 @@ __all__ = ["pack_spinor", "unpack_spinor", "link_planes", "parity_masks",
            "check_sides", "resolve_layout", "fused_mdagm", "CGResult",
            "cg_solve_fused", "cg_solve_fused_plain", "fermion_band_plan",
            "operator_plan", "operator_launch", "CGPlan", "cg_plan",
-           "cg_launch", "K10_TILE"]
+           "cg_launch", "K10_TILE", "MIXED_INNER_TOL", "MIXED_INNER_MAX",
+           "cg_planes_bf16_plain", "cg_solve_mixed"]
 
 MAX_BANDS = 8            # bands a group (csrc/common.cuh)
 HALO_ROWS = 4            # halo rows a side of a band (csrc/fermion.cu)
@@ -183,10 +189,19 @@ def _roll_cl(x, shift, axis):
     return torch.roll(x, shift, dims=axis - 1)   # (L0, L1, B) planes
 
 
+def _masks_for(L0: int, L1: int, trailing: int, p4) -> tuple:
+    """The twins' parity masks: fp32 (so b / 4a is rounded to fp32, as the
+    kernels take it), bf16 for bf16 planes (the mixed CG's inner twin keeps
+    its vectors bf16, as the JAX package's _plane_mdagm does)."""
+    dtype = torch.bfloat16 if p4.dtype == torch.bfloat16 else torch.float32
+    return tuple(m.to(dtype) for m in parity_masks(L0, L1, trailing,
+                                                   p4.device))
+
+
 def mdagm_plain(ur, ui, p4, mass: float, eo: bool) -> torch.Tensor:
     """K9's twin: links (B, 2, L0, L1), planes (B, 4, L0, L1)."""
     _build.PLAIN_CALLS["K9"] += 1
-    even, odd = parity_masks(p4.shape[-2], p4.shape[-1], 0, p4.device)
+    even, odd = _masks_for(p4.shape[-2], p4.shape[-1], 0, p4)
 
     def hop(s):
         return hop_planes(ur[:, 0], ui[:, 0], ur[:, 1], ui[:, 1], *s,
@@ -200,7 +215,7 @@ def mdagm_plain(ur, ui, p4, mass: float, eo: bool) -> torch.Tensor:
 def mdagm_cl_plain(urt, uit, p4t, mass: float, eo: bool) -> torch.Tensor:
     """K10's twin: links (2, L0, L1, B), planes (4, L0, L1, B)."""
     _build.PLAIN_CALLS["K10"] += 1
-    even, odd = parity_masks(p4t.shape[1], p4t.shape[2], 1, p4t.device)
+    even, odd = _masks_for(p4t.shape[1], p4t.shape[2], 1, p4t)
 
     def hop(s):
         return hop_planes(urt[0], uit[0], urt[1], uit[1], *s, roll=_roll_cl)
@@ -539,9 +554,10 @@ class CGPlan(NamedTuple):
 
 @lru_cache(maxsize=None)
 def _cg_bytes(L0: int, L1: int, C: int, rows: int, eo: bool,
-              in_smem: bool) -> int:
+              in_smem: bool, bf16: bool = False) -> int:
     return _build.library("fermion").cg_smem_bytes(L0, L1, C, rows, int(eo),
-                                                   int(in_smem))
+                                                   int(in_smem),
+                                                   2 if bf16 else 4)
 
 
 def _even_bands(L: int, C: int) -> tuple:
@@ -549,7 +565,7 @@ def _even_bands(L: int, C: int) -> tuple:
 
 
 def cg_plan(eo: bool, B: int, L0: int, L1: int, device,
-            plan=None) -> CGPlan:
+            plan=None, bf16: bool = False) -> CGPlan:
     """K11's plan for B chains of L0 x L1 sites, in either layout: C bands
     of rows a chain, a CTA each, and a device scratch for the bands where
     they do not fit in shared memory, as the kernel's own count
@@ -558,7 +574,8 @@ def cg_plan(eo: bool, B: int, L0: int, L1: int, device,
     halo copy; on an H100 C = 1 and 2 tied at path A, 4 and 8 were 1.6x
     slower), else 8 bands in scratch (fewer where bands would have under 4
     rows). ``threads``: the power of two covering a band's sites of one
-    parity, 32 to 1024. ``plan`` (C, row0) other than the default is for
+    parity, 32 to 1024. ``bf16``: the bf16 instance, whose region takes
+    half the bytes. ``plan`` (C, row0) other than the default is for
     timing and tests. Raises for what the kernel does not take."""
     check_sides(L0, L1)
     limit = _build.smem_limit(_device_index_of(torch.device(device)))
@@ -569,7 +586,7 @@ def cg_plan(eo: bool, B: int, L0: int, L1: int, device,
         n = -1
         if len(row0) == C + 1 and row0[0] == 0 and row0[-1] == L0 \
                 and min(rows) >= 1:
-            n = _cg_bytes(L0, L1, C, max(rows), eo, True)
+            n = _cg_bytes(L0, L1, C, max(rows), eo, True, bf16)
         if n < 0:
             raise ValueError(f"K11 takes no band plan {(C, row0)} at "
                              f"L0={L0}, L1={L1}")
@@ -589,7 +606,8 @@ def cg_plan(eo: bool, B: int, L0: int, L1: int, device,
     threads = 32
     while threads < min(R * (L1 // 2), CG_MAX_THREADS):
         threads *= 2
-    band = 0 if n <= limit else (n - _cg_bytes(L0, L1, C, R, eo, False)) // 4
+    band = 0 if n <= limit else (n - _cg_bytes(L0, L1, C, R, eo, False,
+                                                bf16)) // 4
     return CGPlan(C, row0, threads, B * C * band)
 
 
@@ -600,11 +618,14 @@ def cg_launch(cl: bool, ur, ui, b4, x4, mass: float, eo: bool, tol: float,
     zero) into x, rel (B,) and counters (int32 (3,), zero before: see
     csrc/fermion.cu, k11_cg_solve), after refusing what the kernel does not
     take; allocates the scratch ``cg_plan`` asks for when not given.
-    ``plan``: see ``cg_plan``."""
-    what = "K11 cg_solve"
+    fp32 planes launch K11, bf16 planes (links, b4, x4 and x) its bf16
+    instance K11_bf16 (rel stays fp32). ``plan``: see ``cg_plan``."""
+    bf16 = b4.dtype == torch.bfloat16
+    what = "K11_bf16 cg_solve" if bf16 else "K11 cg_solve"
     B, L0, L1 = _check_planes(what, ur, ui, b4, cl)
     planes = (ur, ui, b4, x) + (() if x4 is None else (x4,))
-    _build.require_fp32_contiguous(what, *planes, rel)
+    _build.require_contiguous(what, b4.dtype, *planes)
+    _build.require_fp32_contiguous(what, rel)
     for t in (x,) + (() if x4 is None else (x4,)):
         if t.shape != b4.shape:
             raise ValueError(f"{what}: x and x0 must have b's shape")
@@ -612,7 +633,7 @@ def cg_launch(cl: bool, ur, ui, b4, x4, mass: float, eo: bool, tol: float,
             or counters.dtype != torch.int32 or counters.device != b4.device:
         raise ValueError(f"{what}: rel must be (B,), counters int32 (3,) "
                          f"on the planes' device")
-    pl = cg_plan(eo, B, L0, L1, b4.device, plan)
+    pl = cg_plan(eo, B, L0, L1, b4.device, plan, bf16)
     if pl.scratch and (scratch is None or scratch.numel() < pl.scratch):
         scratch = torch.empty(pl.scratch, dtype=torch.float32,
                               device=b4.device)
@@ -623,21 +644,26 @@ def cg_launch(cl: bool, ur, ui, b4, x4, mass: float, eo: bool, tol: float,
             scratch.data_ptr() if pl.scratch else None, B, L0, L1,
             *_ab(mass), int(eo), float(tol), int(maxiter), pl.C,
             _build.int_array(pl.row0), pl.threads, int(cl))
-    return _Launch("K11", lib.k11_cg_solve, lib, args,
-                   _build.stream_handle(b4),
+    return _Launch("K11_bf16" if bf16 else "K11",
+                   lib.k11_cg_solve_bf16 if bf16 else lib.k11_cg_solve, lib,
+                   args, _build.stream_handle(b4),
                    (ur, ui, b4, x4, x, rel, counters, scratch))
 
 
 class CGResult(NamedTuple):
     """A CG solve: the solution (b's shape), the iterations in which any
-    chain was active (a Python int, JAX's ``k``), each chain's final
-    |r|^2 / |b|^2, and the iterations run (``iters``: the fused CG, on the
-    card and off, and the torch one stop at the first iteration after which
-    no chain is active)."""
+    chain was active (a Python int, JAX's ``k``; the mixed CG's, operator
+    applications, as JAX counts them), each chain's final |r|^2 / |b|^2,
+    the iterations run (``iters``: the fused CG, on the card and off, and
+    the torch one stop at the first iteration after which no chain is
+    active), and the solve's reads of the device's state to the host (the
+    fused CG one, the mixed one its refinement cycles and one, the torch
+    one an iteration and one)."""
     x: torch.Tensor
     iters: int
     rsq: torch.Tensor
     launched: int
+    reads: int = 1
 
 
 _ODD_SITES = ("an eo solve takes b and x0 that vanish on the odd sites (the "
@@ -712,3 +738,142 @@ def cg_solve_fused_plain(theta: torch.Tensor, b: torch.Tensor, mass: float,
     x, iters, rsq, bsq = cg_planes_plain(op.ur, op.ui, b4, x4, mass, tol,
                                          maxiter, eo, op.chains_last)
     return _result(op, x, iters, rsq / torch.clamp_min(bsq, 1e-30), squeeze)
+
+
+# ---------------------------------------------------------------------------
+# the mixed-precision CG: fp32 refinement around K11's bf16 instance
+# ---------------------------------------------------------------------------
+
+# bf16 stagnates near relative residual ~1e-2..1e-3; each refinement cycle
+# targets an rsq reduction of 1e-4 within <= 48 sweeps (the JAX package's
+# _MIXED_INNER_TOL, _MIXED_INNER_MAX)
+MIXED_INNER_TOL = 1e-4
+MIXED_INNER_MAX = 48
+
+
+def _dot32(u, v, dims):
+    """Per-chain sum of u v over ``dims``, accumulated in fp32 whatever the
+    planes' dtype (the JAX mixed CG's ``dot``)."""
+    return (u * v).sum(dim=dims, dtype=torch.float32)
+
+
+def cg_planes_bf16_plain(ur16, ui16, r16, mass: float, tol: float,
+                         maxiter: int, eo: bool, chains_last: bool):
+    """K11_bf16's twin: the JAX mixed CG's inner loop (``inner`` in
+    ``_cg_solve_mixed``) for A d = r16 from d = 0 on bf16 links and planes
+    of one layout: bf16 vectors and operator (the K9 / K10 twins in bf16),
+    alpha and beta rounded to bf16, fp32 dots; while any chain has irsq >
+    tol irsq_0 and at most maxiter sweeps. Returns (d bf16, sweeps)."""
+    op = mdagm_cl_plain if chains_last else mdagm_plain
+    dims, bc = _chain_dims(chains_last)
+    d = torch.zeros_like(r16)
+    rr, p = r16.clone(), r16.clone()
+    irsq = _dot32(rr, rr, dims)
+    istop = tol * irsq
+    k = 0
+    while k < maxiter and bool((irsq > istop).any()):
+        _build.PLAIN_CALLS["K11_bf16"] += 1
+        active = irsq > istop
+        mp = op(ur16, ui16, p, mass, eo)
+        denom = _dot32(p, mp, dims)
+        alpha = torch.where(active, irsq / torch.clamp_min(denom, 1e-30), 0.0)
+        al = bc(alpha).to(torch.bfloat16)
+        d = d + al * p
+        rr = rr - al * mp
+        irsq_new = _dot32(rr, rr, dims)
+        beta = torch.where(active, irsq_new / torch.clamp_min(irsq, 1e-30),
+                           0.0)
+        p = rr + bc(beta).to(torch.bfloat16) * p
+        irsq = torch.where(active, irsq_new, irsq)
+        k += 1
+    return d, k
+
+
+class _InnerBF16:
+    """The inner solve of one mixed solve, A d = r from d = 0 on bf16: on
+    the card one bound K11_bf16 launch (r copied into its bf16 b, the
+    sweeps to a device counter, no host read), on the CPU its twin. A call
+    returns (d bf16, sweeps as a 0-d int64 tensor, odd-site flag)."""
+
+    def __init__(self, cl: bool, ur, ui, like, mass: float, eo: bool):
+        self.cl, self.mass, self.eo = cl, mass, eo
+        self.ur16, self.ui16 = ur.to(torch.bfloat16), ui.to(torch.bfloat16)
+        self.launch = None
+        if like.device.type == "cuda":
+            B = like.shape[-1] if cl else like.shape[0]
+            self.r16 = torch.empty_like(like, dtype=torch.bfloat16)
+            self.d16 = torch.empty_like(self.r16)
+            rel = torch.empty(B, dtype=torch.float32, device=like.device)
+            self.counters = torch.zeros(3, dtype=torch.int32,
+                                        device=like.device)
+            self.launch = cg_launch(cl, self.ur16, self.ui16, self.r16, None,
+                                    mass, eo, MIXED_INNER_TOL,
+                                    MIXED_INNER_MAX, self.d16, rel,
+                                    self.counters)
+
+    def __call__(self, r):
+        if self.launch is None:
+            d, k = cg_planes_bf16_plain(self.ur16, self.ui16,
+                                        r.to(torch.bfloat16), self.mass,
+                                        MIXED_INNER_TOL, MIXED_INNER_MAX,
+                                        self.eo, self.cl)
+            return d, torch.tensor(k), torch.tensor(0)
+        self.r16.copy_(r)
+        self.counters.zero_()
+        self.launch()
+        return (self.d16, self.counters[0].to(torch.int64),
+                self.counters[2].to(torch.int64))
+
+
+@torch.no_grad()
+def cg_solve_mixed(theta: torch.Tensor, b: torch.Tensor, mass: float,
+                   x0: torch.Tensor | None = None, *, tol: float = 1e-8,
+                   maxiter: int = 1000, eo: bool = True,
+                   layout: str = "auto") -> CGResult:
+    """The mixed-precision CG, the counterpart of ``_cg_solve_mixed``: an
+    fp32 refinement loop (defect correction) around a bf16 inner solve.
+    Each cycle takes the fp32 true residual r = b - A x (K9 'cf' / K10
+    'cl'), solves A d = r on bf16 storage to an rsq reduction of
+    MIXED_INNER_TOL in at most MIXED_INNER_MAX sweeps (K11_bf16), and adds
+    d to x on the chains still above tol (converged chains freeze). On the
+    CPU the twins run. The loop reads the device once a cycle (whether a
+    chain is still above tol, the iterations so far, K11's odd-site flag)
+    and once before the first; ``iters`` counts operator applications as
+    JAX does, sweeps + 1 a cycle. Complex in and out, either rank; eo's b
+    and x0 must vanish on the odd sites, as for ``cg_solve_fused``."""
+    op, b4, x4, squeeze = _packed(theta, b, x0, layout)
+    cl = op.chains_last
+    if eo and _on_cpu(b4):
+        _, odd = parity_masks(theta.shape[-2], theta.shape[-1], int(cl),
+                              b4.device)
+        if any(bool((t * odd).ne(0).any()) for t in (b4, x4)
+               if t is not None):
+            raise ValueError(_ODD_SITES)
+    apply = mdagm_cl if cl else mdagm
+    inner = _InnerBF16(cl, op.ur, op.ui, b4, mass, eo)
+    dims, bc = _chain_dims(cl)
+    bsq = (b4 * b4).sum(dim=dims)
+    stop = tol * bsq
+    x = torch.zeros_like(b4) if x4 is None else x4.clone()
+    r = b4 - apply(op.ur, op.ui, x, mass, eo)
+    rsq = (r * r).sum(dim=dims)
+    k = torch.zeros((), dtype=torch.int64, device=b4.device)
+    odd = torch.zeros_like(k)
+    reads = 0
+    while True:
+        go, iters, bad = torch.stack(((rsq > stop).any().to(k.dtype), k,
+                                      odd)).tolist()
+        reads += 1
+        if bad:
+            raise ValueError(_ODD_SITES)
+        if not go or iters >= maxiter:
+            break
+        active = rsq > stop
+        d, ki, flag = inner(r)
+        x = x + bc(active.to(x.dtype)) * d.to(x.dtype)
+        r = b4 - apply(op.ur, op.ui, x, mass, eo)
+        rsq = torch.where(active, (r * r).sum(dim=dims), rsq)
+        k = k + ki.to(k.device) + 1
+        odd = odd | flag.to(k.device)
+    res = _result(op, x, iters, rsq / torch.clamp_min(bsq, 1e-30), squeeze)
+    return res._replace(reads=reads)

@@ -18,6 +18,14 @@ Training runs the autograd flow (``models/flow.flow_forward``; K7/K8 have
 no parameter gradient) with cuDNN's convolutions, every forward and backward
 inside ``full_fp32()``: cuDNN reads ``allow_tf32`` when the backward runs,
 so a backward outside it would compute the weight gradients in TF32.
+
+Fermion-aware smoothness (``ferm_mass > 0`` with ``force_weight > 0``):
+the regularised force is that of the dynamical effective action S_g(f(z))
+- log det J_f - ln det(D^dag D)(f(z)) (``ft_force_dyn``), the determinant
+exact through ``fermion.logdet_mdagm`` (dense, the training volume). On
+the card such an era follows ``FERM_ERA_GRAPHED``: whether the step with
+slogdet's LU and its double backward can be captured in a CUDA graph, as
+the card test ``test_ferm_mass_era_capture_rule`` finds it.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from fthmc_tpu_torch import lattice
+from fthmc_tpu_torch import fermion, lattice
 from fthmc_tpu_torch.config import FlowSpec, SchedulerConfig, TrainConfig
 from fthmc_tpu_torch.device import resolve_device
 from fthmc_tpu_torch.hmc import ft_action, resolve_remat
@@ -43,12 +51,14 @@ __all__ = ["TrainState", "AdamState", "Adam", "make_optimizer",
            "train_step_at", "distill_latents", "force_matching_step",
            "force_matching_step_at", "plateau_scheduler_update",
            "anneal_betas", "train_era", "train", "param_leaves",
-           "params_from_leaves"]
+           "params_from_leaves", "ft_force_dyn", "FERM_ERA_GRAPHED"]
 
-_FERM_TODO = ("ferm_mass > 0 (the fermion-aware force, fthmc_tpu/train.py "
-              "ft_force_dyn) needs the dense fermion.logdet_mdagm, not "
-              "ported yet (ROADMAP.md, queue 1 item 7: 'Dynamical fermions, "
-              "the rest')")
+# Whether an era with ferm_mass > 0 runs on the card as one captured step
+# replayed (``_graph_era``) or as eager steps (``_eager_era``): fixed, not
+# tried and caught. The card test test_ferm_mass_era_capture_rule captures
+# such a step in a process of its own and holds this value to what it
+# finds: on an H100 slogdet's LU refuses capture (PERF.md).
+FERM_ERA_GRAPHED = False
 _MESH_TODO = ("mesh= (data-parallel eras) is not ported yet (ROADMAP.md, "
               "queue 1 item 12: 'Parallel')")
 
@@ -193,13 +203,36 @@ def sample_and_logq(params, spec: FlowSpec, generator: torch.Generator,
     return x, z, prior.log_prob(z) - logdet
 
 
-def _force_graph(params, spec, z, beta, remat):
+def _dyn_action(params, spec, z, beta, mass, remat):
+    """S_eff of dynamical FT-HMC per chain: S_g(f(z)) - log det J_f - ln
+    det(D^dag D)(f(z)), the determinant exact (dense)."""
+    y, logdet = flow_forward(params, z, spec, remat=remat)
+    return (lattice.batch_action(y, beta) - logdet
+            - fermion.logdet_mdagm(y, mass))
+
+
+def _force_graph(params, spec, z, beta, remat, ferm_mass: float = 0.0):
     """F_eff = dS_eff/dz through the flow, kept differentiable in the
-    parameters (a double backward, as jax.grad of the force)."""
+    parameters (a double backward, as jax.grad of the force); with
+    ferm_mass > 0 that of the dynamical S_eff (``_dyn_action``)."""
     zz = z.detach().requires_grad_(True)
-    (f,) = torch.autograd.grad(
-        ft_action(params, spec, zz, beta, remat=remat).sum(), zz,
-        create_graph=True)
+    s = (_dyn_action(params, spec, zz, beta, ferm_mass, remat) if ferm_mass
+         else ft_action(params, spec, zz, beta, remat=remat))
+    (f,) = torch.autograd.grad(s.sum(), zz, create_graph=True)
+    return f
+
+
+def ft_force_dyn(params, spec: FlowSpec, z: torch.Tensor, beta, mass: float,
+                 remat="auto") -> torch.Tensor:
+    """dS_eff/dz of the dynamical effective action S_g(f(z)) - log det J_f
+    - ln det(D^dag D)(f(z)) (``fermion.logdet_mdagm``, dense: the training
+    volume only), by autograd in full fp32; the counterpart of
+    ``fthmc_tpu.train.ft_force_dyn``."""
+    remat = resolve_remat(remat, z.shape)
+    with torch.enable_grad(), full_fp32():
+        zz = z.detach().requires_grad_(True)
+        (f,) = torch.autograd.grad(
+            _dyn_action(params, spec, zz, beta, mass, remat).sum(), zz)
     return f
 
 
@@ -209,10 +242,10 @@ def reverse_kl_loss(params, spec: FlowSpec, z: torch.Tensor, beta,
     """loss = dkl_factor * E_q[logq - logp], logp = -S(x), at the latent
     batch z (the JAX package draws z inside from its key). With
     force_weight > 0 the loss adds force_weight * mean(F_eff^2) over the
-    same batch. Returns (loss, aux) with aux {logp, logq, x, z, dkl[,
-    force_sq]}."""
-    if ferm_mass:
-        raise NotImplementedError(_FERM_TODO)
+    same batch, F_eff that of the dynamical effective action with
+    ferm_mass > 0 (the exact log-determinant; as in the JAX package,
+    ferm_mass acts only through force_weight). Returns (loss, aux) with aux
+    {logp, logq, x, z, dkl[, force_sq]}."""
     remat = resolve_remat(remat, z.shape)
     x, logdet = flow_forward(params, z, spec, remat=remat)
     logq = uniform_link_prior(z.shape[-1], z.dtype,
@@ -222,7 +255,7 @@ def reverse_kl_loss(params, spec: FlowSpec, z: torch.Tensor, beta,
     aux = {"logp": logp, "logq": logq, "x": x, "z": z, "dkl": dkl}
     loss = dkl_factor * dkl
     if force_weight:
-        f = _force_graph(params, spec, z, beta, remat)
+        f = _force_graph(params, spec, z, beta, remat, ferm_mass)
         fsq = torch.mean(f * f)
         aux["force_sq"] = fsq
         loss = loss + force_weight * fsq
@@ -305,8 +338,6 @@ def train_step(state: TrainState, spec: FlowSpec, batch: int, L: int, beta,
     """One reverse-KL step on ``batch`` prior draws from the state's
     generator (``train_step_at``). ``beta`` may be a float or a 0-d tensor
     (beta-annealed training)."""
-    if ferm_mass:
-        raise NotImplementedError(_FERM_TODO)
     z = _prior_of(state.params, L).sample_n(state.generator, batch)
     return train_step_at(state, spec, z, beta, dkl_factor, base_lr,
                          grad_clip, force_weight, ferm_mass)
@@ -404,11 +435,13 @@ def anneal_betas(cfg: TrainConfig, era: int, device=None):
 
 
 def _era_step(state: TrainState, spec, zs, beta_e, dkl_factor, base_lr,
-              sched, with_force, force_lr_factor, grad_clip, force_weight):
+              sched, with_force, force_lr_factor, grad_clip, force_weight,
+              ferm_mass: float = 0.0):
     """One epoch of an era at the latents zs (the KL batch, and the force
     batch with ``with_force``): (new state, its scalar metrics)."""
     state, metrics = train_step_at(state, spec, zs[0], beta_e, dkl_factor,
-                                   base_lr, grad_clip, force_weight)
+                                   base_lr, grad_clip, force_weight,
+                                   ferm_mass)
     if with_force:
         state, fmetrics = force_matching_step_at(
             state, spec, zs[1], beta_e, base_lr, force_lr_factor, grad_clip)
@@ -516,11 +549,10 @@ def train_era(state: TrainState, spec: FlowSpec, batch: int, L: int,
     step with ``with_force``, then the plateau rule with ``sched``), with
     no host read until the era's scalar metrics come back in one read. On
     the card the step is captured once in a CUDA graph and replayed
-    (``_graph_era``); on the CPU the steps run eagerly. ``betas``:
+    (``_graph_era``; with ferm_mass > 0 as ``FERM_ERA_GRAPHED`` says); on
+    the CPU the steps run eagerly. ``betas``:
     per-epoch betas (an (n_epoch,) tensor on the device) that override
     ``beta``. Returns (state, {metric: numpy (n_epoch,)})."""
-    if ferm_mass:
-        raise NotImplementedError(_FERM_TODO)
     dev = state.lr_scale.device
     if betas is None:
         betas = torch.full((n_epoch,), beta, dtype=torch.float32, device=dev)
@@ -529,9 +561,10 @@ def train_era(state: TrainState, spec: FlowSpec, batch: int, L: int,
     def step(st, zs, beta_e):
         return _era_step(st, spec, zs, beta_e, dkl_factor, base_lr, sched,
                          with_force, force_lr_factor, grad_clip,
-                         force_weight)
+                         force_weight, ferm_mass)
 
-    if dev.type == "cuda":
+    graphed = FERM_ERA_GRAPHED or not (ferm_mass and force_weight)
+    if dev.type == "cuda" and graphed:
         state, dtypes, hist = _graph_era(step, state, draw, betas)
     else:
         state, dtypes, hist = _eager_era(step, state, draw, betas)
@@ -552,8 +585,6 @@ def train(cfg: TrainConfig, state: TrainState | None = None,
     of per-epoch values, and 'dt'})."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    if cfg.ferm_mass:
-        raise NotImplementedError(_FERM_TODO)
     if state is None:
         state = init_train_state(None, cfg, device=device)
     dev = state.lr_scale.device
@@ -565,7 +596,8 @@ def train(cfg: TrainConfig, state: TrainState | None = None,
             cfg.dkl_factor, cfg.base_lr, cfg.n_epoch, sched=scheduler,
             with_force=cfg.with_force, force_lr_factor=cfg.force_lr_factor,
             betas=anneal_betas(cfg, era, device=dev),
-            grad_clip=cfg.grad_clip, force_weight=cfg.force_weight)
+            grad_clip=cfg.grad_clip, force_weight=cfg.force_weight,
+            ferm_mass=cfg.ferm_mass)
         dt = time.time() - t0
         step0 = int(state.step) - cfg.n_epoch if callback is not None else 0
         for e in range(cfg.n_epoch):

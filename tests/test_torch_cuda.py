@@ -96,7 +96,7 @@ def test_kernels_match_plain_twins(card, spec, B, L):
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                         "K6": 8, "K7": 8, "K8": 8, "K9": 0, "K10": 0,
-                        "K11": 0}
+                        "K11": 0, "K11_bf16": 0}
 
 
 def test_shared_memory_envelope(card):
@@ -431,7 +431,7 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 0, "K2": n + 2, "K3": len(plans3) + 2,
                         "K4": n + 2, "K5": n + 2, "K6": 0, "K7": 0, "K8": 0,
-                        "K9": 0, "K10": 0, "K11": 0}
+                        "K9": 0, "K10": 0, "K11": 0, "K11_bf16": 0}
 
 
 # K3 at ragged chain counts (a tile's last chains past B) and at the
@@ -1043,3 +1043,246 @@ def test_train_era_reads_the_host_once(card):
     syncs = [w for w in seen if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
     assert host["beta"].shape == (5,) and int(state.step) == 10
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dynamical sector: K11 on bf16, the mixed CG, the nested
+# and Hasenbusch samplers, fermion-aware training
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(card, B, L, eo, layout, seed):
+    """(bf16 link planes, bf16 planes of a heatbath right-hand side) in
+    ``layout``."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    theta, phi = _solve_inputs(card, B, L, eo, seed)
+    op = fk._PackedOperator(theta, layout)
+    return op.ur.bfloat16(), op.ui.bfloat16(), op.pack(phi).bfloat16()
+
+
+@pytest.mark.parametrize("B,L,layout", [(64, 64, "cf"), (128, 16, "cl"),
+                                        (5, 16, "cf"), (5, 8, "cl"),
+                                        (3, 128, "cf"), (3, 128, "cl")])
+@pytest.mark.parametrize("eo", [True, False])
+def test_k11_bf16_matches_its_twin(card, B, L, layout, eo):
+    """K11_bf16 (one launch, d = 0 start, the mixed CG's inner tol and
+    sweep cap) against cg_planes_bf16_plain on the same bf16 r: the sweeps
+    within 2, d within 5e-2 relative in norm (bf16 rounds in other places:
+    the kernel keeps alpha, beta and the hops in fp32); one K11_bf16 launch
+    and no other; two launches bit-equal."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    ur, ui, r16 = _bf16_inputs(card, B, L, eo, layout, 21)
+    cl = layout == "cl"
+    d_ref, k_ref = fk.cg_planes_bf16_plain(ur, ui, r16, CG_MASS,
+                                           fk.MIXED_INNER_TOL,
+                                           fk.MIXED_INNER_MAX, eo, cl)
+    outs = []
+    _build.reset_counts()
+    for _ in range(2):
+        d = torch.empty_like(r16)
+        rel = torch.empty(B, device=card)
+        counters = torch.zeros(3, dtype=torch.int32, device=card)
+        fk.cg_launch(cl, ur, ui, r16, None, CG_MASS, eo, fk.MIXED_INNER_TOL,
+                     fk.MIXED_INNER_MAX, d, rel, counters)()
+        outs.append((d, counters.tolist()))
+    assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {
+        "K11_bf16": 2}
+    (d, (k, _, odd)), (d2, _) = outs
+    assert not odd and torch.equal(d, d2)
+    err = float((d.float() - d_ref.float()).norm() / d_ref.float().norm())
+    assert abs(k - k_ref) <= 2 and err < 5e-2, (k, k_ref, err)
+
+
+def test_k11_bf16_smem_bytes_are_half_the_region(card):
+    """cg_smem_bytes of the bf16 instance: the region's elements at 2 bytes
+    (rounded up to a float), the reduction area unchanged."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    for L0, L1, C, rows in ((64, 64, 1, 64), (16, 16, 4, 4), (20, 12, 8, 3),
+                            (128, 128, 4, 32)):
+        for eo in (True, False):
+            red = fk._cg_bytes(L0, L1, C, rows, eo, False)
+            f32 = fk._cg_bytes(L0, L1, C, rows, eo, True) - red
+            b16 = fk._cg_bytes(L0, L1, C, rows, eo, True, True) - red
+            assert fk._cg_bytes(L0, L1, C, rows, eo, False, True) == red
+            assert b16 == 4 * (-(-(f32 // 2) // 4))
+
+
+@pytest.mark.parametrize("B,L,layout", [(64, 64, "cf"), (128, 16, "cl"),
+                                        (4, 128, "cf")])
+@pytest.mark.parametrize("eo", [True, False])
+def test_mixed_solve_reaches_tol_in_fp32(card, B, L, layout, eo):
+    """cg_solve_mixed on the card: each chain's fp32 true residual,
+    recomputed by K9 / K10, within tol of |b|^2; the solution within
+    10 sqrt(tol) of the fused fp32 CG's; the launches K9 / K10 (the
+    residuals) reads times and K11_bf16 (the inner solves) reads - 1
+    times, nothing else."""
+    from fthmc_tpu_torch.ops import fermion_kernels as fk
+    theta, phi = _solve_inputs(card, B, L, eo, 22)
+    tol = 1e-9
+    _build.reset_counts()
+    res = fk.cg_solve_mixed(theta, phi, CG_MASS, tol=tol, maxiter=2000,
+                            eo=eo, layout=layout)
+    torch.cuda.synchronize()
+    op_name = "K10" if layout == "cl" else "K9"
+    assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {
+        op_name: res.reads, "K11_bf16": res.reads - 1}
+    assert not any(_build.PLAIN_CALLS.values())
+    op = fk._PackedOperator(theta, layout)
+    b4, x4 = op.pack(phi), op.pack(res.x)
+    apply = fk.mdagm_cl if layout == "cl" else fk.mdagm
+    r = b4 - apply(op.ur, op.ui, x4, CG_MASS, eo)
+    dims = (0, 1, 2) if layout == "cl" else (1, 2, 3)
+    rel = (r * r).sum(dim=dims) / (b4 * b4).sum(dim=dims)
+    assert float(rel.max()) <= tol, float(rel.max())
+    ref = fk.cg_solve_fused(theta, phi, CG_MASS, tol=tol, maxiter=2000,
+                            eo=eo, layout=layout)
+    err = float((res.x - ref.x).abs().norm() / ref.x.abs().norm())
+    assert err < 10 * math.sqrt(tol)
+
+
+def test_flow_vjp_kernel_logdet_cotangent_on_the_card(card):
+    """flow_vjp_kernel with gl = 0 (the nested FT fermion force's) and -1
+    against autograd through the flow: 2e-3 x max|ref|, the kernel force
+    chain's tolerance."""
+    from fthmc_tpu_torch import lattice as tl
+    from fthmc_tpu_torch.models.flow import flow_forward
+    from fthmc_tpu_torch.ops.coupling_vjp_kernels import flow_vjp_kernel
+    spec = SPECS[1]
+    params = init_flow_params(spec, torch.Generator().manual_seed(6),
+                              device=card)
+    g = torch.Generator(device=card).manual_seed(7)
+    z = (torch.rand((16, 2, 16, 16), generator=g, device=card) * 2 - 1) \
+        * math.pi
+    with full_fp32():
+        for gl in (0.0, -1.0):
+            got = flow_vjp_kernel(params, spec, z,
+                                  lambda y: tl.batch_force(y, 2.0),
+                                  logdet_cotangent=gl)
+            zz = z.clone().requires_grad_(True)
+            y, logj = flow_forward(params, zz, spec)
+            (want,) = torch.autograd.grad(
+                (tl.batch_action(y, 2.0) + gl * logj).sum(), zz)
+            assert float((got - want).abs().max()) <= 2e-3 * float(
+                want.abs().max())
+
+
+def _trajectory_counts(cfg, log):
+    """The launches one trajectory of cfg must make, from
+    force_evaluations and the solves the CGLog saw."""
+    from fthmc_tpu_torch import schwinger as ts
+    n = ts.force_evaluations(cfg)
+    want = dict.fromkeys(_build.KERNELS, 0)
+    want["K1"] = n.get("gauge", 0) + n.get("dyn", 0)
+    solves = [e for s in log.solves.values() for e in s]
+    if ts.fermion._CG_BACKEND == "mixed":
+        op = "K10" if cfg.cg_layout == "cl" else "K9"
+        want[op] = sum(e[2] for e in solves)
+        want["K11_bf16"] = sum(e[2] - 1 for e in solves)
+    else:
+        want["K11"] = len(solves)
+    return want
+
+
+@pytest.mark.parametrize("kind", ["nested", "hasenbusch", "mixed"])
+def test_dynamical_trajectory_launch_counts(card, kind):
+    """One nested, one Hasenbusch and one mixed-CG trajectory on the card:
+    the launches are exactly the trajectory's own count (K1 a gauge force,
+    K11 a solve; the mixed CG K9 a cycle and one, K11_bf16 a cycle), no
+    plain twin, finite results."""
+    from fthmc_tpu_torch import fermion as tf
+    from fthmc_tpu_torch import schwinger as ts
+    base = dict(L=16, beta=3.0, mass=0.2, tau=0.4, n_chains=4, ntraj=1,
+                cg_tol_force=1e-9, cg_tol_mh=1e-12, cg_maxiter=1000)
+    cfg = {"nested": ts.SchwingerConfig(nstep=3, n_inner=3, **base),
+           "hasenbusch": ts.SchwingerConfig(nstep=2, n_mid=2, n_inner=2,
+                                            hasenbusch_dm=0.3, **base),
+           "mixed": ts.SchwingerConfig(nstep=4, **base)}[kind]
+    if kind == "mixed":
+        tf.set_cg_backend("mixed")
+    try:
+        x0 = 0.3 * torch.randn((4, 2, 16, 16),
+                               generator=torch.Generator(card).manual_seed(8),
+                               device=card)
+        log = tf.CGLog()
+        _build.reset_counts()
+        x, hist = ts.run_hmc_dyn(cfg, x0=x0, generator=torch.Generator(
+            card).manual_seed(9), device=card, cg_log=log)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == _trajectory_counts(cfg, log)
+    finally:
+        tf.set_cg_backend("auto")
+    assert not any(_build.PLAIN_CALLS.values())
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(
+        hist.dh).all())
+
+
+_CAPTURE_PROBE = """
+import torch
+from fthmc_tpu_torch import train as tt
+from fthmc_tpu_torch.config import FlowSpec
+spec = FlowSpec(n_layers=2, coupling="ncp", n_mixture=2, hidden_sizes=(4,))
+from fthmc_tpu_torch.config import TrainConfig
+cfg = TrainConfig(L=8, beta=2.0, batch_size=4, flow=spec)
+state = tt.init_train_state(None, cfg, device="cuda")
+
+def step(st, zs, beta_e):
+    return tt._era_step(st, spec, zs, beta_e, 1.0, 1e-3, None, False, 0.01,
+                        None, 0.5, 0.1)
+
+tt._graph_era(step, state, tt._Draws(state, 8, 4, 1),
+              torch.full((2,), 2.0, device="cuda"))
+torch.cuda.synchronize()
+"""
+
+
+def test_ferm_mass_era_capture_rule(card):
+    """Whether a ferm_mass > 0 step (slogdet's LU and its double backward)
+    can be captured in a CUDA graph, found in a process of its own (a
+    failed capture can leave the context unusable; nothing is caught):
+    train.FERM_ERA_GRAPHED must say what the card does."""
+    import os
+    import subprocess
+    import sys
+    from fthmc_tpu_torch import train as tt
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _CAPTURE_PROBE], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    captured = run.returncode == 0
+    print("ferm_mass capture:", captured, run.stderr[-2000:])
+    assert captured == tt.FERM_ERA_GRAPHED, run.stderr[-2000:]
+
+
+def test_ferm_mass_era_on_the_card_is_the_cpus(card):
+    """A ferm_mass = 0.1, force_weight = 0.5 era of 3 steps through
+    train_era on the card (graphed or eager, as FERM_ERA_GRAPHED says)
+    against the CPU's eager era on the same latents and parameters: every
+    state tensor within 1e-4 relative in norm, the metrics within 1e-4."""
+    from fthmc_tpu_torch import train as tt
+    from fthmc_tpu_torch.config import TrainConfig
+    spec = FlowSpec(n_layers=2, coupling="ncp", n_mixture=2,
+                    hidden_sizes=(4,))
+    cfg = TrainConfig(L=8, beta=2.0, batch_size=8, flow=spec)
+    state = tt.init_train_state(None, cfg, device=card)
+    gen_state = state.generator.get_state()
+    got, hg = tt.train_era(state, spec, 8, 8, 2.0, 1.0, 1e-3, 3,
+                           force_weight=0.5, ferm_mass=0.1)
+    state.generator.set_state(gen_state)
+    draw = tt._Draws(state, 8, 8, 1)
+    zs = [[z.cpu() for z in draw()] for _ in range(3)]
+    cpu = tt._with_tensors(state, [t.cpu() for t in tt._state_tensors(state)])
+    cpu = cpu._replace(generator=torch.Generator())
+    it = iter(zs)
+
+    def step(st, z, beta_e):
+        return tt._era_step(st, spec, z, beta_e, 1.0, 1e-3, None, False, 0.01,
+                            None, 0.5, 0.1)
+
+    ref, dtypes, he = tt._eager_era(step, cpu, lambda: next(it),
+                                    torch.full((3,), 2.0))
+    for a, b in zip(tt._state_tensors(got), tt._state_tensors(ref)):
+        a, b = a.cpu().double(), b.double()
+        if torch.equal(a, b):            # the step count; best_loss inf
+            continue
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+    he = he.numpy()
+    for i, k in enumerate(dtypes):
+        np.testing.assert_allclose(hg[k], he[i], rtol=1e-4, atol=1e-5)

@@ -106,8 +106,8 @@ def test_cg_backends_resolve():
     assert tf.resolve_cg_backend(None, "cpu") == "xla"
     assert tf.resolve_cg_backend("auto", "cuda") == "fused"
     assert tf.resolve_cg_backend("xla", "cuda") == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.resolve_cg_backend("mixed", "cpu")
+    assert tf.resolve_cg_backend("mixed", "cpu") == "mixed"
+    assert tf.resolve_cg_backend("mixed", "cuda") == "mixed"
     with pytest.raises(ValueError):
         tf.set_cg_backend("nope")
     tf.set_cg_backend("fused")

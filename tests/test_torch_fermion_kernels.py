@@ -842,10 +842,11 @@ def test_k11_mirror_flags_odd_sites_and_caps():
     assert float(np.abs(x - want).max()) < 1e-12 * float(np.abs(want).max())
 
 
-def _np_cg_bytes(L0, L1, C, rows, eo, in_smem):
+def _np_cg_bytes(L0, L1, C, rows, eo, in_smem, bf16=False):
     """cg_smem_bytes (csrc/fermion.cu, CgLayout): eo 20 half planes of the
-    band's rows and 8 of the own rows, not eo 24 and 24, of L1 / 2 floats,
-    and the reduction area (64 + 2 + 16 floats)."""
+    band's rows and 8 of the own rows, not eo 24 and 24, of L1 / 2
+    elements (4 bytes, or 2 for K11_bf16, rounded up to a float), and the
+    reduction area (64 + 2 + 16 floats)."""
     ok = (L0 >= 4 and L1 >= 4 and L0 % 2 == 0 and L1 % 2 == 0
           and 1 <= C <= 8 and 1 <= rows <= L0 and rows * C >= L0)
     if not ok:
@@ -855,6 +856,8 @@ def _np_cg_bytes(L0, L1, C, rows, eo, in_smem):
     hs, os_ = (rows + 2 * H) * rs, rows * rs
     band = 20 * hs + 8 * os_ if eo else 24 * hs + 24 * os_
     red = 64 + 2 + 16
+    if bf16:
+        band = -(-band // 2)
     return 4 * (band + red) if in_smem else 4 * red
 
 
@@ -908,3 +911,20 @@ def test_cg_plans_of_the_paths(h100):
     big = fk.cg_plan(True, 4, 128, 128, h100)
     assert big.C > 1 and big.scratch == 0
     assert fk.cg_plan(True, 4, 256, 256, h100).scratch > 0
+
+
+@pytest.mark.parametrize("L,eo,fp32,bf16", [
+    (64, True, (1, False), (1, False)), (64, False, (2, False), (1, False)),
+    (128, True, (8, False), (4, False)), (128, False, (8, True), (4, False)),
+    (256, True, (8, True), (8, True)), (256, False, (8, True), (8, True))])
+def test_cg_plan_of_bf16_storage(h100, L, eo, fp32, bf16):
+    """K11_bf16's region takes half the bytes, so its plan may need fewer
+    bands, or none in scratch (the plans an H100 ran, PERF.md):
+    (bands, in scratch) of fp32 K11 and of K11_bf16 at 4 chains; where
+    both run from scratch, the bf16 scratch is half the floats."""
+    p32 = fk.cg_plan(eo, 4, L, L, h100)
+    p16 = fk.cg_plan(eo, 4, L, L, h100, bf16=True)
+    assert (p32.C, bool(p32.scratch)) == fp32
+    assert (p16.C, bool(p16.scratch)) == bf16
+    if p32.scratch and p16.scratch:
+        assert p16.scratch == p32.scratch // 2

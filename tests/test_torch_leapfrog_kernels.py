@@ -169,7 +169,8 @@ def test_wrappers_run_the_twins_on_the_cpu():
     hmc_traj_hostrng(x, v, u, BETA, DT, 2)
     plain = {k: _build.PLAIN_CALLS[k] - before[0][k] for k in before[0]}
     assert plain == {"K1": 0, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 0,
-                     "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}
+                     "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0,
+                     "K11_bf16": 0}
     assert dict(_build.LAUNCHES) == before[1]
 
 

@@ -307,21 +307,16 @@ def test_eo_hmc_matches_plain_physics():
         < 0.03
 
 
-def test_unported_options_raise(cg_backend):
+def test_unported_options_raise():
+    """FT-HMC refuses Hasenbusch, as the JAX package does (the nested
+    integrators, Hasenbusch and the 'mixed' CG run since they were ported:
+    tests/test_torch_nested.py)."""
     x = torch.zeros((2, 2, 4, 4))
     q = torch.zeros(2)
     _, _, tspec, tp = _flows(identity=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.run_hmc_dyn(dataclasses.replace(CFG, n_inner=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.hmc_step_dyn(_gen(0), x, q, dataclasses.replace(
-            CFG, hasenbusch_dm=0.5), device="cpu")
     with pytest.raises(ValueError, match="hasenbusch_dm"):
         ts.fthmc_step_dyn(tp, tspec, _gen(0), x, q, dataclasses.replace(
             CFG, hasenbusch_dm=0.5), device="cpu")
-    cg_backend("mixed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.run_hmc_dyn(CFG, device="cpu")
 
 
 def test_runs_on_the_cpu_count_only_twins(cg_backend):

@@ -275,20 +275,23 @@ def test_train_step_at_matches_jax_train_step():
 
 
 def test_ferm_mass_and_mesh_raise():
+    """ferm_mass > 0 runs through every entry since it was ported (finite
+    force objectives; tests/test_torch_train_ferm.py holds it to JAX);
+    mesh= still raises, naming its item."""
     cfg = TrainConfig(L=8, n_era=1, n_epoch=1, batch_size=2, flow=SPEC2,
                       force_weight=1.0, ferm_mass=0.2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.train(cfg, device="cpu")
+    _, hist = tt.train(cfg, device="cpu")
+    assert np.isfinite(hist["force_sq"]).all()
     state = cpu_state(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.train_step(state, SPEC2, 2, 8, 2.0, 1.0, 1e-3, force_weight=1.0,
-                      ferm_mass=0.2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.train_era(state, SPEC2, 2, 8, 2.0, 1.0, 1e-3, 1, ferm_mass=0.2)
+    _, m = tt.train_step(state, SPEC2, 2, 8, 2.0, 1.0, 1e-3,
+                         force_weight=1.0, ferm_mass=0.2)
+    assert math.isfinite(float(m["force_sq"]))
+    _, h = tt.train_era(state, SPEC2, 2, 8, 2.0, 1.0, 1e-3, 1, ferm_mass=0.2)
+    assert np.isfinite(h["loss_dkl"]).all()
     z = uniform_link_prior(8, device="cpu").sample_n(state.generator, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.reverse_kl_loss(state.params, SPEC2, z, 2.0, force_weight=1.0,
-                           ferm_mass=0.2)
+    loss, aux = tt.reverse_kl_loss(state.params, SPEC2, z, 2.0,
+                                   force_weight=1.0, ferm_mass=0.2)
+    assert math.isfinite(float(loss)) and "force_sq" in aux
     with pytest.raises(NotImplementedError, match="item 12"):
         tt.train(TrainConfig(L=8, flow=SPEC2), mesh=object(), device="cpu")
 

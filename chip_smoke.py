@@ -110,10 +110,28 @@ Phases, each printed on its own line:
      fermion-aware training (ferm_mass 0.1, force_weight 0.5) at 8^2: one
      step's loss and gradients against the CPU (1e-4), then an era of 20
      epochs (eager: train.FERM_ERA_GRAPHED);
-  11. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
+  11. the slice around the samplers: the JAX package's bf16 recipe at
+     64^2 (BF16_SPEC, fresh weights, 32 chains, beta=6, 8 Omelyan steps
+     from z0 = 0): 'auto' and 'kernel' refuse it, 'autograd' runs 16 + 32
+     trajectories (<exp(-dH)> within 0.1 of 1, the flow's round trip on
+     the final fields within 5e-4, no K6-K8 launch), and its bench beside
+     fp32's (autograd, and the kernels where they take the shape); the
+     mobility probes at 16^2, beta=6, 128 chains with the trained flow (FT
+     quenched: <plaq> within 0.003 of exact, <exp(-dH)> within 0.1; plain;
+     FT at m=0.1 with path C's gates; each with exact launch counts) and
+     the floor extension, B*mob/s +- err and busy shares; run_resilient
+     over run_fthmc blocks (a resumed run bit-equal to an uninterrupted
+     one, the watchdog, a device-side assert that ends its process
+     instead of being retried); diagnostics (the flow's inverse residual
+     and reversibility against the CPU port, leapfrog_with_diagnostics
+     against leapfrog); a spline flow (one step's gradients against the
+     CPU, train() with one host sync an era, flow sampling through
+     flow_backend='torch', 'auto' refusing it);
+  12. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
      those of the FT path and the sampling path, K9's the operator path's
-     and path G's);
-  12. last, {"ok": true, "device": {...}}.
+     and path G's; K1, K6-K8 and K11 with the probes' and the runner's
+     added);
+  13. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -137,9 +155,16 @@ from fthmc_tpu_torch import lattice
 from fthmc_tpu_torch.checkpoint import load_checkpoint_auto, save_checkpoint
 from fthmc_tpu_torch.config import (FlowSpec, HMCConfig, LeapfrogConfig,
                                     TrainConfig)
-from fthmc_tpu_torch.hmc import (ft_force, hmc_step, resolve_backend,
-                                 run_fthmc, run_hmc)
-from fthmc_tpu_torch.models.flow import flow_reverse
+from fthmc_tpu_torch.diagnostics import (flow_inverse_residual,
+                                         leapfrog_with_diagnostics,
+                                         reversibility_error,
+                                         summarize_step_info)
+from fthmc_tpu_torch.hmc import (TrajMetrics, ft_force, hmc_step,
+                                 leapfrog, resolve_backend,
+                                 resolve_force_backend, run_fthmc, run_hmc)
+from fthmc_tpu_torch.mobility import mobility_probe
+from fthmc_tpu_torch.models.flow import (flow_forward, flow_reverse,
+                                         init_flow_params)
 from fthmc_tpu_torch.models import priors
 from fthmc_tpu_torch.models.masks import layer_mask_params, plaq_masks
 from fthmc_tpu_torch.ops import _build, rng
@@ -149,8 +174,10 @@ from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (band_plan,
                                                   coupling_forward,
                                                   coupling_forward_plain,
-                                                  forward_call, launch_args,
-                                                  scratch_for, sm_count)
+                                                  forward_call, kernel_fits,
+                                                  kernel_flow_forward,
+                                                  launch_args, scratch_for,
+                                                  sm_count)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (bwd_call,
                                                       coupling_bwd,
                                                       coupling_bwd_plain,
@@ -164,6 +191,7 @@ from fthmc_tpu_torch import bench as tbench
 from fthmc_tpu_torch import observables as tobs
 from fthmc_tpu_torch import sampling as tsample
 from fthmc_tpu_torch import train as ttrain
+from fthmc_tpu_torch.runner import BlockTimeout, run_resilient
 from fthmc_tpu_torch.weights import load_flow_npz
 
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
@@ -304,8 +332,9 @@ K11_TIMED_ITERS = 40
 HOST_LOOP_ITERATION_MS = {"A": 0.0262, "B": 0.0270}
 # K9 against K10 (the 'auto' layout rule): these L, this many chains
 LAYOUT_RULE_L, LAYOUT_RULE_B = (8, 16, 32, 64), 128
-# (thermalizing, measured) trajectories, sized against the time limit
-DYN_TRAJ = {"A": (100, 100), "B": (100, 400), "C": (100, 300)}
+# (thermalizing, measured) trajectories, sized against the time limit (C's
+# configuration runs again in phase 11's dynamical probe)
+DYN_TRAJ = {"A": (30, 60), "B": (50, 150), "C": (100, 100)}
 # The rest of the dynamical sector (phase 10): the JAX package's production
 # rows of its nested, Hasenbusch and mixed-CG samplers, run from a
 # thermalized state that is not in the repo (here: near-equilibrium links,
@@ -345,8 +374,8 @@ DYN_READING.update({"D": (0.7928059697151184, 0.9980745911598206,
                           0.8967482447624207),
                     "G": (0.895263671875, 1.0111162662506104,
                           0.9148247241973877)})
-DYN_TRAJ.update({"D": (30, 60), "E": (30, 60), "F": (30, 60),
-                 "G": (30, 60)})
+DYN_TRAJ.update({"D": (30, 60), "E": (30, 40), "F": (30, 40),
+                 "G": (30, 40)})
 # the CG backend of a path other than the default 'auto' (K11)
 DYN_CG = {"G": "mixed"}
 # FT paths: acceptance floors (C: the first port's; F: the JAX package's
@@ -405,6 +434,39 @@ JAX_DKL_RNCP24 = (-335.28973388671875, 0.020102684869653945)  # mean, stderr
 DKL_DRAWS = 8192
 JAX_SAMPLING_ACC, SAMPLING_ACC_MARGIN = 0.25147247314453125, 0.02
 SAMPLING = dict(beta=2.0, L=8, batch_size=64, num_samples=4096, n_chains=64)
+# Phase 11. The JAX package's FT-HMC recipe at L >= 64
+# (fthmc_tpu/bench.py:111-156, bench_fthmc_flagship(L=64, chains=32,
+# conv_dtype='bfloat16')): the flagship spec with bf16 convs and fresh
+# weights at 64^2, 32 chains, beta=6, tau=0.5, 8 Omelyan steps from z0 = 0,
+# the force by autograd (the kernels refuse bf16); (thermalizing,
+# measured) trajectories; the bench's (trajectories a repeat, repeats).
+BF16_SPEC = dataclasses.replace(FLAGSHIP_TRAIN.flow, conv_dtype="bfloat16")
+BF16_L, BF16_CHAINS, BF16_TRAJ, BF16_BENCH = 64, 32, (16, 32), (1, 2)
+# The mobility probes at the production selection regime
+# (experiments/finetune_force.py:66-100): 16^2, beta=6, 128 chains,
+# tau=0.5, 4 Omelyan steps, the trained flagship flow; the trajectories
+# cut (therm, timed, call block). The dynamical probe (m=0.1) is path C's
+# configuration; its blocks of 4 give exactly 100 and 128. The floor
+# extension: a small plain budget under an event floor it cannot meet.
+PROBE = dict(L=16, beta=6.0, n_chains=128, tau=0.5, nstep=4)
+PROBE_QUENCHED = dict(therm=64, ntraj=256, call_block=64)
+PROBE_DYN = dict(mass=MASS, therm=100, ntraj=128, call_block=4,
+                 cg_maxiter=1500)
+PROBE_FLOOR = dict(therm=8, ntraj=16, call_block=8, min_events=1e9,
+                   max_extra_blocks=2)
+# The resilient runner over run_fthmc blocks at the flagship FT path: the
+# block, (trajectories before the restart, in all)
+RUNNER_BLOCK, RUNNER_TRAJ = 8, (16, 32)
+# Splines: the reference training configuration (REF_TRAIN) with the
+# spline coupling, 8 knots, s_clip 3, cut to 2 eras of 100 epochs; flow
+# sampling with (chains, samples a chain)
+SPLINE_TRAIN = dataclasses.replace(
+    REF_TRAIN, n_era=2, flow=FlowSpec(n_layers=16, coupling="spline",
+                                      n_knots=8, hidden_sizes=(8, 8),
+                                      s_clip=3.0))
+SPLINE_ENSEMBLE = (64, 1024)
+# reversibility_error against the CPU port: chains and steps
+REV_CHAINS, REV_NSTEP = 4, 4
 
 
 def say(phase: str, **kw) -> None:
@@ -2184,6 +2246,491 @@ def flow_training_phase(dev) -> dict:
     return {"k6": k6, "sampling": sampling}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the bf16 flagship recipe, the mobility probes, the resilient
+# runner, the diagnostics and a spline flow on the card
+# ---------------------------------------------------------------------------
+
+def _raises(fn) -> str | None:
+    """The message of the ValueError fn() raises, None if it returns."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)[:120]
+    return None
+
+
+def bf16_flagship(dev) -> dict:
+    """BF16_SPEC with fresh weights at BF16_L^2 x BF16_CHAINS, beta=6,
+    tau=0.5, 8 Omelyan steps from z0 = 0: force_backend 'auto' and
+    'kernel' refuse the spec; 'autograd' runs BF16_TRAJ trajectories with
+    <exp(-dH)> over the measured ones finite and within 0.1 of 1, and no
+    K6-K8 launch (counts set to 0 just before the run). The flow's round
+    trip on the run's final fields within max(5e-4, 2x the CPU port's on
+    the same flow and fields): 5e-4 is the JAX package's bound for a
+    2-layer bf16 flow (tests/test_mixed_precision.py); at 24 layers a bf16
+    rounding of a conditioner output flips between the forward and the
+    reverse pass where the bisection's 1e-6 moves its input, and the JAX
+    package itself reads ~1e-3 (9.6e-4 at 16^2 on the CPU). Then the
+    recipe's bench beside fp32 at the same shape, the autograd force and,
+    where kernel_fits takes the shape, the kernels (not gated)."""
+    spec, Lb, Bb = BF16_SPEC, BF16_L, BF16_CHAINS
+    params = init_flow_params(spec, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+    z0 = torch.zeros((Bb, 2, Lb, Lb), device=dev)
+    refused = {fb: _raises(lambda fb=fb: resolve_force_backend(
+        fb, spec, z0.shape, z0.dtype, dev)) for fb in ("auto", "kernel")}
+    require(all(refused.values()), f"bf16 spec not refused: {refused}")
+    therm, meas = BF16_TRAJ
+    lf = LeapfrogConfig(tau=TAU, nstep=NSTEP)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    z, hist = run_fthmc(params, spec, lf, beta=BETA, ntraj=therm + meas,
+                        z0=z0, generator=torch.Generator(dev).manual_seed(61),
+                        integrator="omelyan", force_backend="autograd",
+                        device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    sl = slice(therm, None)
+    emdh = float(hist.exp_mdh[sl].mean())
+    def roundtrip_of(p, zz):
+        with torch.no_grad(), full_fp32():
+            y, ld = flow_forward(p, zz, spec, remat=False)
+        x2, ldr = flow_reverse(p, y, spec)
+        return wrapped_err(x2, zz), float((ld + ldr).abs().max()
+                                          / ld.abs().max())
+
+    t0 = time.perf_counter()
+    roundtrip, antisym = roundtrip_of(params, z)
+    roundtrip_cpu, _ = roundtrip_of(_copy_params(params, "cpu"), z.cpu())
+    t_rt = time.perf_counter() - t0
+    rt_gate = max(5e-4, 2 * roundtrip_cpu)
+    r = {"spec": dataclasses.asdict(spec), "L": Lb, "chains": Bb,
+         "therm": therm, "measured": meas, "force_backend": "autograd",
+         "refused": refused, "acceptance": float(hist.acc[sl].mean()),
+         "exp_mdh": emdh, "plaq": float(hist.plaq[sl].mean()),
+         "roundtrip_max_err": roundtrip, "roundtrip_cpu": roundtrip_cpu,
+         "roundtrip_gate": rt_gate, "roundtrip_s": t_rt,
+         "logdet_antisymmetry_rel": antisym,
+         "run_s": t_run, "s_per_traj": t_run / (therm + meas),
+         "launches": {k: launches[k] for k in ("K6", "K7", "K8")}}
+    require(all(bool(torch.isfinite(t).all()) for t in hist),
+            "bf16 flagship: history not finite")
+    require(math.isfinite(emdh) and abs(emdh - 1.0) <= 0.1,
+            f"bf16 flagship <exp(-dH)> {emdh}")
+    require(roundtrip <= rt_gate, f"bf16 flagship round trip {roundtrip} > "
+            f"{rt_gate}")
+    require(not any(r["launches"].values()),
+            f"bf16 flagship launched {r['launches']}")
+    fp32 = dataclasses.replace(spec, conv_dtype="float32")
+    kw = dict(L=Lb, chains=Bb, ntraj=BF16_BENCH[0], repeats=BF16_BENCH[1],
+              device=dev)
+    bench = {"bf16_autograd": tbench.bench_fthmc_flagship(
+        conv_dtype="bfloat16", force_backend="autograd", **kw),
+        "fp32_autograd": tbench.bench_fthmc_flagship(
+            force_backend="autograd", **kw)}
+    if kernel_fits(fp32, Lb, Bb):
+        bench["fp32_kernel"] = tbench.bench_fthmc_flagship(
+            force_backend="kernel", **kw)
+    r["bench"] = {k: {"chain_steps_per_s": v["value"],
+                      "s_per_traj": v["s_per_traj"]}
+                  for k, v in bench.items()}
+    return r
+
+
+def _probe(params, spec, dev, seed, **kw):
+    """mobility_probe on the card with its timed blocks' histories kept,
+    the counts set to 0 just before it and read just after. Returns (its
+    dict, timed TrajMetrics on the host, launches, plain calls, wall s)."""
+    blocks = []
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    st = mobility_probe(params, spec, **kw, on_block=blocks.append,
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        device=dev)
+    wall = time.perf_counter() - t0
+    hist = TrajMetrics(*[torch.cat(f).cpu() for f in zip(*blocks)])
+    return (st, hist, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS),
+            wall)
+
+
+def _probe_expected(kw, cfg_forces: dict, n_layers: int | None) -> dict:
+    """The launches of a probe of ``kw`` whose trajectory makes the forces
+    ``cfg_forces`` (by kind): K1 a gauge or single-scale force; with the
+    flow K7 and K8 a layer a force and K6 a layer an energy flow (two a
+    trajectory and one a block's start charge); K11 (dynamical) one a
+    solve: a force's and the Metropolis solve."""
+    block = min(kw["call_block"], kw["ntraj"])
+    blocks = -(-kw["therm"] // block) + -(-kw["ntraj"] // block)
+    n = blocks * block
+    forces = sum(cfg_forces.values())
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect["K1"] = (cfg_forces.get("dyn", 0) + cfg_forces.get("gauge", 0)
+                    + cfg_forces.get("quenched", 0)) * n
+    if kw.get("mass", 0.0) > 0:
+        expect["K11"] = (forces + 1) * n
+    if n_layers is not None:
+        expect.update({"K6": n_layers * (2 * n + blocks),
+                       "K7": n_layers * forces * n,
+                       "K8": n_layers * forces * n})
+    return expect
+
+
+def _probe_busy(params, spec, kw, dev, s_per_traj: float,
+                n: int = 2) -> dict:
+    """profile_busy of n trajectories of the probe's own sampler (the run
+    function mobility_probe builds) from its cold start, after one
+    unprofiled trajectory, against the probe's s/trajectory."""
+    from fthmc_tpu_torch.mobility import _runner
+    run = _runner(params, spec, L=kw["L"], beta=kw["beta"],
+                  mass=kw.get("mass", 0.0), n_chains=kw["n_chains"],
+                  tau=kw["tau"], nstep=kw["nstep"],
+                  cg_maxiter=kw.get("cg_maxiter", 1500),
+                  sampler=kw["sampler"],
+                  generator=torch.Generator(dev).manual_seed(5), device=dev)
+    z = torch.zeros((kw["n_chains"], 2, kw["L"], kw["L"]), device=dev)
+    if params is not None:
+        z = flow_reverse(params, z, spec)[0]
+    z, _ = run(z, 1)
+    torch.cuda.synchronize()
+    return profile_busy(lambda: run(z, n), n, s_per_traj)
+
+
+def mobility_probes(dev, params, spec) -> dict:
+    """The probes at PROBE with the trained flow: FT quenched (<plaq>
+    within 0.003 of PLAQ_EXACT, <exp(-dH)> within 0.1 of 1), plain
+    quenched, FT at m=0.1 with path C's configuration (acceptance >= path
+    C's floor, <plaq> within 0.003 of the JAX package's path-C reading),
+    each with its exact launch counts and no plain twin; the floor
+    extension on a small plain probe (ntraj grows by exactly
+    max_extra_blocks blocks, valid False). B*mob/s +- err of each, and
+    the busy share of a short probe of each sampler."""
+    out, launched = {}, dict.fromkeys(_build.KERNELS, 0)
+    n_q = {"quenched": 2 * PROBE["nstep"] + 1}
+    dyn_cfg = SchwingerConfig(L=PROBE["L"], beta=PROBE["beta"], mass=MASS,
+                              tau=PROBE["tau"], nstep=PROBE["nstep"],
+                              n_chains=PROBE["n_chains"])
+    cases = {"ft": (params, spec, "ft", PROBE_QUENCHED, n_q),
+             "plain": (None, None, "plain", PROBE_QUENCHED, n_q),
+             "ft_dyn": (params, spec, "ft", PROBE_DYN,
+                        force_evaluations(dyn_cfg))}
+    for i, (name, (p, s, sampler, kw, forces)) in enumerate(cases.items()):
+        kw = {**PROBE, **kw, "sampler": sampler}
+        st, hist, launches, plain, wall = _probe(p, s, dev, 71 + i, **kw)
+        expect = _probe_expected(kw, forces,
+                                 None if p is None else len(p))
+        emdh = float(hist.exp_mdh.mean())
+        t0 = time.perf_counter()
+        busy = _probe_busy(p, s, kw, dev, st["s_per_traj"])
+        busy["profile_s"] = time.perf_counter() - t0
+        out[name] = {**st, "exp_mdh": emdh, "therm": kw["therm"],
+                     "call_block": kw["call_block"], "wall_s": wall,
+                     "launches": launches, "expected": expect,
+                     "busy": busy}
+        say("mobility_probe", probe=name, **out[name])
+        require(launches == expect and not any(plain.values()),
+                f"probe {name}: launches {launches} != {expect}, plain "
+                f"{plain}")
+        require(all(bool(torch.isfinite(t).all()) for t in hist),
+                f"probe {name}: history not finite")
+        for k, v in launches.items():
+            launched[k] += v
+    ft, dyn = out["ft"], out["ft_dyn"]
+    exact = lattice.PLAQ_EXACT[PROBE["beta"]]
+    require(abs(ft["plaq"] - exact) <= 0.003,
+            f"FT probe plaq {ft['plaq']} vs {exact}")
+    require(abs(ft["exp_mdh"] - 1.0) <= 0.1,
+            f"FT probe <exp(-dH)> {ft['exp_mdh']}")
+    require(dyn["acc"] >= MIN_FT_ACCEPTANCE["C"],
+            f"dynamical FT probe acceptance {dyn['acc']}")
+    plaq_c = DYN_READING["C"][2]
+    require(abs(dyn["plaq"] - plaq_c) <= 0.003,
+            f"dynamical FT probe plaq {dyn['plaq']} vs {plaq_c}")
+    kw = {**PROBE, **PROBE_FLOOR, "sampler": "plain"}
+    st = mobility_probe(None, None, **kw,
+                        generator=torch.Generator(dev).manual_seed(79),
+                        device=dev)
+    block = min(kw["call_block"], kw["ntraj"])
+    grown = st["ntraj"] - -(-kw["ntraj"] // block) * block
+    out["floor"] = {"ntraj": st["ntraj"], "grown_by": grown,
+                    "valid": st["valid"], "n_events": st["n_events"],
+                    "min_events": kw["min_events"]}
+    require(grown == kw["max_extra_blocks"] * block and not st["valid"],
+            f"floor extension: {out['floor']}")
+    say("mobility_floor", **out["floor"])
+    say("mobility_summary", **{k: {"B_mob_per_s": v["B_mob_per_s"],
+                                   "B_mob_per_s_err": v["B_mob_per_s_err"],
+                                   "s_per_traj": v["s_per_traj"],
+                                   "acceptance": v["acc"]}
+                               for k, v in out.items() if k != "floor"})
+    return {"probes": out, "launches": launched}
+
+
+# A step that fires a device-side assert (an index past the end), driven by
+# run_resilient with max_retries=None in a process of its own: run_resilient
+# must re-raise the CUDA error and exit, not retry forever.
+_ASSERT_CHILD = """
+import torch
+from fthmc_tpu_torch.runner import run_resilient
+def step(generator, z, n):
+    bad = torch.full((1,), 1 << 30, dtype=torch.long, device=z.device)
+    return z + z.flatten()[bad].sum(), {}
+run_resilient(step, torch.zeros((1, 2, 4, 4), device="cuda"),
+              generator=torch.Generator("cuda"), ntraj=2, block=2,
+              hist_fields=(), retry_sleep=0.5, max_retries=None)
+print("returned")
+"""
+
+
+def runner_phase(dev, params, spec) -> dict:
+    """run_resilient over run_fthmc blocks of RUNNER_BLOCK at the flagship
+    FT path ('auto': the kernels), state in a temporary file: the first
+    RUNNER_TRAJ[0] trajectories, then the same state file to
+    RUNNER_TRAJ[1], held bit for bit against an uninterrupted run from the
+    same generator seed (K6-K8 sum in a fixed order: two launches are
+    bit-equal), its launches counted; a host-sleeping step under
+    block_timeout=1, max_retries=1 raises BlockTimeout; a step that fires a
+    device-side assert under max_retries=None makes its process exit
+    non-zero within 120 s without a retry."""
+    import tempfile
+    lf = LeapfrogConfig(tau=TAU, nstep=NSTEP)
+    z0, _ = flow_reverse(params, torch.zeros((B, 2, L, L), device=dev), spec)
+
+    def step(g, z, n):
+        return run_fthmc(params, spec, lf, beta=BETA, ntraj=n, z0=z,
+                         generator=g, integrator="omelyan", device=dev)
+
+    first, total = RUNNER_TRAJ
+    seed = 81
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        sp = os.path.join(tmp, "state.npz")
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        run_resilient(step, z0, generator=torch.Generator(dev).manual_seed(
+            seed), ntraj=first, block=RUNNER_BLOCK, state_path=sp,
+            max_retries=0)
+        z_r, h_r, info = run_resilient(
+            step, z0, generator=torch.Generator(dev).manual_seed(seed + 1),
+            ntraj=total, block=RUNNER_BLOCK, state_path=sp, max_retries=0)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    z_w, h_w, _ = run_resilient(
+        step, z0, generator=torch.Generator(dev).manual_seed(seed),
+        ntraj=total, block=RUNNER_BLOCK, max_retries=0)
+    same = torch.equal(z_r, z_w) and all(np.array_equal(h_r[k], h_w[k])
+                                         for k in h_w)
+    n_force = 2 * NSTEP + 1
+    blocks = total // RUNNER_BLOCK
+    expect = {**dict.fromkeys(_build.KERNELS, 0), "K1": n_force * total,
+              "K6": spec.n_layers * (2 * total + blocks),
+              "K7": spec.n_layers * n_force * total,
+              "K8": spec.n_layers * n_force * total}
+
+    def sleeping(g, z, n):
+        time.sleep(5)
+        return z, {}
+
+    t0 = time.perf_counter()
+    try:
+        run_resilient(sleeping, z0, generator=torch.Generator(dev), ntraj=2,
+                      block=2, hist_fields=(), block_timeout=1,
+                      retry_sleep=0.1, max_retries=1)
+        fired = False
+    except BlockTimeout:
+        fired = True
+    t_watchdog = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _ASSERT_CHILD], capture_output=True,
+        text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_child = time.perf_counter() - t0
+    r = {"block": RUNNER_BLOCK, "first": first, "total": total,
+         "resumed_equals_uninterrupted": same,
+         "max_abs_diff": float((z_r - z_w).abs().max()),
+         "acceptance": float(h_r["acc"].mean()),
+         "plaq": float(h_r["plaq"].mean()), "wall_s": wall,
+         "s_per_traj_resumed_process": info["s_per_traj"],
+         "launches": launches, "expected": expect,
+         "watchdog_fired": fired, "watchdog_s": t_watchdog,
+         "assert_child_rc": child.returncode, "assert_child_s": t_child,
+         "assert_child_tail": child.stderr.strip().splitlines()[-1:]}
+    say("runner", **r)
+    r["z"] = z_w
+    require(same, "resumed run differs from the uninterrupted one")
+    require(launches == expect, f"runner launches {launches} != {expect}")
+    require(fired, "the watchdog did not fire")
+    require(child.returncode != 0 and "returned" not in child.stdout
+            and "retry" not in child.stdout
+            and "device-side assert" in child.stderr,
+            f"device-assert child: rc {child.returncode}, "
+            f"{child.stdout[-300:]} {child.stderr[-300:]}")
+    return r
+
+
+def diagnostics_phase(dev, params, spec, z) -> dict:
+    """diagnostics on the card with the trained flow at the flagship shape,
+    on the sampler's own fields: z the runner's final latent fields (16^2 x
+    64, thermalized at beta=6) and y = f(z). flow_inverse_residual of y
+    below max(5e-5, 2x the CPU port's reading on the same flow and
+    fields); reversibility_error with the kernel FT force (REV_CHAINS
+    chains of z, REV_NSTEP steps) within 1e-4 of the field scale, and
+    within that of the CPU port's reading on the same inputs (its plain
+    twins); leapfrog_with_diagnostics against hmc.leapfrog on the same
+    force, x and v within 1e-6; the step summary printed. On uniform
+    random fields, far from what a sampler sees (forces of ~100, seams of
+    the rncp inverse that the JAX package's bisection misses too: a 0.30
+    residual at 16^2 x 64 on the CPU), the card's readings are printed,
+    not gated."""
+    g = torch.Generator(dev).manual_seed(91)
+    v = torch.randn(z.shape, generator=g, device=dev)
+    cpu = _copy_params(params, "cpu")
+    with torch.no_grad():
+        y, _ = kernel_flow_forward(params, z, spec)
+    t0 = time.perf_counter()
+    res = flow_inverse_residual(params, spec, y)
+    res_cpu = flow_inverse_residual(cpu, spec, y.cpu())
+    res_gate = max(5e-5, 2 * res_cpu)
+    t_res = time.perf_counter() - t0
+    dt = TAU / NSTEP
+    zr, vr = z[:REV_CHAINS], v[:REV_CHAINS]
+    t0 = time.perf_counter()
+    with full_fp32():
+        rev = reversibility_error(zr, vr, dt, REV_NSTEP, lambda zz:
+                                  ft_force_kernel(params, spec, zz, BETA))
+    rev_cpu = reversibility_error(zr.cpu(), vr.cpu(), dt, REV_NSTEP,
+                                  lambda zz: ft_force_kernel(cpu, spec, zz,
+                                                             BETA))
+    t_rev = time.perf_counter() - t0
+    rev_tol = 1e-4 * math.pi
+    u = (torch.rand(z.shape, generator=g, device=dev) * 2 - 1) * math.pi
+    with full_fp32():
+        random_fields = {
+            "inverse_residual": flow_inverse_residual(params, spec, u),
+            "reversibility": reversibility_error(
+                u[:REV_CHAINS], vr, dt, REV_NSTEP, lambda zz:
+                ft_force_kernel(params, spec, zz, BETA))}
+
+    def force_fn(zz):
+        return ft_force_kernel(params, spec, zz, BETA)
+
+    def action_fn(zz):
+        yk, ld = kernel_flow_forward(params, zz, spec)
+        return lattice.batch_action(yk, BETA) - ld
+
+    xd, vd, info = leapfrog_with_diagnostics(z, v, dt, NSTEP, force_fn,
+                                             action_fn)
+    xl, vl = leapfrog(z, v, dt, NSTEP, force_fn)
+    lf_err = (float((xd - xl).abs().max()), float((vd - vl).abs().max()))
+    r = {"fields": "the runner's final latent fields and their image",
+         "inverse_residual": res, "inverse_residual_cpu": res_cpu,
+         "inverse_residual_gate": res_gate, "inverse_s": t_res,
+         "reversibility": rev, "reversibility_cpu": rev_cpu,
+         "reversibility_tol": rev_tol, "reversibility_s": t_rev,
+         "uniform_random_fields_not_gated": random_fields,
+         "leapfrog_diag_vs_plain_max_err": lf_err,
+         "step_info": summarize_step_info(info)}
+    say("diagnostics", **r)
+    require(res <= res_gate, f"inverse residual {res} > {res_gate}")
+    require(rev <= rev_tol and abs(rev - rev_cpu) <= rev_tol,
+            f"reversibility {rev} vs CPU {rev_cpu} (tol {rev_tol})")
+    require(max(lf_err) <= 1e-6, f"leapfrog_with_diagnostics {lf_err}")
+    return r
+
+
+def spline_phase(dev) -> dict:
+    """SPLINE_TRAIN: one step's loss and gradients on the card against the
+    CPU port (same z and parameters, 1e-4 relative in norm); train() on the
+    card through its CUDA graph (the loss falls from the first 100 epochs
+    to the last 100, one host synchronisation an era, no K6-K8 launch);
+    flow sampling with flow_backend='torch', SPLINE_ENSEMBLE chains x
+    samples (acceptance and chain-samples/s), and 'auto' (K6) refusing
+    the spec."""
+    cfg = SPLINE_TRAIN
+    state = ttrain.init_train_state(None, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(97)
+    z = (torch.rand((cfg.batch_size, 2, cfg.L, cfg.L), generator=g,
+                    device=dev) * 2 - 1) * math.pi
+    loss, _, grads = ttrain.loss_and_grads(state.params, cfg.flow, z,
+                                           cfg.beta)
+    loss_c, _, grads_c = ttrain.loss_and_grads(
+        _copy_params(state.params, "cpu"), cfg.flow, z.cpu(), cfg.beta)
+    a = torch.cat([t.flatten() for t in grads_c])
+    b = torch.cat([t.flatten().cpu() for t in grads])
+    rel = float((b - a).norm() / a.norm())
+    rel_loss = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    require(rel <= 1e-4 and rel_loss <= 1e-4,
+            f"spline gradients card vs CPU: {rel}, loss {rel_loss}")
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    (state, hist), syncs = _count_syncs(lambda: ttrain.train(cfg,
+                                                             device=dev))
+    t_train = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in ("K6", "K7", "K8")}
+    loss_h = np.asarray(hist["loss_dkl"], dtype=np.float64)
+    first, last = float(loss_h[:100].mean()), float(loss_h[-100:].mean())
+    require(np.isfinite(loss_h).all() and last < first,
+            f"spline training: loss {first} -> {last}")
+    require(syncs == cfg.n_era, f"spline training: {syncs} host syncs for "
+            f"{cfg.n_era} eras")
+    n_chains, num = SPLINE_ENSEMBLE
+    kw = dict(beta=cfg.beta, L=cfg.L, batch_size=cfg.batch_size,
+              num_samples=num, n_chains=n_chains, device=dev)
+    refused = _raises(lambda: tsample.make_mcmc_ensemble(
+        state.params, cfg.flow, generator=torch.Generator(dev), **kw))
+    require(refused is not None, "flow_backend='auto' took a spline flow")
+    gen = torch.Generator(dev).manual_seed(98)
+    tsample.make_mcmc_ensemble(state.params, cfg.flow, generator=gen,
+                               flow_backend="torch",
+                               **{**kw, "num_samples": 65})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = tsample.make_mcmc_ensemble(state.params, cfg.flow, generator=gen,
+                                     flow_backend="torch", **kw)
+    t_ens = time.perf_counter() - t0
+    launches.update({k + "_sampling": _build.LAUNCHES[k] - launches[k]
+                     for k in ("K6", "K7", "K8")})
+    r = {"spec": dataclasses.asdict(cfg.flow), "grad_rel_err_norm": rel,
+         "loss_rel_err": rel_loss, "epochs": cfg.n_era * cfg.n_epoch,
+         "train_s": t_train,
+         "steps_per_s": cfg.n_era * cfg.n_epoch / t_train,
+         "host_syncs": syncs, "loss_first_100": first,
+         "loss_last_100": last, "ensemble": list(SPLINE_ENSEMBLE),
+         "acceptance": float(ens["acc"].mean()), "ensemble_s": t_ens,
+         "chain_samples_per_s": n_chains * num / t_ens,
+         "auto_refused": refused, "launches": launches}
+    say("spline", **r)
+    require(np.isfinite(ens["logq"]).all(), "spline sampling not finite")
+    require(not any(launches.values()), f"spline path launched {launches}")
+    return r
+
+
+def phase11(dev, params, spec) -> dict:
+    """Phase 11; returns the launches its kernel paths made."""
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    say("bf16_flagship", **timed("bf16", lambda: bf16_flagship(dev)))
+    probes = timed("probes", lambda: mobility_probes(dev, params, spec))
+    run = timed("runner", lambda: runner_phase(dev, params, spec))
+    timed("diagnostics", lambda: diagnostics_phase(dev, params, spec,
+                                                   run.pop("z")))
+    timed("spline", lambda: spline_phase(dev))
+    launched = probes["launches"]
+    for k, v in run["launches"].items():
+        launched[k] += v
+    say("phase11", seconds=sum(seconds.values()), by_part=seconds,
+        launches=launched)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2453,7 +3000,12 @@ def main() -> None:
     launches["K11_bf16"] = rest["launches"]["G"]["K11_bf16"]
     launches["K9"] += rest["launches"]["G"]["K9"]
 
-    # 11. the kernels line
+    # 11. the bf16 flagship recipe, the mobility probes, the runner, the
+    # diagnostics and a spline flow
+    for k, v in phase11(dev, params, spec).items():
+        launches[k] += v
+
+    # 12. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -2475,7 +3027,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 12. the device line
+    # 13. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -116,10 +116,12 @@ def bench_fthmc_leapfrog(L: int = 8, chains: int = 1024, beta: float = 2.0,
 def bench_fthmc_flagship(L: int = 16, chains: int = 64, beta: float = 6.0,
                          nstep: int = 8, tau: float = 0.5, ntraj: int = 4,
                          repeats: int = 3, conv_dtype: str | None = None,
-                         device=None) -> dict:
+                         force_backend: str = "auto", device=None) -> dict:
     """FT-HMC chain-steps/s of the flagship architecture (24-layer rncp,
     hidden (32, 32), 8 components, s_clip 3, Omelyan) with fresh weights
-    (the cost does not depend on their values), from z0 = 0."""
+    (the cost does not depend on their values), from z0 = 0, the force
+    through ``force_backend`` ('auto' is the kernels on the card, which
+    refuse conv_dtype='bfloat16': the bf16 recipe names 'autograd')."""
     device = resolve_device(device)
     spec = FlowSpec(n_layers=24, n_mixture=8, hidden_sizes=(32, 32),
                     coupling="rncp", s_clip=3.0)
@@ -130,14 +132,14 @@ def bench_fthmc_flagship(L: int = 16, chains: int = 64, beta: float = 6.0,
     z0 = torch.zeros((chains, 2, L, L), device=device)
     z, _ = run_fthmc(params, spec, lf, beta=beta, ntraj=ntraj, z0=z0,
                      generator=_gen(device, 2), integrator="omelyan",
-                     device=device)
+                     force_backend=force_backend, device=device)
     _sync(device)
     times = []
     for i in range(repeats):
         t0 = time.perf_counter()
         z, _ = run_fthmc(params, spec, lf, beta=beta, ntraj=ntraj, z0=z,
                          generator=_gen(device, 3 + i), integrator="omelyan",
-                         device=device)
+                         force_backend=force_backend, device=device)
         _sync(device)
         times.append(time.perf_counter() - t0)
     dt = float(np.median(times))

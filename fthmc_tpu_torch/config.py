@@ -25,7 +25,7 @@ class FlowSpec:
     hidden_sizes: tuple[int, ...] = (8, 8)
     kernel_size: int = 3
     coupling: str = "ncp"         # 'ncp' | 'rncp' (rotated mixture) |
-                                  # 'spline' (not ported yet)
+                                  # 'spline' (circular RQ spline)
     n_knots: int = 8              # spline bins per site (coupling='spline')
     activation: str = "silu"      # relu | silu | swish | leaky_relu | tanh
     init: str = "reference"       # 'reference' | 'normal' | 'set_weights_bug'

@@ -11,8 +11,10 @@ projection (ncp) mixture on the active plaquettes:
 
 and of the rotated mixture (rncp): f(x) = x + mean_i [h_{s_i}(y_i) - y_i]
 with y_i = wrap(x - r_i), logJ = logsumexp_i log h'_{s_i}(y_i) - log M. The
+circular rational-quadratic spline (spline) is ``models/spline.py``. The
 conditioner CNN reads stack(cos, sin) of the frozen plaquettes and returns
-(s, t) for ncp, (s, r, t) for rncp.
+(s, t) for ncp, (s, r, t) for rncp, (3K spline channels, t) for spline; with
+``conv_dtype='bfloat16'`` its convs run in bf16 and the transforms in fp32.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from fthmc_tpu_torch.config import FlowSpec
 from fthmc_tpu_torch.models.masks import link_active_stripes, plaq_masks
+from fthmc_tpu_torch.models.spline import spline_forward, spline_inverse
 from fthmc_tpu_torch.ops.conv import conv_net_apply
 
 PI = math.pi
@@ -35,9 +38,6 @@ TWO_PI = 2.0 * math.pi
 # m = |s| (detached) so both exponents are <= 0.
 _S_CLIP = 30.0
 _TINY = 1e-30
-
-_SPLINE_TODO = ("coupling='spline' is not ported yet (ROADMAP.md, queue 1: "
-                "'Spline family')")
 
 
 def wrap_pi(x: torch.Tensor) -> torch.Tensor:
@@ -109,7 +109,9 @@ def _clip_s(s: torch.Tensor, spec: FlowSpec) -> torch.Tensor:
 
 def plaq_net_split(net_out: torch.Tensor, spec: FlowSpec):
     """Conditioner channel split and s_clip: (s, t) for ncp, (s, r, t) for
-    rncp."""
+    rncp, (raw, t) for spline. A spline's s_clip bounds all 3K logits,
+    c tanh(raw / c): the bin aspect ratio stays below e^{2c}, and with it
+    the spline's slope and the FT-HMC force."""
     if spec.coupling == "rncp":
         M = spec.n_mixture
         s, r, t = net_out[:, :M], net_out[:, M:2 * M], net_out[:, 2 * M]
@@ -117,19 +119,24 @@ def plaq_net_split(net_out: torch.Tensor, spec: FlowSpec):
     if spec.coupling == "ncp":
         s, t = net_out[:, :-1], net_out[:, -1]
         return _clip_s(s, spec), t
-    raise NotImplementedError(_SPLINE_TODO)
+    if spec.coupling == "spline":
+        K = spec.n_knots
+        return _clip_s(net_out[:, :3 * K], spec), net_out[:, 3 * K]
+    raise ValueError(f"unknown coupling {spec.coupling!r}")
+
+
+_CONV_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def conditioner(net_params, frozen: torch.Tensor, plaq: torch.Tensor,
                 spec: FlowSpec) -> torch.Tensor:
     """Raw conditioner output: the conv chain on stack(cos, sin) of the
-    frozen plaquettes, (B, C_out, L, L)."""
-    if spec.conv_dtype != "float32":
-        raise NotImplementedError(
-            f"conv_dtype={spec.conv_dtype!r} is not ported yet (ROADMAP.md, "
-            "queue 1: 'FT-HMC, the rest')")
+    frozen plaquettes, (B, C_out, L, L), each conv in ``spec.conv_dtype``
+    and the output in the field's dtype."""
+    if spec.conv_dtype not in _CONV_DTYPES:
+        raise ValueError(f"unknown conv_dtype {spec.conv_dtype!r}")
     return conv_net_apply(net_params, stack_cos_sin(frozen * plaq),
-                          spec.activation)
+                          spec.activation, _CONV_DTYPES[spec.conv_dtype])
 
 
 def plaq_transform_apply(net_out, plaq, active, spec: FlowSpec):
@@ -146,7 +153,9 @@ def plaq_transform_apply(net_out, plaq, active, spec: FlowSpec):
         local_logJ = active * mixture_tan_transform_logJ(x1, s)
         fx1 = active * mixture_tan_transform(x1, s)[:, 0]
     else:
-        raise NotImplementedError(_SPLINE_TODO)
+        raw, t = plaq_net_split(net_out, spec)
+        fx1, logj = spline_forward(x1[:, 0], raw, spec.n_knots)
+        local_logJ = active * logj
     return fx1, local_logJ, t
 
 
@@ -177,6 +186,31 @@ def _bisect_invert(y, transform, tol: float, max_iter: int):
         hi = (1.0 - greater) * mid + greater * hi
         i += 1
     return (0.5 * (lo + hi)).detach()
+
+
+def _plaq_forward(net_out, plaq, masks, spec: FlowSpec) -> CouplingOut:
+    """The plaquettes after a forward coupling, (B, L0, L1), and the
+    per-chain logJ, from the raw conditioner output."""
+    frozen, active, passive = masks
+    fx1, local_logJ, t = plaq_transform_apply(net_out, plaq, active, spec)
+    fx = active * wrap_pi(fx1 + t) + passive * plaq + frozen * plaq
+    return CouplingOut(fx, local_logJ.sum(dim=(1, 2)))
+
+
+def plaq_coupling_forward(net_params, plaq: torch.Tensor, mu: int, off: int,
+                          spec: FlowSpec) -> CouplingOut:
+    """Forward transform of the active plaquettes, plaq: (B, L0, L1), for
+    any coupling family (``plaq_transform_apply`` dispatches on it)."""
+    masks = _masks(tuple(plaq.shape[-2:]), mu, off, plaq.dtype,
+                   plaq.device)[:3]
+    return _plaq_forward(conditioner(net_params, masks[0], plaq, spec), plaq,
+                         masks, spec)
+
+
+# the forward body does not depend on the coupling family
+rncp_plaq_coupling_forward = plaq_coupling_forward
+spline_plaq_coupling_forward = plaq_coupling_forward
+plaq_transform_forward = plaq_coupling_forward
 
 
 def plaq_coupling_reverse(net_params, fplaq: torch.Tensor, mu: int, off: int,
@@ -218,15 +252,32 @@ def rncp_plaq_coupling_reverse(net_params, fplaq: torch.Tensor, mu: int,
     return CouplingOut(x, logJ)
 
 
+def spline_plaq_coupling_reverse(net_params, fplaq: torch.Tensor, mu: int,
+                                 off: int, spec: FlowSpec, tol: float = 1e-6,
+                                 max_iter: int = 1000) -> CouplingOut:
+    """Analytic inverse of the spline coupling (no bisection; tol and
+    max_iter are taken for the mixtures' signature and not used)."""
+    del tol, max_iter
+    frozen, active, passive, _ = _masks(tuple(fplaq.shape[-2:]), mu, off,
+                                        fplaq.dtype, fplaq.device)
+    raw, t = plaq_net_split(conditioner(net_params, frozen, fplaq, spec),
+                            spec)
+    x1, local_logJ = spline_inverse(wrap_pi(active * (fplaq - t)), raw,
+                                    spec.n_knots)
+    logJ = -(active * local_logJ).sum(dim=(1, 2))
+    x = active * x1 + passive * fplaq + frozen * fplaq
+    return CouplingOut(x, logJ)
+
+
 def plaq_transform_reverse(net_params, fplaq, mu, off, spec: FlowSpec,
                            tol: float = 1e-6, max_iter: int = 1000):
+    if spec.coupling == "spline":
+        return spline_plaq_coupling_reverse(net_params, fplaq, mu, off, spec)
     if spec.coupling == "rncp":
         return rncp_plaq_coupling_reverse(net_params, fplaq, mu, off, spec,
                                           tol=tol, max_iter=max_iter)
-    if spec.coupling == "ncp":
-        return plaq_coupling_reverse(net_params, fplaq, mu, off, spec,
-                                     tol=tol, max_iter=max_iter)
-    raise NotImplementedError(_SPLINE_TODO)
+    return plaq_coupling_reverse(net_params, fplaq, mu, off, spec,
+                                 tol=tol, max_iter=max_iter)
 
 
 def plaq_of_links(x: torch.Tensor) -> torch.Tensor:
@@ -247,12 +298,11 @@ def link_coupling_from_net_out(x: torch.Tensor, plaq: torch.Tensor,
                                spec: FlowSpec) -> CouplingOut:
     """The rest of a forward coupling once the conditioner has run: the
     active-plaquette transform, its logJ and the link update."""
-    frozen, active, passive, active_links = _masks(
-        tuple(x.shape[-2:]), mu, off, x.dtype, x.device)
-    fx1, local_logJ, t = plaq_transform_apply(net_out, plaq, active, spec)
-    new_plaq = active * wrap_pi(fx1 + t) + passive * plaq + frozen * plaq
+    *masks, active_links = _masks(tuple(x.shape[-2:]), mu, off, x.dtype,
+                                  x.device)
+    new_plaq, logJ = _plaq_forward(net_out, plaq, masks, spec)
     return CouplingOut(_apply_delta_links(x, new_plaq - plaq, active_links),
-                       local_logJ.sum(dim=(1, 2)))
+                       logJ)
 
 
 def link_coupling_forward(net_params, x: torch.Tensor, mu: int, off: int,

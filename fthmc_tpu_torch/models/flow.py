@@ -13,10 +13,10 @@ from torch.utils.checkpoint import checkpoint
 
 from fthmc_tpu_torch.config import FlowSpec
 from fthmc_tpu_torch.device import resolve_device
-from fthmc_tpu_torch.models.coupling import (_SPLINE_TODO,
-                                             link_coupling_forward,
+from fthmc_tpu_torch.models.coupling import (link_coupling_forward,
                                              link_coupling_reverse)
 from fthmc_tpu_torch.models.masks import layer_mask_params
+from fthmc_tpu_torch.models.spline import spline_out_channels
 from fthmc_tpu_torch.ops.conv import full_fp32, init_conv_net
 
 __all__ = ["init_flow_params", "flow_forward", "flow_reverse",
@@ -25,12 +25,15 @@ __all__ = ["init_flow_params", "flow_forward", "flow_reverse",
 
 def flow_out_channels(spec: FlowSpec) -> int:
     """Conditioner output channels: M + 1 for ncp (s_i, t), 2M + 1 for rncp
-    (s_i, r_i, t)."""
+    (s_i, r_i, t), 3K + 1 for spline (K widths, heights and derivatives,
+    t)."""
+    if spec.coupling == "spline":
+        return spline_out_channels(spec.n_knots)
     if spec.coupling == "rncp":
         return 2 * spec.n_mixture + 1
     if spec.coupling == "ncp":
         return spec.n_mixture + 1
-    raise NotImplementedError(_SPLINE_TODO)
+    raise ValueError(f"unknown coupling {spec.coupling!r}")
 
 
 def init_flow_params(spec: FlowSpec, generator: torch.Generator,
@@ -67,7 +70,8 @@ def flow_forward(params, x: torch.Tensor, spec: FlowSpec, remat: bool = True):
 @torch.no_grad()
 def flow_reverse(params, y: torch.Tensor, spec: FlowSpec, tol: float = 1e-6,
                  max_iter: int = 1000):
-    """Apply the whole flow in reverse by bisection (not differentiable):
+    """Apply the whole flow in reverse, the mixtures by bisection and the
+    spline analytically (not differentiable):
     y (B, 2, L, L) -> (x, logdet_rev (B,)), logdet_rev = -logdet_fwd(x).
     Plain torch ops on whatever device ``y`` lies on."""
     logdet = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)

@@ -7,12 +7,15 @@ cross-correlation, NCHW activations and OIHW weights, so a JAX weight
 from __future__ import annotations
 
 import contextlib
+from functools import lru_cache
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["circular_conv2d", "conv_net_apply", "conv_net_preacts",
-           "init_conv_net", "ACTIVATIONS", "full_fp32"]
+__all__ = ["circular_conv2d", "circular_conv2d_dense", "conv_net_apply",
+           "conv_net_preacts", "dense_circulant", "init_conv_net",
+           "ACTIVATIONS", "full_fp32"]
 
 
 @contextlib.contextmanager
@@ -39,6 +42,45 @@ def circular_conv2d(x: torch.Tensor, w: torch.Tensor,
     with full_fp32():
         y = F.conv2d(F.pad(x, (p, p, p, p), mode="circular"), w)
     return y + b[None, :, None, None]
+
+
+@lru_cache(maxsize=None)
+def _circulant_index(L: int, k: int):
+    """Neighbour table of the dense-circulant expansion: for each kernel tap
+    (dy, dx), the flat site q(p) = ((i+dy)%L)*L + (j+dx)%L of every site p.
+    Returns numpy arrays (taps, L*L) and (L*L,)."""
+    r = k // 2
+    p = np.arange(L * L)
+    i, j = p // L, p % L
+    qs = [((i + dy) % L) * L + ((j + dx) % L)
+          for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    return np.stack(qs), p
+
+
+def dense_circulant(w: torch.Tensor, L: int) -> torch.Tensor:
+    """A (Cout, Cin, k, k) periodic-conv kernel as the equivalent dense
+    matrix (Cin*L*L, Cout*L*L), so that the conv is one matmul. A utility
+    for operators precomputed once: as the flow's conv it lost 3x in the
+    JAX package (64x the operations)."""
+    O, C, k, _ = w.shape
+    qs, p = _circulant_index(L, k)
+    D = torch.zeros((C, L * L, O, L * L), dtype=w.dtype, device=w.device)
+    p_t = torch.as_tensor(p, device=w.device)
+    for t in range(k * k):
+        dy, dx = divmod(t, k)
+        # y[b, o, p] += w[o, c, dy, dx] * x[b, c, q(p)]
+        q_t = torch.as_tensor(qs[t], device=w.device)
+        D[:, q_t, :, p_t] += w[:, :, dy, dx].T[None]
+    return D.reshape(C * L * L, O * L * L)
+
+
+def circular_conv2d_dense(x: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Periodic conv through the dense-circulant matmul. x: (B, Cin, L, L)."""
+    B, C, L, _ = x.shape
+    with full_fp32():
+        y = x.reshape(B, C * L * L) @ dense_circulant(w, L)
+    return y.reshape(B, w.shape[0], L, L) + b[None, :, None, None]
 
 
 ACTIVATIONS = {
@@ -90,20 +132,32 @@ def init_conv_net(generator: torch.Generator, in_channels: int,
     return params
 
 
-def conv_net_preacts(params: list[dict], x: torch.Tensor,
-                     activation: str) -> list[torch.Tensor]:
+def conv_net_preacts(params: list[dict], x: torch.Tensor, activation: str,
+                     compute_dtype: torch.dtype | None = None
+                     ) -> list[torch.Tensor]:
     """The conv chain's pre-activations, one per conv; the last is the
-    chain's output (no activation after it)."""
+    chain's output (no activation after it).
+
+    With ``compute_dtype`` (torch.bfloat16) each conv casts its input,
+    weights and bias to it, runs in it (cuDNN accumulates in fp32 and rounds
+    the output) and casts the result back to x's dtype, as the JAX package
+    does; the activations run in x's dtype."""
     act = ACTIVATIONS[activation]
+    out_dtype = x.dtype
     pre = []
     for p in params:
         h = act(pre[-1]) if pre else x
-        pre.append(circular_conv2d(h, p["w"], p["b"]))
+        if compute_dtype is not None and compute_dtype != out_dtype:
+            y = circular_conv2d(h.to(compute_dtype), p["w"].to(compute_dtype),
+                                p["b"].to(compute_dtype)).to(out_dtype)
+        else:
+            y = circular_conv2d(h, p["w"], p["b"])
+        pre.append(y)
     return pre
 
 
-def conv_net_apply(params: list[dict], x: torch.Tensor,
-                   activation: str) -> torch.Tensor:
+def conv_net_apply(params: list[dict], x: torch.Tensor, activation: str,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Apply the conv chain with ``activation`` between convs (none after
-    the last)."""
-    return conv_net_preacts(params, x, activation)[-1]
+    the last), each conv in ``compute_dtype`` when given."""
+    return conv_net_preacts(params, x, activation, compute_dtype)[-1]

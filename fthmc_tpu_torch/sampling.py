@@ -3,10 +3,12 @@
 Counterpart of ``fthmc_tpu/sampling.py``. ``n_chains`` independent chains
 advance in lockstep: each block of ``batch`` proposals a chain is one flow
 evaluation on (batch * n_chains) prior draws, then a serial accept pass
-over the batch axis with every chain's own proposals and uniforms. On the
-card the flow evaluations go through K6 (``kernel_flow_forward``, one
-launch a layer a block; a spec K6 does not take raises), on the CPU through
-its plain twin. logq = prior.log_prob(z) - logdet.
+over the batch axis with every chain's own proposals and uniforms. The
+flow evaluations take ``flow_backend``: 'auto' is K6 on the card
+(``kernel_flow_forward``, one launch a layer a block; a spec K6 does not
+take, such as a spline or bf16 flow, raises) and its plain twin on the CPU;
+'torch' is ``models.flow.flow_forward`` (cuDNN's convs on the card), which
+takes every spec. logq = prior.log_prob(z) - logdet.
 
 The accept pass (``accept_pass``) is a function of the block's proposals'
 (logq, logp, charges, fields) and the uniforms, so the tests feed it the
@@ -29,9 +31,11 @@ import torch
 from fthmc_tpu_torch import lattice
 from fthmc_tpu_torch.config import FlowSpec
 from fthmc_tpu_torch.device import resolve_device
+from fthmc_tpu_torch.models.flow import flow_forward
 from fthmc_tpu_torch.models.priors import uniform_link_prior
 from fthmc_tpu_torch.observables import (acceptance_rate, chain_stats,
                                          topo_susceptibility)
+from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (kernel_fits,
                                                   kernel_flow_forward)
 
@@ -148,17 +152,29 @@ def _check_kernel(spec: FlowSpec, z: torch.Tensor):
     if z.device.type == "cuda" and not kernel_fits(spec, z.shape[-1],
                                                    z.shape[0]):
         raise ValueError(
-            f"flow sampling on the card runs its proposals through K6, "
-            f"which does not take coupling={spec.coupling!r}, conv_dtype="
+            f"flow_backend='auto' on the card runs the proposals through "
+            f"K6, which does not take coupling={spec.coupling!r}, conv_dtype="
             f"{spec.conv_dtype!r}, activation={spec.activation!r} at "
-            f"L={z.shape[-1]} (ops/coupling_kernels.kernel_fits)")
+            f"L={z.shape[-1]} (ops/coupling_kernels.kernel_fits); name "
+            f"flow_backend='torch' for such a flow")
 
 
-def propose(params, spec: FlowSpec, z: torch.Tensor, beta: float):
+def _flow(params, spec: FlowSpec, z: torch.Tensor, flow_backend: str):
+    if flow_backend == "auto":
+        _check_kernel(spec, z)
+        return kernel_flow_forward(params, z, spec)
+    if flow_backend == "torch":
+        with full_fp32():
+            return flow_forward(params, z, spec, remat=False)
+    raise ValueError(f"unknown flow_backend {flow_backend!r}")
+
+
+def propose(params, spec: FlowSpec, z: torch.Tensor, beta: float,
+            flow_backend: str = "auto"):
     """Proposals of latents z (B, 2, L, L): (x, logq, logp, charge), the
-    flow through K6 on the card (its plain twin on the CPU)."""
-    _check_kernel(spec, z)
-    x, logdet = kernel_flow_forward(params, z, spec)
+    flow through ``flow_backend`` ('auto': K6 on the card, its plain twin
+    on the CPU; 'torch': the torch flow)."""
+    x, logdet = _flow(params, spec, z, flow_backend)
     logq = uniform_link_prior(z.shape[-1], z.dtype,
                               device=z.device).log_prob(z) - logdet
     return x, logq, -lattice.batch_action(x, beta), lattice.batch_charges(x)
@@ -166,21 +182,22 @@ def propose(params, spec: FlowSpec, z: torch.Tensor, beta: float):
 
 @torch.no_grad()
 def run_ensemble(params, spec: FlowSpec, beta: float, z_init: torch.Tensor,
-                 blocks, keep_fields: bool = False):
+                 blocks, keep_fields: bool = False,
+                 flow_backend: str = "auto"):
     """The multi-chain ensemble on given draws: chain c starts from the
     proposal of z_init[c] (accepted by definition); ``blocks`` yields (z
     (batch * n_chains, 2, L, L), uniforms (batch, n_chains)), proposal k
     of a block going to chain k % n_chains. Returns (history {name:
     (n_blocks * batch, n_chains[, 2, L, L])}, init {name: (n_chains[, 2, L,
-    L])}), tensors on the draws' device."""
-    x0, lq0, lp0, q0 = propose(params, spec, z_init, beta)
+    L])}), tensors on the draws' device. ``flow_backend`` as ``propose``."""
+    x0, lq0, lp0, q0 = propose(params, spec, z_init, beta, flow_backend)
     n = z_init.shape[0]
     carry = (x0, lq0, lp0, q0)
     held = _GraphedHeld() if z_init.device.type == "cuda" else _held
     rows: dict = {}
     for z, u in blocks:
         batch = z.shape[0] // n
-        xp, lqp, lpp, qp = propose(params, spec, z, beta)
+        xp, lqp, lpp, qp = propose(params, spec, z, beta, flow_backend)
         out, carry = accept_pass(
             carry, lqp.reshape(batch, n), lpp.reshape(batch, n),
             qp.reshape(batch, n), u,
@@ -199,15 +216,17 @@ def run_ensemble(params, spec: FlowSpec, beta: float, z_init: torch.Tensor,
 def make_mcmc_ensemble(params, spec: FlowSpec, *, beta: float, L: int,
                        batch_size: int, num_samples: int,
                        generator: torch.Generator, n_chains: int = 1,
-                       keep_fields: bool = False,
+                       keep_fields: bool = False, flow_backend: str = "auto",
                        device=None) -> dict[str, np.ndarray]:
     """Independence-Metropolis chains over flow proposals on ``device``
     (the card by default), drawing latents and uniforms from
     ``generator``. ``num_samples`` samples a chain (the first, the
     always-accepted initial proposal, included) in blocks of
-    ``batch_size`` proposals a chain. Returns host numpy {'q', 'dqsq',
-    'logq', 'logp', 'acc'[, 'x']} of shape (num_samples,) for one chain,
-    (num_samples, n_chains) for more."""
+    ``batch_size`` proposals a chain, the flow through ``flow_backend``
+    ('auto': K6 on the card; 'torch': the torch flow, for the specs K6
+    does not take). Returns host numpy {'q', 'dqsq', 'logq', 'logp',
+    'acc'[, 'x']} of shape (num_samples,) for one chain, (num_samples,
+    n_chains) for more."""
     device = resolve_device(device)
     p0 = params[0][0]["w"]
     if p0.device.type != device.type:
@@ -226,7 +245,7 @@ def make_mcmc_ensemble(params, spec: FlowSpec, *, beta: float, L: int,
 
     hist, init = run_ensemble(params, spec, beta,
                               prior.sample_n(generator, n_chains), blocks(),
-                              keep_fields)
+                              keep_fields, flow_backend)
     out = {}
     for k, v in hist.items():
         v = torch.cat([init[k][None], v[:n_prop]]).cpu().numpy()
@@ -239,7 +258,7 @@ def generate_ensemble(params, spec: FlowSpec, *, beta: float, L: int,
                       nboot: int = 100, binsize: int = 16,
                       n_chains: int = 1,
                       generator: torch.Generator | None = None,
-                      device=None) -> dict:
+                      flow_backend: str = "auto", device=None) -> dict:
     """Flow-sampling evaluation: acceptance and chi_Q. One chain: the
     binned-bootstrap chi_Q error; more: ``ensemble_size`` samples a chain
     and errors across chains (observables.chain_stats), with tau_int(Q).
@@ -250,7 +269,7 @@ def generate_ensemble(params, spec: FlowSpec, *, beta: float, L: int,
     history = make_mcmc_ensemble(
         params, spec, beta=beta, L=L, batch_size=batch_size,
         num_samples=ensemble_size, generator=generator, n_chains=n_chains,
-        device=device)
+        flow_backend=flow_backend, device=device)
     out = {
         "history": history,
         "accept_rate": acceptance_rate(history["acc"]),

@@ -318,8 +318,10 @@ def _hmc_step_dyn(x, q_old, cfg: SchwingerConfig, draws, cg_log=None):
         return fermion.pf_force_at(xx, phi, res.x, cfg.mass,
                                    cfg.eo_precond), res.x
 
+    # as in the JAX package, this step does not read hasenbusch_dm
     x1, v1, x_sol = _integrate(
-        cfg, x, v0, torch.zeros_like(phi), dyn=force_fn, fermion=fermion_fn,
+        dataclasses.replace(cfg, hasenbusch_dm=0.0), x, v0,
+        torch.zeros_like(phi), dyn=force_fn, fermion=fermion_fn,
         gauge=lambda xx: lattice.batch_force(xx, cfg.beta))
     x1 = lattice.wrap(x1)
     s_pf1, res = fermion.pf_action_exact(

@@ -8,6 +8,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from fthmc_tpu_torch import bench as tb
 
@@ -62,3 +63,25 @@ def test_run_benchmarks_names_what_it_ran(capsys):
     assert set(out) == {"hmc"}
     assert out["hmc"]["metric"] == "hmc_leapfrog_chain_steps_per_sec_L4"
     assert "hmc_leapfrog" in capsys.readouterr().out
+
+
+def test_flagship_bench_takes_the_bf16_recipe_by_named_backend():
+    """bench_fthmc_flagship passes force_backend to run_fthmc: the bf16
+    recipe runs with 'autograd' named, and 'kernel' refuses it (as 'auto'
+    does on the card). One intra-op thread, as in test_torch_spline.py:
+    the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _bf16_bench()
+    finally:
+        torch.set_num_threads(n)
+
+
+def _bf16_bench():
+    kw = dict(L=4, chains=1, nstep=1, ntraj=1, repeats=1, device="cpu",
+              conv_dtype="bfloat16")
+    out = tb.bench_fthmc_flagship(force_backend="autograd", **kw)
+    assert out["conv_dtype"] == "bfloat16" and out["value"] > 0
+    with pytest.raises(ValueError, match="conv_dtype"):
+        tb.bench_fthmc_flagship(force_backend="kernel", **kw)

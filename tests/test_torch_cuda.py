@@ -1286,3 +1286,115 @@ def test_ferm_mass_era_on_the_card_is_the_cpus(card):
     he = he.numpy()
     for i, k in enumerate(dtypes):
         np.testing.assert_allclose(hg[k], he[i], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 and spline flows, the flow backends, the probe and the runner
+# ---------------------------------------------------------------------------
+
+def _card_cpu_flows(spec, card, seed=0):
+    params = init_flow_params(spec, torch.Generator().manual_seed(seed),
+                              device="cpu")
+    return params, [[{k: v.to(card) for k, v in c.items()} for c in net]
+                    for net in params]
+
+
+def test_spline_and_bf16_flows_on_the_card_are_the_cpus(card):
+    """The torch flow on the card against the CPU port: a spline flow in
+    fp32 (cuDNN's fp32 convs under full_fp32) to the fp32 bounds above;
+    a bf16-conv flow within one bf16 rounding of a conv output (0.01 on
+    the fields, 0.1 * max(1, |logdet|)), cuDNN and oneDNN summing in
+    other orders."""
+    from fthmc_tpu_torch.models.flow import flow_forward, flow_reverse
+    z = torch.rand((8, 2, 16, 16), generator=torch.Generator().manual_seed(1)
+                   ) * 2 * math.pi - math.pi
+    for spec, tol in ((FlowSpec(n_layers=4, coupling="spline", n_knots=8,
+                                hidden_sizes=(8, 8), s_clip=3.0), 1e-4),
+                      (FlowSpec(n_layers=4, coupling="rncp", n_mixture=4,
+                                hidden_sizes=(16,), s_clip=3.0,
+                                conv_dtype="bfloat16"), 1e-2)):
+        pc, pg = _card_cpu_flows(spec, card)
+        with torch.no_grad(), full_fp32():
+            yc, lc = flow_forward(pc, z, spec)
+            yg, lg = flow_forward(pg, z.to(card), spec)
+        assert _wrapped(yg.cpu(), yc) < tol
+        assert float((lg.cpu() - lc).abs().max()) <= \
+            10 * tol * max(1.0, float(lc.abs().max()))
+        xg, _ = flow_reverse(pg, yg, spec)
+        assert _wrapped(xg.cpu(), z) < 5e-4
+
+
+def test_flow_backends_on_the_card(card):
+    """Flow sampling on the card: 'auto' (K6) refuses a spline flow,
+    'torch' samples it; for an ncp flow the two backends' proposals agree
+    to fp32 roundoff (fields 1e-4 wrapped, logq 1e-4 relative)."""
+    from fthmc_tpu_torch.sampling import make_mcmc_ensemble
+    spline = FlowSpec(n_layers=2, coupling="spline", n_knots=4,
+                      hidden_sizes=(4,))
+    _, pg = _card_cpu_flows(spline, card)
+    kw = dict(beta=2.0, L=8, batch_size=8, num_samples=33, n_chains=4,
+              device=card)
+    with pytest.raises(ValueError, match="flow_backend='torch'"):
+        make_mcmc_ensemble(pg, spline, generator=torch.Generator(
+            card).manual_seed(0), **kw)
+    out = make_mcmc_ensemble(pg, spline, flow_backend="torch",
+                             generator=torch.Generator(card).manual_seed(0),
+                             **kw)
+    assert out["acc"].shape == (33, 4) and np.isfinite(out["logq"]).all()
+    from fthmc_tpu_torch.sampling import propose
+    _, pn = _card_cpu_flows(SPECS[0], card)
+    z = torch.rand((64, 2, 8, 8), device=card) * 2 * math.pi - math.pi
+    _build.reset_counts()
+    with full_fp32():
+        a = propose(pn, SPECS[0], z, 2.0, "auto")
+    assert _build.LAUNCHES["K6"] == SPECS[0].n_layers
+    b = propose(pn, SPECS[0], z, 2.0, "torch")
+    assert _build.LAUNCHES["K6"] == SPECS[0].n_layers
+    assert _wrapped(a[0], b[0]) < 1e-4
+    assert float((a[1] - b[1]).abs().max()) <= 1e-4 * max(
+        1.0, float(b[1].abs().max()))
+
+
+def test_plain_probe_launches_k1_a_force(card):
+    """The plain mobility probe on the card: Omelyan 'xla' steps, one K1
+    launch a force (2 nstep + 1 a trajectory), no plain twin."""
+    from fthmc_tpu_torch.mobility import mobility_probe
+    _build.reset_counts()
+    st = mobility_probe(None, None, L=16, beta=6.0, n_chains=32, ntraj=8,
+                        therm=4, tau=0.5, nstep=4, call_block=4,
+                        sampler="plain", device=card)
+    n_traj = 4 + 8                     # one therm block of 4, two timed
+    assert _build.LAUNCHES["K1"] == n_traj * (2 * 4 + 1)
+    assert not any(_build.PLAIN_CALLS.values())
+    assert st["ntraj"] == 8 and st["s_per_traj"] > 0
+
+
+def test_runner_default_sync_polls_the_card(card):
+    """The default sync on a CUDA tensor waits for the work behind it by
+    polling an event, and the runner resumes on the card bit for bit."""
+    import tempfile
+    from fthmc_tpu_torch.runner import _default_sync, run_resilient
+    x = torch.randn((256, 256), device=card)
+    y = x @ x
+    _default_sync(y)
+    assert torch.cuda.current_stream(card).query()
+    cfg = HMCConfig(beta=2.0, L=8, tau=0.5, nstep=4, n_chains=4)
+
+    def step(g, z, n):
+        import dataclasses
+        return th.run_hmc(dataclasses.replace(cfg, ntraj=n), x0=z,
+                          generator=g, device=card)
+
+    z0 = torch.zeros((4, 2, 8, 8), device=card)
+    with tempfile.TemporaryDirectory() as d:
+        sp = f"{d}/s.npz"
+        run_resilient(step, z0, generator=torch.Generator(card).manual_seed(
+            3), ntraj=4, block=2, state_path=sp, max_retries=0)
+        zr, hr, _ = run_resilient(step, z0, generator=torch.Generator(
+            card).manual_seed(8), ntraj=8, block=2, state_path=sp,
+            max_retries=0)
+    zw, hw, _ = run_resilient(step, z0, generator=torch.Generator(
+        card).manual_seed(3), ntraj=8, block=2, max_retries=0)
+    assert zr.device.type == "cuda" and torch.equal(zr, zw)
+    for k in hw:
+        np.testing.assert_array_equal(hr[k], hw[k])

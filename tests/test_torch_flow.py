@@ -1,5 +1,6 @@
-"""fthmc_tpu_torch flow (masks, conv chain, ncp/rncp couplings, the stack)
-against fthmc_tpu on the same float64 numpy parameters and fields.
+"""fthmc_tpu_torch flow (masks, conv chain, the dense-circulant conv, the
+ncp/rncp/spline couplings and plaquette forwards, the stack) against
+fthmc_tpu on the same float64 numpy parameters and fields.
 
 Bound 1e-10: the forward maps are a few dozen fp64 operations per site
 (roundoff ~1e-14). The bisection inverses take the same branch at every
@@ -32,7 +33,8 @@ def np_tree(kw, seed):
     """JAX-layout flow parameters as float64 numpy, torch-default scale."""
     rng = np.random.default_rng(seed)
     M = kw.get("n_mixture", 2)
-    out = 2 * M + 1 if kw.get("coupling") == "rncp" else M + 1
+    out = {"rncp": 2 * M + 1, "spline": 3 * kw.get("n_knots", 8) + 1}.get(
+        kw.get("coupling"), M + 1)
     sizes = (2, *kw.get("hidden_sizes", (8, 8)), out)
     tree = []
     for _ in range(kw.get("n_layers", 24)):
@@ -174,7 +176,81 @@ def test_remat_changes_nothing():
     np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), atol=1e-13)
 
 
-def test_spline_is_not_ported_yet():
-    spec = TSpec(n_layers=1, coupling="spline")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_flow_params(spec, torch.Generator(), device="cpu")
+def test_spline_flow_init_forward_reverse_match():
+    """A spline flow: init_flow_params gives the JAX package's shapes
+    (3K + 1 conditioner outputs), and the stack's forward and analytic
+    reverse equal JAX's on the same parameters."""
+    kw = dict(n_layers=3, coupling="spline", n_knots=5, hidden_sizes=(6,),
+              s_clip=3.0)
+    fresh = tf.init_flow_params(TSpec(**kw), torch.Generator().manual_seed(0),
+                                device="cpu")
+    jfresh = jf.init_flow_params(jax.random.PRNGKey(0), JSpec(**kw))
+    assert [[tuple(c["w"].shape) for c in net] for net in fresh] == \
+        [[tuple(c["w"].shape) for c in net] for net in jfresh]
+    assert tf.count_parameters(fresh) == jf.count_parameters(jfresh)
+    z = links(7)
+    with jax.enable_x64():
+        jspec, jp, tspec, tp = both(kw, 14)
+        yj, ldj = jf.flow_forward(jp, jnp.asarray(z), jspec)
+        xj, lrj = jf.flow_reverse(jp, yj, jspec)
+        yj, ldj, xj, lrj = map(np.asarray, (yj, ldj, xj, lrj))
+    yt, ldt = tf.flow_forward(tp, torch.as_tensor(z), tspec)
+    assert wrapped_diff(yt.detach().numpy(), yj) < TOL
+    np.testing.assert_allclose(ldt.detach().numpy(), ldj, rtol=0, atol=TOL)
+    xt, lrt = tf.flow_reverse(tp, torch.tensor(yj), tspec)
+    assert wrapped_diff(xt.numpy(), xj) < TOL
+    np.testing.assert_allclose(lrt.numpy(), lrj, rtol=0, atol=TOL)
+    assert wrapped_diff(xt.numpy(), z) < 1e-8
+
+
+@pytest.mark.parametrize("coupling,M,s_clip", COUPLINGS + [("spline", 4, 3.0)])
+def test_plaq_coupling_forward_matches(coupling, M, s_clip):
+    """The plaquette-level forward (plaq_coupling_forward, its rncp and
+    spline aliases, plaq_transform_forward) against JAX's on plaquette
+    angles outside [-pi, pi), as a flow feeds it."""
+    kw = dict(n_layers=1, coupling=coupling, n_mixture=M, n_knots=M,
+              hidden_sizes=(8,), s_clip=s_clip)
+    plaq = 1.5 * links(8)[:, 0] + links(9)[:, 1]
+    fns = {"ncp": ("plaq_coupling_forward",),
+           "rncp": ("rncp_plaq_coupling_forward",),
+           "spline": ("spline_plaq_coupling_forward",)}[coupling] + (
+        "plaq_transform_forward",)
+    for name in fns:
+        with jax.enable_x64():
+            jspec, jp, tspec, tp = both(kw, 15)
+            fj = getattr(jc, name)(jp[0], jnp.asarray(plaq), 0, 3, jspec)
+            fj = tuple(np.asarray(a) for a in fj)
+        ft = getattr(tc, name)(tp[0], torch.as_tensor(plaq), 0, 3, tspec)
+        np.testing.assert_allclose(ft.x.detach().numpy(), fj[0], rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(ft.logJ.detach().numpy(), fj[1], rtol=0,
+                                   atol=TOL)
+
+
+def test_dense_circulant_matches_jax_and_the_conv():
+    """dense_circulant against JAX's matrix, and circular_conv2d_dense
+    against circular_conv2d and JAX's, values and weight gradients (the
+    JAX test's shapes: 8 outputs, 2 inputs, 8^2, 4 chains)."""
+    rng = np.random.default_rng(0)
+    w, b = rng.normal(size=(8, 2, 3, 3)), rng.normal(size=(8,))
+    x = rng.normal(size=(4, 2, 8, 8))
+    with jax.enable_x64():
+        Dj = np.asarray(jconv.dense_circulant(jnp.asarray(w), 8))
+        yj = np.asarray(jconv.circular_conv2d_dense(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    wt = torch.as_tensor(w).requires_grad_(True)
+    np.testing.assert_array_equal(
+        tconv.dense_circulant(wt, 8).detach().numpy(), Dj)
+    xt, bt = torch.as_tensor(x), torch.as_tensor(b)
+    y2 = tconv.circular_conv2d_dense(xt, wt, bt)
+    y1 = tconv.circular_conv2d(xt, wt, bt)
+    np.testing.assert_allclose(y2.detach().numpy(), yj, rtol=0, atol=TOL)
+    np.testing.assert_allclose(y2.detach().numpy(), y1.detach().numpy(),
+                               rtol=0, atol=TOL)
+    (g1,) = torch.autograd.grad(torch.sin(y1).sum(), wt)
+    (g2,) = torch.autograd.grad(torch.sin(y2).sum(), wt)
+    np.testing.assert_allclose(g2.numpy(), g1.numpy(), rtol=0, atol=1e-9)
+    # a lattice smaller than the kernel's reach: taps alias and add up
+    np.testing.assert_allclose(
+        tconv.circular_conv2d_dense(xt[:, :, :2, :2], wt, bt).detach(),
+        tconv.circular_conv2d(xt[:, :, :2, :2], wt, bt).detach(), atol=TOL)

@@ -161,3 +161,18 @@ def test_training_sampling_and_bench_entry_points_raise_without_cuda(
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         call(device="cpu")
+
+
+def test_probe_and_diagnostics_entry_points_raise_without_cuda(no_cuda):
+    """The mobility probe defaults to the card and raises without one;
+    with device='cpu' it runs there. The new modules (mobility,
+    diagnostics, runner, models/spline) are in the import scan above."""
+    from fthmc_tpu_torch import mobility as tm
+    for name in ("mobility.py", "diagnostics.py", "runner.py",
+                 "models/spline.py"):
+        assert (ROOT / "fthmc_tpu_torch" / name).exists()
+    kw = dict(L=4, beta=1.0, n_chains=2, ntraj=2, therm=1, tau=0.2, nstep=1,
+              call_block=2, sampler="plain")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.mobility_probe(None, None, **kw)
+    assert tm.mobility_probe(None, None, device="cpu", **kw)["ntraj"] == 2

@@ -187,11 +187,19 @@ def test_force_evaluations_are_the_integrators(kw, want):
 
 # ------------------------------------------------------------------ steps
 
-@pytest.mark.parametrize("integrator", ["leapfrog", "omelyan"])
-def test_nested_hmc_step_dyn_matches_jax_on_its_draws(integrator):
-    kw = dict(L=L, beta=2.0, mass=0.3, tau=0.4, nstep=3, n_inner=2,
-              n_chains=B, integrator=integrator, cg_tol_force=1e-10,
-              cg_tol_mh=1e-12, cg_maxiter=400)
+@pytest.mark.parametrize("integrator,n_inner,dm", [
+    pytest.param("leapfrog", 2, 0.0, id="leapfrog"),
+    pytest.param("omelyan", 2, 0.0, id="omelyan"),
+    pytest.param("omelyan", 0, 0.2, id="omelyan-single-hasenbusch_dm"),
+    pytest.param("omelyan", 2, 0.2, id="omelyan-nested-hasenbusch_dm")])
+def test_nested_hmc_step_dyn_matches_jax_on_its_draws(integrator, n_inner,
+                                                      dm):
+    """hmc_step_dyn, single scale or nested, on JAX's draws. As in the JAX
+    package the step does not read hasenbusch_dm (only run_hmc_dyn picks
+    the Hasenbusch step), so dm > 0 runs the same step."""
+    kw = dict(L=L, beta=2.0, mass=0.3, tau=0.4, nstep=3, n_inner=n_inner,
+              n_chains=B, integrator=integrator, hasenbusch_dm=dm,
+              cg_tol_force=1e-10, cg_tol_mh=1e-12, cg_maxiter=400)
     x = _links(1)
     key = jax.random.PRNGKey(3)
     xj, _, mj = js.hmc_step_dyn(key, jnp.asarray(x),

@@ -184,6 +184,38 @@ def test_proposals_run_k6s_twin_once_a_layer_a_block(params2):
     assert not any(_build.LAUNCHES.values())
 
 
+def test_flow_backend_torch_runs_the_torch_flow_and_every_spec(params2):
+    """flow_backend='torch' runs models.flow.flow_forward (no K6 twin
+    call): on an ncp flow its history equals 'auto''s exactly (the same
+    operations), and it samples the specs K6 does not take, a spline and a
+    bf16-conv flow. An unknown backend raises."""
+    kw = dict(beta=2.0, L=8, batch_size=4, num_samples=13, n_chains=2,
+              device="cpu")
+    ref = make_mcmc_ensemble(params2, SPEC2, generator=gen(4), **kw)
+    _build.reset_counts()
+    got = make_mcmc_ensemble(params2, SPEC2, generator=gen(4),
+                             flow_backend="torch", **kw)
+    assert not any(_build.PLAIN_CALLS.values())
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k])
+    for spec in (FlowSpec(n_layers=2, coupling="spline", n_knots=4,
+                          hidden_sizes=(4,), s_clip=3.0),
+                 FlowSpec(**KW, conv_dtype="bfloat16")):
+        params = (params2 if spec.coupling == "ncp" else
+                  flow_params_from_numpy(
+                      [[{"w": 0.1 * np.ones((4, 2, 3, 3)),
+                         "b": np.zeros(4)},
+                        {"w": 0.05 * np.ones((13, 4, 3, 3)),
+                         "b": np.zeros(13)}]] * 2, spec, device="cpu"))
+        out = make_mcmc_ensemble(params, spec, generator=gen(5),
+                                 flow_backend="torch", **kw)
+        assert out["acc"].shape == (13, 2) and out["acc"][0].all()
+        assert np.all(np.isfinite(out["logq"]))
+    with pytest.raises(ValueError, match="flow_backend"):
+        make_mcmc_ensemble(params2, SPEC2, generator=gen(4),
+                           flow_backend="bogus", **kw)
+
+
 # ---------------------------------------------------------------------------
 # mirrors of tests/test_sampling.py
 # ---------------------------------------------------------------------------

@@ -83,3 +83,37 @@ def test_flow_params_from_numpy_checks_shapes(orbax_flow):
 def test_load_flow_npz_refuses_an_unknown_name():
     with pytest.raises(ValueError, match="unknown flow"):
         load_flow_npz(device="cpu", name="flow8x8_nonexistent")
+
+
+@pytest.mark.parametrize("kw,tol", [
+    (dict(n_layers=3, coupling="spline", n_knots=6, hidden_sizes=(8,),
+          s_clip=3.0), (1e-4, 1e-5)),
+    (dict(n_layers=3, coupling="rncp", n_mixture=3, hidden_sizes=(8,),
+          s_clip=3.0, conv_dtype="bfloat16"), (1e-2, 1e-1))])
+def test_jax_spline_and_bf16_flows_carry_across(tmp_path, kw, tol):
+    """A fresh JAX flow of a spec the trained flows do not cover (a spline,
+    3K + 1 conditioner outputs; a bf16-conv rncp) written with
+    save_flow_npz and read back with load_flow_npz gives JAX's forward on
+    fp32 inputs: the spline to fp32 roundoff (1e-4 wrapped, 1e-5 *
+    max(1, |logdet|)); the bf16 flow within one bf16 rounding of a conv
+    output (0.01, 0.1 * max(1, |logdet|); test_torch_mixed_precision.py)."""
+    from fthmc_tpu.config import FlowSpec as JSpec
+    from fthmc_tpu.models.flow import init_flow_params as jax_init
+    from fthmc_tpu_torch.config import FlowSpec as TSpec
+    from fthmc_tpu_torch.weights import save_flow_npz
+    jspec = JSpec(**kw)
+    jparams = jax_init(jax.random.PRNGKey(4), jspec)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    save_flow_npz(tmp_path / "flow.npz", tree, TSpec(**kw))
+    params, spec = load_flow_npz(tmp_path / "flow.npz", device="cpu")
+    assert spec == TSpec(**kw)
+    z = np.random.default_rng(1).uniform(-PI, PI, (4, 2, 8, 8)).astype(
+        np.float32)
+    yj, ldj = jax_flow_forward(jparams, jnp.asarray(z), jspec)
+    yj, ldj = np.asarray(yj), np.asarray(ldj)
+    with torch.no_grad():
+        yt, ldt = flow_forward(params, torch.as_tensor(z), spec)
+    dy = np.abs(np.remainder(yt.numpy() - yj + PI, 2 * PI) - PI).max()
+    assert dy < tol[0]
+    np.testing.assert_allclose(ldt.numpy(), ldj, rtol=0,
+                               atol=tol[1] * max(1.0, np.abs(ldj).max()))

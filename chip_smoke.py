@@ -112,7 +112,7 @@ Phases, each printed on its own line:
      epochs (eager: train.FERM_ERA_GRAPHED);
   11. the slice around the samplers: the JAX package's bf16 recipe at
      64^2 (BF16_SPEC, fresh weights, 32 chains, beta=6, 8 Omelyan steps
-     from z0 = 0): 'auto' and 'kernel' refuse it, 'autograd' runs 16 + 32
+     from z0 = 0): 'auto' and 'kernel' refuse it, 'autograd' runs 16 + 16
      trajectories (<exp(-dH)> within 0.1 of 1, the flow's round trip on
      the final fields within 5e-4, no K6-K8 launch), and its bench beside
      fp32's (autograd, and the kernels where they take the shape); the
@@ -127,11 +127,29 @@ Phases, each printed on its own line:
      against leapfrog); a spline flow (one step's gradients against the
      CPU, train() with one host sync an era, flow sampling through
      flow_backend='torch', 'auto' refusing it);
-  12. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
+  12. the parallel drivers (fthmc_tpu_torch.parallel) at world size 1 on
+     an NCCL group made from a HashStore (no TCP port), destroyed at the
+     end: sharded_run_hmc at the headline ('auto': K2), sharded_run_fthmc
+     at the flagship and sharded_run_hmc_dyn at path B, each bit-equal to
+     its single-device driver run with rank_generator(g, 0) and with its
+     launches (in turns, for the time); train(cfg, mesh=) for one era of
+     the reference configuration against train_era on the same draws
+     (the first step's loss and gradients, then the era's losses, within
+     1e-5 relative); the row-sharded drivers, every halo row through the
+     all-gather: one HMC step at 64^2 x 64 against hmc_step's 'xla' path
+     on the same draws, a run's <exp(-dH)> within 0.05 of 1,
+     ft_force_sharded at the flagship against the autograd force (1e-4 x
+     max), a few row-sharded FT trajectories, and row-sharded dynamical
+     HMC at the JAX package's sharded test configuration, 16^2, beta=2,
+     m=0.2 (<exp(-dH)> within 0.05 of 1, <plaq> beside the JAX package's
+     sharded reading 0.706-0.708), each with its s a
+     trajectory beside the single-device driver's, its collectives a
+     trajectory and no kernel launched;
+  13. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
      those of the FT path and the sampling path, K9's the operator path's
-     and path G's; K1, K6-K8 and K11 with the probes' and the runner's
-     added);
-  13. last, {"ok": true, "device": {...}}.
+     and path G's; K1, K6-K8 and K11 with the probes', the runner's and
+     phase 12's added);
+  14. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -191,6 +209,10 @@ from fthmc_tpu_torch import bench as tbench
 from fthmc_tpu_torch import observables as tobs
 from fthmc_tpu_torch import sampling as tsample
 from fthmc_tpu_torch import train as ttrain
+from fthmc_tpu_torch.parallel import domain as pdom
+from fthmc_tpu_torch.parallel import domain_fermion as pdferm
+from fthmc_tpu_torch.parallel import domain_flow as pdflow
+from fthmc_tpu_torch.parallel import mesh as pmesh
 from fthmc_tpu_torch.runner import BlockTimeout, run_resilient
 from fthmc_tpu_torch.weights import load_flow_npz
 
@@ -441,7 +463,7 @@ SAMPLING = dict(beta=2.0, L=8, batch_size=64, num_samples=4096, n_chains=64)
 # the force by autograd (the kernels refuse bf16); (thermalizing,
 # measured) trajectories; the bench's (trajectories a repeat, repeats).
 BF16_SPEC = dataclasses.replace(FLAGSHIP_TRAIN.flow, conv_dtype="bfloat16")
-BF16_L, BF16_CHAINS, BF16_TRAJ, BF16_BENCH = 64, 32, (16, 32), (1, 2)
+BF16_L, BF16_CHAINS, BF16_TRAJ, BF16_BENCH = 64, 32, (16, 16), (1, 2)
 # The mobility probes at the production selection regime
 # (experiments/finetune_force.py:66-100): 16^2, beta=6, 128 chains,
 # tau=0.5, 4 Omelyan steps, the trained flagship flow; the trajectories
@@ -467,6 +489,32 @@ SPLINE_TRAIN = dataclasses.replace(
 SPLINE_ENSEMBLE = (64, 1024)
 # reversibility_error against the CPU port: chains and steps
 REV_CHAINS, REV_NSTEP = 4, 4
+# Phase 12, the parallel drivers at world size 1 on an NCCL group. The
+# chain-sharded runs held bit for bit to their single-device drivers:
+# trajectories of the headline ('auto': K2), of the flagship FT path and
+# of path B (K11 on chains-last planes).
+PAR_TRAJ = {"hmc": 20, "fthmc": 6, "hmc_dyn": 4}
+# the reference training configuration, one era of 100 epochs
+PAR_TRAIN = dataclasses.replace(REF_TRAIN, n_era=1)
+# row-sharded HMC at 64^2 x 64 chains with the headline's beta, dt and
+# steps: trajectories thermalizing near-equilibrium links on one device
+# ('auto', K2; the plaquette's slow modes need some 500), then row-sharded
+# trajectories measured
+PAR_DOMAIN_HMC = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, n_chains=64)
+PAR_DOMAIN_HMC_TRAJ = (500, 40)
+# row-sharded FT-HMC with the trained flow at the flagship's shape
+# (leapfrog, as the JAX domain step integrates): trajectories
+PAR_DOMAIN_FT_TRAJ = 2
+# row-sharded dynamical HMC at the JAX package's sharded test configuration
+# (tests/test_domain_fermion.py: 16^2, beta=2, m=0.2, tau=1, 8 Omelyan
+# steps, maxiter 2000; 16 chains here), where the JAX package's sharded
+# run of 8 chains x 96 trajectories read <exp(-dH)> 1.000 and <plaq>
+# 0.706-0.708: (trajectories thermalizing near-equilibrium links on one
+# device (K11), row-sharded trajectories measured from there), the block
+PAR_DOMAIN_DYN = SchwingerConfig(L=16, beta=2.0, mass=0.2, tau=1.0, nstep=8,
+                                 n_chains=16, cg_maxiter=2000)
+PAR_DOMAIN_DYN_TRAJ, PAR_DOMAIN_DYN_BLOCK = (40, 10), 7
+PAR_DYN_PLAQ = (0.706, 0.708)
 
 
 def say(phase: str, **kw) -> None:
@@ -2731,6 +2779,304 @@ def phase11(dev, params, spec) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the parallel drivers
+# ---------------------------------------------------------------------------
+
+def _timed(fn):
+    """(fn(), its wall seconds, the launches it made), the counters set to
+    0 just before it."""
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def _bit_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def chain_sharded_pair(name: str, sharded, single, expect: dict) -> dict:
+    """A chain-sharded run and its single-device driver on the rank
+    generator, in turns (single, sharded, sharded, single): the first pair
+    bit for bit equal (final chains and every history field), the launch
+    counters of each run equal to each other and to ``expect``; seconds
+    of each, and the faster sharded run over the faster single one."""
+    (x1, h1), t1a, l1 = _timed(single)
+    (xs, hs), tsa, ls = _timed(sharded)
+    _, tsb, _ = _timed(sharded)
+    _, t1b, _ = _timed(single)
+    r = {"bit_equal": torch.equal(x1, xs) and _bit_equal(h1, hs),
+         "launches": ls, "single_launches": l1, "expected": expect,
+         "sharded_s": [tsa, tsb], "single_s": [t1a, t1b],
+         "sharded_over_single": min(tsa, tsb) / min(t1a, t1b),
+         "acceptance": float(hs.acc.mean()),
+         "exp_mdh": float(hs.exp_mdh.mean())}
+    require(r["bit_equal"], f"{name}: sharded run != single-device run")
+    require(ls == l1 == expect, f"{name} launches {ls}, {l1}, {expect}")
+    return r
+
+
+def parallel_chain_runs(mesh, dev, params, spec, z0) -> dict:
+    """sharded_run_hmc (headline), sharded_run_fthmc (flagship) and
+    sharded_run_hmc_dyn (path B) against their single-device drivers run
+    with rank_generator(g, 0)."""
+    out = {}
+    hc = dataclasses.replace(HMC_CFG, ntraj=PAR_TRAJ["hmc"])
+    x0 = torch.zeros((hc.n_chains, 2, hc.L, hc.L), device=dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect["K2"] = hc.ntraj
+    out["hmc"] = chain_sharded_pair(
+        "sharded_run_hmc",
+        lambda: pmesh.sharded_run_hmc(mesh, hc, x0=x0, generator=gen(61)),
+        lambda: run_hmc(hc, x0=x0, generator=pmesh.rank_generator(gen(61),
+                                                                  0),
+                        device=dev), expect)
+    lf, n = LeapfrogConfig(tau=TAU, nstep=NSTEP), PAR_TRAJ["fthmc"]
+    n_force, nl = 2 * NSTEP + 1, spec.n_layers
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect.update({"K1": n_force * n, "K6": 2 * nl * n + nl,
+                   "K7": n_force * nl * n, "K8": n_force * nl * n})
+    kw = dict(beta=BETA, ntraj=n, z0=z0, integrator="omelyan")
+    out["fthmc"] = chain_sharded_pair(
+        "sharded_run_fthmc",
+        lambda: pmesh.sharded_run_fthmc(mesh, params, spec, lf,
+                                        generator=gen(62), **kw),
+        lambda: run_fthmc(params, spec, lf, device=dev,
+                          generator=pmesh.rank_generator(gen(62), 0), **kw),
+        expect)
+    cfg = dataclasses.replace(DYN["B"], ntraj=PAR_TRAJ["hmc_dyn"])
+    xb = near_equilibrium(gen(63), cfg.n_chains, cfg.L, cfg.beta, dev)
+    n_force = force_evaluations(cfg)["dyn"]
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect.update({"K1": n_force * cfg.ntraj,            # K11: a solve a
+                   "K11": (n_force + 1) * cfg.ntraj})   # force, one MH
+    out["hmc_dyn"] = chain_sharded_pair(
+        "sharded_run_hmc_dyn",
+        lambda: pmesh.sharded_run_hmc_dyn(mesh, cfg, x0=xb,
+                                          generator=gen(64)),
+        lambda: run_hmc_dyn(cfg, x0=xb, device=dev,
+                            generator=pmesh.rank_generator(gen(64), 0)),
+        expect)
+    return out
+
+
+def _rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def parallel_training(mesh, dev) -> dict:
+    """train(cfg, mesh=) for one era of the reference configuration: its
+    first step's loss and gradients (``_dp_loss_and_grads``) against
+    train's ``loss_and_grads`` on the same latents, then the era's losses
+    against train_era's on the rank generator's draws, within 1e-5
+    relative; steps/s of each."""
+    cfg = PAR_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(65)
+    state = ttrain.init_train_state(gen, cfg, device=dev)
+    z = priors.uniform_link_prior(cfg.L, device=dev).sample_n(
+        pmesh.rank_generator(gen, 1), cfg.batch_size)
+    loss_m, _, grads_m, _ = pmesh._dp_loss_and_grads(
+        mesh, state.params, cfg.flow, z, cfg.beta, cfg.dkl_factor)
+    loss_1, _, grads_1 = ttrain.loss_and_grads(state.params, cfg.flow, z,
+                                               cfg.beta, cfg.dkl_factor)
+    g_m, g_1 = torch.cat([g.reshape(-1) for g in grads_m]), torch.cat(
+        [g.reshape(-1) for g in grads_1])
+    step = {"loss_rel_err": abs(float(loss_m - loss_1)) / abs(float(loss_1)),
+            "grad_rel_err": _rel_norm(g_m, g_1)}
+    single = state._replace(generator=pmesh.rank_generator(gen, 0))
+    (_, hm), t_m, lm = _timed(lambda: ttrain.train(cfg, state, mesh=mesh))
+    (_, h1), t_1, _ = _timed(lambda: ttrain.train_era(
+        single, cfg.flow, cfg.batch_size, cfg.L, cfg.beta, cfg.dkl_factor,
+        cfg.base_lr, cfg.n_epoch))
+    lm_, l1_ = np.asarray(hm["loss_dkl"]), np.asarray(h1["loss_dkl"])
+    ess = np.asarray(hm["ess"])
+    r = {**step, "graphed": ttrain.MESH_ERA_GRAPHED, "epochs": cfg.n_epoch,
+         "era_loss_max_rel_err": float(np.max(np.abs(lm_ - l1_)
+                                              / np.abs(l1_))),
+         "loss_first_last": [float(lm_[0]), float(lm_[-1])],
+         "ess_last": float(ess[-1]),
+         "mesh_steps_per_s": cfg.n_epoch / t_m,
+         "single_steps_per_s": cfg.n_epoch / t_1, "launches": lm}
+    require(step["loss_rel_err"] <= 1e-5 and step["grad_rel_err"] <= 1e-5,
+            f"mesh step vs single: {step}")
+    require(r["era_loss_max_rel_err"] <= 1e-5, f"mesh era vs single: {r}")
+    require(np.isfinite(lm_).all() and ((ess > 0) & (ess <= 1)).all(),
+            f"mesh era: {r}")
+    return r
+
+
+def _collectives_per(n: int) -> dict:
+    return {k: v / n for k, v in pmesh.COLLECTIVES.items()}
+
+
+def collective_ms(rows, dev, n: int = 200) -> dict:
+    """Host wall ms a call of the domain drivers' two collectives at world
+    size 1, each of n calls back to back then a synchronize: the halo
+    exchange (``domain._fetch``, a row of 64 chains at 64^2 each way) and
+    an all-reduce of 64 values."""
+    row = torch.zeros((64, 1, 64), device=dev)
+    vals = torch.zeros(64, device=dev)
+    calls = {"halo_exchange": lambda: pdom._fetch(rows, (row, 1), (row, -1)),
+             "all_reduce": lambda: pmesh._all_reduce(rows, vals)}
+    out = {}
+    for name, fn in calls.items():
+        for _warm in range(2):                     # the first warms up
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / n
+    return out
+
+
+def parallel_domain(rows, dev, params, spec, z0) -> dict:
+    """The row-sharded drivers at world size 1 (every halo row through the
+    all-gather): one HMC step's core against hmc_step's 'xla' path on the
+    same draws, a run's exactness, ft_force_sharded against the autograd
+    force, a few FT trajectories, and the dynamical run at the JAX
+    package's sharded test configuration; s a trajectory beside the
+    single-device driver at the same configuration, collectives a
+    trajectory, no kernel launched."""
+    out = {"collective_ms": collective_ms(rows, dev)}
+    cfg = dataclasses.replace(PAR_DOMAIN_HMC, ntraj=1)
+    g = torch.Generator(device=dev).manual_seed(66)
+    x = near_equilibrium(g, cfg.n_chains, cfg.L, cfg.beta, dev)
+    state = g.get_state()
+    v0 = torch.randn(x.shape, generator=g, device=dev)
+    u = torch.rand((cfg.n_chains,), generator=g, device=dev)
+    g.set_state(state)
+    q0 = lattice.topo_charge(x)
+    xr, _, mr = hmc_step(g, x, q0, cfg.beta, cfg.dt, cfg.nstep,
+                         backend="xla", device=dev)
+    xd, _, md = pdom._domain_hmc_step_from(
+        pdom.shard_rows(rows, x), q0, pdom.shard_rows(rows, v0), u,
+        beta=cfg.beta, dt=cfg.dt, nstep=cfg.nstep, mesh=rows)
+    out["hmc_step_vs_xla"] = traj_check(
+        "domain step", (pdom.gather_rows(rows, xd), md.dh,
+                        md.acc.bool()), (xr, mr.dh, mr.acc.bool()), x, v0,
+        u, cfg)
+    therm, meas = PAR_DOMAIN_HMC_TRAJ
+    x, _ = run_hmc(dataclasses.replace(PAR_DOMAIN_HMC, ntraj=therm), x0=x,
+                   device=dev)
+    cfg = dataclasses.replace(PAR_DOMAIN_HMC, ntraj=meas)
+    pmesh.reset_collectives()
+    (xd, h), t_d, l_d = _timed(lambda: pdom.run_domain_hmc(
+        rows, cfg, x0=x, generator=torch.Generator(device=dev)
+        .manual_seed(67)))
+    coll = _collectives_per(cfg.ntraj)
+    (_, hx), t_x, _ = _timed(lambda: run_hmc(cfg, x0=x, backend="xla",
+                                             device=dev))
+    (_, _), t_a, _ = _timed(lambda: run_hmc(cfg, x0=x, device=dev))
+    em = float(h["exp_mdh"].mean())
+    out["hmc"] = {"L": cfg.L, "chains": cfg.n_chains, "therm_single": therm,
+                  "measured": meas, "exp_mdh": em,
+                  "single_xla_exp_mdh": float(hx.exp_mdh.mean()),
+                  "acceptance": float(h["acc"].mean()),
+                  "plaq": float(h["plaq"].mean()),
+                  "s_per_traj": t_d / cfg.ntraj,
+                  "single_xla_s_per_traj": t_x / cfg.ntraj,
+                  "single_auto_s_per_traj": t_a / cfg.ntraj,
+                  "collectives_per_traj": coll, "launches": l_d}
+    require(abs(em - 1.0) <= 0.05, f"domain hmc <exp(-dH)> {em}")
+    require(not any(l_d.values()), f"domain hmc launched {l_d}")
+    with full_fp32():
+        f_d = pdom.gather_rows(rows, pdflow.ft_force_sharded(
+            params, spec, pdom.shard_rows(rows, z0), BETA, L, rows))
+        f_a = ft_force(params, spec, z0, BETA, device=dev)
+    err, scale = float((f_d - f_a).abs().max()), float(f_a.abs().max())
+    out["ft_force_vs_autograd"] = {"max_abs_err": err,
+                                   "tolerance": 1e-4 * scale}
+    require(err <= 1e-4 * scale, f"ft_force_sharded: {err} vs {scale}")
+    n = PAR_DOMAIN_FT_TRAJ
+    lf = LeapfrogConfig(tau=TAU, nstep=NSTEP)
+    pmesh.reset_collectives()
+    (zd, h), t_d, l_d = _timed(lambda: pdflow.run_domain_fthmc(
+        rows, params, spec, lf, beta=BETA, ntraj=n, z0=z0,
+        generator=torch.Generator(device=dev).manual_seed(68)))
+    coll = _collectives_per(n)
+    (_, h1), t_1, _ = _timed(lambda: run_fthmc(
+        params, spec, lf, beta=BETA, ntraj=n, z0=z0, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(68)))
+    q = h["q"]
+    out["fthmc"] = {"trajectories": n, "acceptance": float(h["acc"].mean()),
+                    "exp_mdh": float(h["exp_mdh"].mean()),
+                    "single_kernel_acceptance": float(h1.acc.mean()),
+                    "s_per_traj": t_d / n, "single_kernel_s_per_traj": t_1 / n,
+                    "collectives_per_traj": coll, "launches": l_d}
+    require(all(bool(torch.isfinite(t).all()) for t in h.values())
+            and bool(torch.isfinite(zd).all()), "domain fthmc not finite")
+    require(bool((q - q.round()).abs().max() <= 1e-3), "domain fthmc: Q")
+    require(not any(l_d.values()), f"domain fthmc launched {l_d}")
+    therm, meas = PAR_DOMAIN_DYN_TRAJ
+    g = torch.Generator(device=dev).manual_seed(69)
+    single_cfg = dataclasses.replace(PAR_DOMAIN_DYN, ntraj=therm)
+    x = near_equilibrium(g, single_cfg.n_chains, single_cfg.L,
+                         single_cfg.beta, dev)
+    (x, _), t_1, _ = _timed(lambda: run_hmc_dyn(single_cfg, x0=x,
+                                                generator=g, device=dev))
+    dcfg = dataclasses.replace(PAR_DOMAIN_DYN, ntraj=meas)
+    log = tf.CGLog()
+    pmesh.reset_collectives()
+    (_, h), t_d, l_d = _timed(lambda: pdferm.run_domain_hmc_dyn_chunked(
+        rows, dcfg, x0=x, block=PAR_DOMAIN_DYN_BLOCK, cg_log=log,
+        generator=torch.Generator(device=dev).manual_seed(70)))
+    coll = _collectives_per(dcfg.ntraj)
+    em = float(h["exp_mdh"].mean())
+    plaq = float(h["plaq"].mean())
+    out["hmc_dyn"] = {
+        "L": dcfg.L, "beta": dcfg.beta, "mass": dcfg.mass,
+        "chains": dcfg.n_chains, "therm_single": therm, "measured": meas,
+        "exp_mdh": em, "acceptance": float(h["acc"].mean()),
+        "plaq": plaq, "plaq_jax_sharded": PAR_DYN_PLAQ,
+        "plaq_stderr_naive": float(h["plaq"].mean(dim=1).std()
+                                   / math.sqrt(meas)),
+        "cg_iters_mean": {k: log.mean_iters(k) for k in log.solves},
+        "cg_host_reads_per_solve": log.reads() / log.count(),
+        "cg_solves_per_traj": log.count() / dcfg.ntraj,
+        "s_per_traj": t_d / dcfg.ntraj,
+        "single_k11_s_per_traj": t_1 / single_cfg.ntraj,
+        "collectives_per_traj": coll, "launches": l_d}
+    require(abs(em - 1.0) <= 0.05, f"domain dyn <exp(-dH)> {em}")
+    require(not any(l_d.values()), f"domain dyn launched {l_d}")
+    return out
+
+
+def parallel_phase(dev, params, spec, z0) -> dict:
+    """Phase 12 on a world-size-1 NCCL group (a HashStore, no TCP port),
+    destroyed at the end; returns the launches of its chain-sharded runs
+    (the domain drivers and training launch no kernel)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    pmesh.initialize_multihost(num_processes=1, process_id=0,
+                               store=dist.HashStore())
+    try:
+        chains = pmesh.make_chain_mesh(device=dev)
+        rows = pdom.make_rows_mesh(device=dev)
+        # NCCL builds its communicator at the first collective: not timed
+        pmesh.gather_chains(chains, torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        runs = parallel_chain_runs(chains, dev, params, spec, z0)
+        say("parallel_chains", **runs)
+        say("parallel_training", **parallel_training(chains, dev))
+        say("parallel_domain", **parallel_domain(rows, dev, params, spec,
+                                                 z0))
+    finally:
+        dist.destroy_process_group()
+    launched = dict.fromkeys(_build.KERNELS, 0)
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launched[k] += v
+    say("parallel", seconds=time.perf_counter() - t0, world_size=1,
+        backend="nccl", launches=launched)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3005,7 +3351,11 @@ def main() -> None:
     for k, v in phase11(dev, params, spec).items():
         launches[k] += v
 
-    # 12. the kernels line
+    # 12. the parallel drivers at world size 1 on NCCL
+    for k, v in parallel_phase(dev, params, spec, z0).items():
+        launches[k] += v
+
+    # 13. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -3027,7 +3377,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 13. the device line
+    # 14. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

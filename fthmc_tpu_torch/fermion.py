@@ -193,34 +193,41 @@ class CGLog:
         return sum(len(s) for s in self.solves.values())
 
 
-@torch.no_grad()
-def _cg_solve_xla(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
-                  maxiter: int = 1000, eo: bool = False) -> CGResult:
-    """The torch complex CG, the counterpart of ``_cg_solve_xla``: converged
-    chains freeze (alpha = beta = 0); the host checks every iteration."""
-    op = apply_mdagm_eo if eo else apply_mdagm
-    bsq = _cdot(b, b).real
+def _cg_loop(op, b, x0, tol: float, maxiter: int, dot) -> CGResult:
+    """The batched CG on ``op`` (the operator) and ``dot`` (the per-chain
+    inner product): converged chains freeze (alpha = beta = 0); the host
+    reads the stop test every iteration."""
+    bsq = dot(b, b).real
     stop = tol * bsq
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - op(theta, x, mass)
+    r = b - op(x)
     p = r
-    rsq = _cdot(r, r).real
+    rsq = dot(r, r).real
     k = 0
     while k < maxiter and bool((rsq > stop).any()):
         active = rsq > stop
-        mp = op(theta, p, mass)
-        denom = _cdot(p, mp).real
+        mp = op(p)
+        denom = dot(p, mp).real
         alpha = torch.where(active, rsq / torch.clamp_min(denom, 1e-30), 0.0)
         al = alpha[..., None, None, None].to(b.dtype)
         x = x + al * p
         r = r - al * mp
-        rsq_new = _cdot(r, r).real
+        rsq_new = dot(r, r).real
         beta = torch.where(active, rsq_new / torch.clamp_min(rsq, 1e-30),
                            0.0)
         p = r + beta[..., None, None, None].to(b.dtype) * p
         rsq = torch.where(active, rsq_new, rsq)
         k += 1
     return CGResult(x, k, rsq / torch.clamp_min(bsq, 1e-30), k, k + 1)
+
+
+@torch.no_grad()
+def _cg_solve_xla(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
+                  maxiter: int = 1000, eo: bool = False) -> CGResult:
+    """The torch complex CG, the counterpart of ``_cg_solve_xla``."""
+    apply = apply_mdagm_eo if eo else apply_mdagm
+    return _cg_loop(lambda p: apply(theta, p, mass), b, x0, tol, maxiter,
+                    _cdot)
 
 
 def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,

@@ -26,6 +26,12 @@ exact through ``fermion.logdet_mdagm`` (dense, the training volume). On
 the card such an era follows ``FERM_ERA_GRAPHED``: whether the step with
 slogdet's LU and its double backward can be captured in a CUDA graph, as
 the card test ``test_ferm_mass_era_capture_rule`` finds it.
+
+Data-parallel training (``train(mesh=)``) runs its eras through
+``parallel.mesh.sharded_train_era``: the loss and gradients averaged over
+the mesh's ranks, on the card as ``MESH_ERA_GRAPHED`` says. As in the JAX
+package, force matching (``with_force``) and ``ferm_mass`` are
+single-device only.
 """
 from __future__ import annotations
 
@@ -51,7 +57,8 @@ __all__ = ["TrainState", "AdamState", "Adam", "make_optimizer",
            "train_step_at", "distill_latents", "force_matching_step",
            "force_matching_step_at", "plateau_scheduler_update",
            "anneal_betas", "train_era", "train", "param_leaves",
-           "params_from_leaves", "ft_force_dyn", "FERM_ERA_GRAPHED"]
+           "params_from_leaves", "ft_force_dyn", "FERM_ERA_GRAPHED",
+           "MESH_ERA_GRAPHED"]
 
 # Whether an era with ferm_mass > 0 runs on the card as one captured step
 # replayed (``_graph_era``) or as eager steps (``_eager_era``): fixed, not
@@ -59,8 +66,15 @@ __all__ = ["TrainState", "AdamState", "Adam", "make_optimizer",
 # such a step in a process of its own and holds this value to what it
 # finds: on an H100 slogdet's LU refuses capture (PERF.md).
 FERM_ERA_GRAPHED = False
-_MESH_TODO = ("mesh= (data-parallel eras) is not ported yet (ROADMAP.md, "
-              "queue 1 item 12: 'Parallel')")
+# Whether a data-parallel era (``parallel.mesh.sharded_train_era``) runs on
+# the card as one captured step replayed, its NCCL all-reduces captured
+# with it, or as eager steps: fixed, not tried and caught.
+# ``parallel.capture_probe`` captures such a step in a process of its own
+# and the card test test_mesh_era_capture_rule holds this value to what it
+# finds. It was found at world size 1 only: a host of N cards checks it
+# first with ``torchrun --nproc-per-node=N -m
+# fthmc_tpu_torch.parallel.capture_probe`` (PERF.md).
+MESH_ERA_GRAPHED = True
 
 
 class AdamState(NamedTuple):
@@ -564,10 +578,15 @@ def train_era(state: TrainState, spec: FlowSpec, batch: int, L: int,
                          force_weight, ferm_mass)
 
     graphed = FERM_ERA_GRAPHED or not (ferm_mass and force_weight)
-    if dev.type == "cuda" and graphed:
-        state, dtypes, hist = _graph_era(step, state, draw, betas)
-    else:
-        state, dtypes, hist = _eager_era(step, state, draw, betas)
+    return _run_era(step, state, draw, betas, dev.type == "cuda" and graphed)
+
+
+def _run_era(step, state, draw, betas, graphed: bool):
+    """The era of ``step`` over ``betas``, captured and replayed
+    (``_graph_era``) or eager, its metrics read to the host once. Returns
+    (state, {metric: numpy (n_epoch,)})."""
+    era = _graph_era if graphed else _eager_era
+    state, dtypes, hist = era(step, state, draw, betas)
     host = hist.cpu().numpy()                  # the era's one host read
     return state, {k: host[i].astype(str(dt).split(".")[-1])
                    for i, (k, dt) in enumerate(dtypes.items())}
@@ -581,23 +600,42 @@ def train(cfg: TrainConfig, state: TrainState | None = None,
     the beta schedule. callback(step, metrics) per epoch (replayed from the
     era's metrics), checkpoint_fn(era, state, history) per era. A run
     restored from ckpt_era{k} passes start_era=k + 1, continuing the era
-    numbering and the beta schedule. Returns (state, history {metric: list
-    of per-epoch values, and 'dt'})."""
+    numbering and the beta schedule. ``mesh`` (a
+    ``parallel.mesh.Mesh``): the eras run data-parallel over its ranks
+    (``sharded_train_era``; the state and device are the mesh rank's);
+    force matching and ferm_mass then raise, as the JAX package asserts.
+    Returns (state, history {metric: list of per-epoch values, and
+    'dt'})."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+        if cfg.with_force:
+            raise ValueError("force-matching is single-device only")
+        if cfg.ferm_mass:
+            raise ValueError("fermion-aware smoothness (ferm_mass) is "
+                             "single-device only")
+        from fthmc_tpu_torch.parallel.mesh import sharded_train_era
+        device = mesh.device
     if state is None:
         state = init_train_state(None, cfg, device=device)
     dev = state.lr_scale.device
     history: dict = {}
     for era in range(start_era, cfg.n_era):
         t0 = time.time()
-        state, host = train_era(
-            state, cfg.flow, cfg.batch_size, cfg.L, cfg.beta,
-            cfg.dkl_factor, cfg.base_lr, cfg.n_epoch, sched=scheduler,
-            with_force=cfg.with_force, force_lr_factor=cfg.force_lr_factor,
-            betas=anneal_betas(cfg, era, device=dev),
-            grad_clip=cfg.grad_clip, force_weight=cfg.force_weight,
-            ferm_mass=cfg.ferm_mass)
+        betas = anneal_betas(cfg, era, device=dev)
+        if mesh is not None:
+            state, host = sharded_train_era(
+                mesh, state, cfg.flow, batch=cfg.batch_size, L=cfg.L,
+                beta=cfg.beta, dkl_factor=cfg.dkl_factor,
+                base_lr=cfg.base_lr, n_epoch=cfg.n_epoch, sched=scheduler,
+                betas=betas, grad_clip=cfg.grad_clip,
+                force_weight=cfg.force_weight)
+        else:
+            state, host = train_era(
+                state, cfg.flow, cfg.batch_size, cfg.L, cfg.beta,
+                cfg.dkl_factor, cfg.base_lr, cfg.n_epoch, sched=scheduler,
+                with_force=cfg.with_force,
+                force_lr_factor=cfg.force_lr_factor, betas=betas,
+                grad_clip=cfg.grad_clip, force_weight=cfg.force_weight,
+                ferm_mass=cfg.ferm_mass)
         dt = time.time() - t0
         step0 = int(state.step) - cfg.n_epoch if callback is not None else 0
         for e in range(cfg.n_epoch):

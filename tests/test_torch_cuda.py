@@ -1398,3 +1398,80 @@ def test_runner_default_sync_polls_the_card(card):
     assert zr.device.type == "cuda" and torch.equal(zr, zw)
     for k in hw:
         np.testing.assert_array_equal(hr[k], hw[k])
+
+
+def test_mesh_era_capture_rule(card):
+    """Whether a data-parallel step, NCCL all-reduces included, can be
+    captured in a CUDA graph and replayed to the eager era's losses, found
+    by ``parallel.capture_probe`` at world size 1 in a process of its own
+    (a failed capture can leave the context unusable; nothing is caught):
+    train.MESH_ERA_GRAPHED must say what the card does."""
+    import os
+    import subprocess
+    import sys
+    from fthmc_tpu_torch import train as tt
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-m",
+                          "fthmc_tpu_torch.parallel.capture_probe"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    captured = run.returncode == 0
+    print("mesh era capture:", captured, run.stderr[-2000:])
+    assert captured == tt.MESH_ERA_GRAPHED, run.stderr[-2000:]
+
+
+def test_parallel_drivers_at_world_size_1_on_nccl(card):
+    """One NCCL rank: sharded_run_hmc ('auto', K3 at 8^2) equals run_hmc
+    on the rank generator bit for bit with the same launches; the domain
+    step's core equals hmc_step's 'xla' path on the same draws to fp32
+    roundoff, every halo row through the all-gather; ft_force_sharded
+    equals the autograd force."""
+    import torch.distributed as dist
+    from fthmc_tpu_torch import lattice
+    from fthmc_tpu_torch.parallel import domain as pdom
+    from fthmc_tpu_torch.parallel import domain_flow as pdflow
+    from fthmc_tpu_torch.parallel import mesh as pm
+    pm.initialize_multihost(num_processes=1, process_id=0,
+                            store=dist.HashStore())
+    try:
+        mesh = pm.make_chain_mesh(device=card)
+        cfg = HMCConfig(beta=2.0, L=8, tau=1.0, nstep=8, ntraj=5,
+                        n_chains=16, randinit=True, seed=4)
+        _build.reset_counts()
+        xs, hs = pm.sharded_run_hmc(mesh, cfg)
+        ls = dict(_build.LAUNCHES)
+        g = torch.Generator(card).manual_seed(cfg.seed)
+        x0 = lattice.hot_start(g, cfg.n_chains, cfg.L, device=card)
+        _build.reset_counts()
+        x1, h1 = th.run_hmc(cfg, x0=x0, generator=pm.rank_generator(g, 0),
+                            device=card)
+        assert dict(_build.LAUNCHES) == ls and ls["K3"] == cfg.ntraj
+        assert torch.equal(xs, x1)
+        assert all(torch.equal(a, b) for a, b in zip(hs, h1))
+        rows = pdom.make_rows_mesh(device=card)
+        v0 = torch.randn(x0.shape, generator=g, device=card)
+        u = torch.rand((cfg.n_chains,), generator=g, device=card)
+        q0 = lattice.topo_charge(x0)
+        pm.reset_collectives()
+        xd, _, md = pdom._domain_hmc_step_from(
+            x0, q0, v0, u, beta=2.0, dt=0.125, nstep=8, mesh=rows)
+        assert pm.COLLECTIVES["all_gather"] == 2 * 8 + 4
+        x1, v1 = th.leapfrog(x0, v0, 0.125, 8,
+                             lambda x: lattice.force(x, 2.0))
+        x1 = lattice.wrap(x1)
+        dh = (lattice.delta_action(x1, x0, 2.0)
+              + th._kinetic_delta(v1, v0))
+        assert float((md.dh - dh).abs().max()) < 1e-3
+        same = md.acc.bool() == (u < torch.exp(-dh))
+        assert _wrapped(xd[same], torch.where(
+            md.acc.bool()[:, None, None, None], x1, x0)[same]) < 1e-4
+        spec = SPECS[1]
+        params = init_flow_params(spec, torch.Generator().manual_seed(1),
+                                  device=card)
+        with full_fp32():
+            f_d = pdflow.ft_force_sharded(params, spec, x0, 2.0, 8, rows)
+            f_a = th.ft_force(params, spec, x0, 2.0, device=card)
+        assert float((f_d - f_a).abs().max()) <= 1e-4 * float(
+            f_a.abs().max())
+    finally:
+        dist.destroy_process_group()

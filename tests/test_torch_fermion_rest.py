@@ -26,6 +26,18 @@ from fthmc_tpu_torch.ops import fermion_kernels as fk
 B, L, MASS = 3, 8, 0.1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes that share the cores, and the dense log-determinant's
+    OpenMP parallel regions stalled for minutes when the workers' threads
+    outnumbered them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _links(seed, b=B, l=L, scale=0.5):
     return (np.random.default_rng(seed).normal(size=(b, 2, l, l))
             * scale).astype(np.float32)

@@ -277,7 +277,8 @@ def test_train_step_at_matches_jax_train_step():
 def test_ferm_mass_and_mesh_raise():
     """ferm_mass > 0 runs through every entry since it was ported (finite
     force objectives; tests/test_torch_train_ferm.py holds it to JAX);
-    mesh= still raises, naming its item."""
+    mesh= trains since it was ported (tests/test_torch_mesh.py) and, as
+    the JAX package asserts, refuses ferm_mass and force matching."""
     cfg = TrainConfig(L=8, n_era=1, n_epoch=1, batch_size=2, flow=SPEC2,
                       force_weight=1.0, ferm_mass=0.2)
     _, hist = tt.train(cfg, device="cpu")
@@ -292,8 +293,11 @@ def test_ferm_mass_and_mesh_raise():
     loss, aux = tt.reverse_kl_loss(state.params, SPEC2, z, 2.0,
                                    force_weight=1.0, ferm_mass=0.2)
     assert math.isfinite(float(loss)) and "force_sq" in aux
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tt.train(TrainConfig(L=8, flow=SPEC2), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        tt.train(cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        tt.train(TrainConfig(L=8, flow=SPEC2, with_force=True),
+                 mesh=object(), device="cpu")
 
 
 def test_era_metrics_come_back_as_the_jax_era_returns_them():

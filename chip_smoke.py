@@ -145,11 +145,28 @@ Phases, each printed on its own line:
      sharded reading 0.706-0.708), each with its s a
      trajectory beside the single-device driver's, its collectives a
      trajectory and no kernel launched;
-  13. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
+  13. the command line (fthmc_tpu_torch.cli.main, in this process) and
+     the API facade on the card, each run's launch counters set to 0 just
+     before it and held to its count: `fthmc` at the flagship (the
+     exported flow, 48 trajectories from a cold start; phase 4's gates,
+     phase 5's launches a trajectory; s/trajectory beside phase 7's), `hmc`
+     at the headline (K2 a trajectory, <exp(-dH)> within 0.05 of 1) and
+     `hmc --nrun 2` at 16^2 (K3), plain `schwinger` at 16^2, beta=2, m=0.2
+     through --state in two calls (the resume keeps the first call's rows;
+     K11 a solve, the condensate's included; <plaq> within max(0.004, 5
+     blocked errors) of the JAX package's CPU reading of the same
+     protocol, 0.7110), `schwinger --ckpt` at path C's shape,
+     `train` at the reference configuration then `sample` (K6 once a layer
+     a block) and `fthmc` from its checkpoints, `pipeline --mode highbeta`
+     with the flagship flow, one `python3 -m fthmc_tpu_torch.cli hmc`
+     subprocess (exit 0), the facade's force against autograd (phase 3's
+     chain tolerance) and utils.profiling.trace around two flagship
+     trajectories (the trace names the coupling kernels);
+  14. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
      those of the FT path and the sampling path, K9's the operator path's
      and path G's; K1, K6-K8 and K11 with the probes', the runner's and
-     phase 12's added);
-  14. last, {"ok": true, "device": {...}}.
+     phase 12's added; every kernel phase 13's);
+  15. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -214,7 +231,7 @@ from fthmc_tpu_torch.parallel import domain_fermion as pdferm
 from fthmc_tpu_torch.parallel import domain_flow as pdflow
 from fthmc_tpu_torch.parallel import mesh as pmesh
 from fthmc_tpu_torch.runner import BlockTimeout, run_resilient
-from fthmc_tpu_torch.weights import load_flow_npz
+from fthmc_tpu_torch.weights import FLAGSHIP_NPZ, load_flow_npz
 
 B, L, BETA, TAU, NSTEP = 64, 16, 6.0, 0.5, 8
 N_THERM, N_MEAS = 32, 96
@@ -515,6 +532,32 @@ PAR_DOMAIN_DYN = SchwingerConfig(L=16, beta=2.0, mass=0.2, tau=1.0, nstep=8,
                                  n_chains=16, cg_maxiter=2000)
 PAR_DOMAIN_DYN_TRAJ, PAR_DOMAIN_DYN_BLOCK = (40, 10), 7
 PAR_DYN_PLAQ = (0.706, 0.708)
+# Phase 13, the command line on the card. `fthmc` at the flagship (phase
+# 4's configuration) and `hmc` at the headline (HMC_CFG), cold starts:
+# trajectories (the CLI's summary drops the first quarter, which at the
+# headline must cover the cold start's relaxation, some 500 trajectories:
+# over trajectories 10-40 <exp(-dH)> reads 1.12); `hmc --nrun` at 16^2 x
+# 64 chains: (trajectories a run, runs); plain `schwinger` at the JAX
+# package's sharded test configuration (PAR_DOMAIN_DYN's physics, 64
+# chains) through --state from a hot start: (trajectories of the first
+# call, in all), the block, and the JAX package's reading of this
+# protocol on the CPU (`python tests/test_torch_cli.py`,
+# jax_reference_readings: <plaq> over the last 120 trajectories and its
+# blocked standard error; the 0.706-0.708 of the JAX notes came from 8
+# chains x 96 trajectories with no thermalizing cut, low); `schwinger
+# --ckpt` at path C's configuration: trajectories; after `train` at the
+# reference configuration, one era: `sample` (ensemble size, chains,
+# block) and `fthmc` (trajectories, leapfrog steps); `pipeline --mode
+# highbeta` with the flagship flow at 16^2, beta=6, tau=0.5: (FT
+# trajectories, Omelyan steps, chains, plain trajectories, leapfrog steps,
+# chains)
+CLI_FT_TRAJ, CLI_HMC_TRAJ, CLI_NRUN = 48, 2000, (400, 2)
+CLI_SCHW = dataclasses.replace(PAR_DOMAIN_DYN, n_chains=64, cg_maxiter=1000)
+CLI_SCHW_TRAJ, CLI_SCHW_BLOCK = (80, 160), 40
+CLI_SCHW_PLAQ = (0.7109524607658386, 0.00047828661536474844)
+CLI_SCHW_FT_TRAJ = 16
+CLI_SAMPLE, CLI_TRAINED_FT = (4096, 64, 64), (4, 64)
+CLI_HIGHBETA = (16, 8, 64, 64, 16, 128)
 
 
 def say(phase: str, **kw) -> None:
@@ -3077,6 +3120,345 @@ def parallel_phase(dev, params, spec, z0) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the command line and the API facade on the card
+# ---------------------------------------------------------------------------
+
+def _cli(argv: list, expect: dict | None = None):
+    """fthmc_tpu_torch.cli.main(argv) in this process, the launch counters
+    set to 0 just before it and read just after: (its dict, wall seconds,
+    launches); held to ``expect`` (kernel -> count, the rest 0) when
+    given, with no plain twin run."""
+    from fthmc_tpu_torch import cli
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    if expect is not None:
+        want = {**dict.fromkeys(_build.KERNELS, 0), **expect}
+        require(launches == want, f"cli {argv[0]}: launches {launches} != "
+                f"{want}")
+        require(not any(plain.values()), f"cli {argv[0]}: plain twins ran "
+                f"{plain}")
+    return out, wall, launches
+
+
+def _ft_launches(n_force: int, n_layers: int, ntraj: int) -> dict:
+    """An FT-HMC run's launches: K1, K7 and K8 a force (K7/K8 a layer), K6
+    a layer an energy flow (two a trajectory and the start's charge)."""
+    return {"K1": n_force * ntraj, "K6": n_layers * (2 * ntraj + 1),
+            "K7": n_force * n_layers * ntraj,
+            "K8": n_force * n_layers * ntraj}
+
+
+def cli_fthmc_flagship(spec, phase7_s_per_traj: float) -> dict:
+    """`fthmc` at the flagship (the exported flow, full width) from z0 =
+    f^-1(0), with phase 4's gates and phase 5's launches a trajectory."""
+    n = CLI_FT_TRAJ
+    argv = ["fthmc", "--ckpt", str(FLAGSHIP_NPZ), "--L", str(L), "--beta",
+            str(BETA), "--tau", str(TAU), "--nstep", str(NSTEP),
+            "--integrator", "omelyan", "--chains", str(B), "--start", "cold",
+            "--ntraj", str(n)]
+    out, wall, launches = _cli(argv, _ft_launches(2 * NSTEP + 1,
+                                                  spec.n_layers, n))
+    r = {"argv": argv, "acceptance": out["acc"], "plaq": out["plaq"],
+         "plaq_exact": lattice.PLAQ_EXACT[BETA], "exp_mdh": out["exp_mdh"],
+         "s_per_traj": out["s_per_traj"],
+         "phase7_run_fthmc_s_per_traj": phase7_s_per_traj,
+         "wall_s": wall, "launches": launches}
+    require(r["acceptance"] >= MIN_ACCEPTANCE,
+            f"cli fthmc acceptance {r['acceptance']}")
+    require(abs(r["plaq"] - r["plaq_exact"]) <= 0.003,
+            f"cli fthmc plaq {r['plaq']}")
+    require(abs(r["exp_mdh"] - 1.0) <= 0.1,
+            f"cli fthmc <exp(-dH)> {r['exp_mdh']}")
+    return r
+
+
+def cli_hmc(phase6_acceptance: float) -> dict:
+    """`hmc` at the headline from a cold start (K2 a trajectory), and
+    `hmc --nrun 2` at 16^2 (K3)."""
+    hc = HMC_CFG
+    n = CLI_HMC_TRAJ
+    argv = ["hmc", "--L", str(hc.L), "--beta", str(hc.beta), "--tau",
+            str(hc.tau), "--nstep", str(hc.nstep), "--chains",
+            str(hc.n_chains), "--start", "cold", "--ntraj", str(n)]
+    out, wall, launches = _cli(argv, {"K2": n})
+    require(abs(out["exp_mdh"] - 1.0) <= 0.05,
+            f"cli hmc <exp(-dH)> {out['exp_mdh']}")
+    n3, runs = CLI_NRUN
+    argv3 = ["hmc", "--L", "16", "--beta", str(hc.beta), "--tau",
+             str(hc.tau), "--nstep", str(hc.nstep), "--chains", "64",
+             "--start", "cold", "--ntraj", str(n3), "--nrun", str(runs)]
+    out3, wall3, launches3 = _cli(argv3, {"K3": n3 * runs})
+    require(out3["plaq_err"] > 0 and abs(out3["exp_mdh"] - 1.0) <= 0.05,
+            f"cli hmc --nrun: {out3}")
+    return {"headline": {"argv": argv, "acceptance": out["acc"],
+                         "phase6_acceptance": phase6_acceptance,
+                         "exp_mdh": out["exp_mdh"], "plaq": out["plaq"],
+                         "s_per_traj": out["s_per_traj"], "wall_s": wall,
+                         "launches": launches},
+            "nrun": {"argv": argv3, "acceptance": out3["acc"],
+                     "plaq": out3["plaq"], "plaq_err": out3["plaq_err"],
+                     "exp_mdh": out3["exp_mdh"], "wall_s": wall3,
+                     "launches": launches3}}
+
+
+def cli_schwinger_state(dev, tmp: str) -> dict:
+    """Plain `schwinger` at beta=2, m=0.2 through --state, in two calls
+    (the second resumes at the first's end and measures the condensate):
+    one K11 launch a solve (a force and the Metropolis solve a trajectory;
+    the condensate's solve counted alone first), K1 a force; the resume
+    keeps the first call's rows; <plaq> over the last 120 trajectories
+    within max(0.004, 5 blocked errors) of the JAX package's reading of
+    the same protocol, <exp(-dH)> within 0.05 of 1."""
+    cfg = CLI_SCHW
+    n1, n2 = CLI_SCHW_TRAJ
+    state = os.path.join(tmp, "schwinger_state.npz")
+    argv = ["schwinger", "--L", str(cfg.L), "--beta", str(cfg.beta),
+            "--mass", str(cfg.mass), "--tau", str(cfg.tau), "--nstep",
+            str(cfg.nstep), "--chains", str(cfg.n_chains), "--start", "hot",
+            "--block", str(CLI_SCHW_BLOCK), "--state", state]
+    nf = force_evaluations(cfg)["dyn"]
+    # the condensate's launches alone, on configurations of this shape
+    x = near_equilibrium(torch.Generator(dev).manual_seed(90), cfg.n_chains,
+                         cfg.L, cfg.beta, dev)
+    _build.reset_counts()
+    tf.chiral_condensate(torch.Generator(dev).manual_seed(91), x, cfg.mass,
+                         n_noise=8)
+    torch.cuda.synchronize()
+    cond = {k: v for k, v in _build.LAUNCHES.items() if v}
+    per_call = {"K1": nf * n1, "K11": (nf + 1) * n1}
+    out1, wall1, l1 = _cli(argv + ["--ntraj", str(n1)], per_call)
+    with np.load(state) as d:
+        first = {k: d[k] for k in TrajMetrics._fields}
+        require(int(d["done"]) == n1, f"cli schwinger done {d['done']}")
+    second = {"K1": nf * (n2 - n1),
+              "K11": (nf + 1) * (n2 - n1) + cond.get("K11", 0)}
+    out2, wall2, l2 = _cli(argv + ["--ntraj", str(n2), "--condensate"],
+                           second)
+    with np.load(state) as d:
+        done = int(d["done"])
+        kept = all(np.array_equal(d[k][:n1], v) for k, v in first.items())
+        plaq_rows = d["plaq"][n2 // 4:]
+    require(done == n2 and kept, f"cli schwinger resume: done {done}, the "
+            f"first {n1} rows kept: {kept}")
+    per = plaq_rows.mean(axis=1)
+    stderr = float(per.reshape(10, -1).mean(axis=1).std(ddof=1)
+                   / math.sqrt(10))
+    bound = max(0.004, 5 * stderr)
+    r = {"argv": argv, "trajectories": [n1, n2], "done": done,
+         "first_rows_kept": kept, "plaq": out2["plaq"],
+         "plaq_stderr_blocked": stderr, "plaq_bound": bound,
+         "plaq_jax": CLI_SCHW_PLAQ, "plaq_jax_notes": PAR_DYN_PLAQ,
+         "exp_mdh": out2["exp_mdh"],
+         "acceptance": out2["acc"], "psibar_psi": out2["psibar_psi"],
+         "psibar_psi_err": out2["psibar_psi_err"],
+         "forces_per_traj": nf, "condensate_launches": cond,
+         "s_per_traj": [wall1 / n1, wall2 / (n2 - n1)],
+         "launches": [l1, l2]}
+    require(abs(r["plaq"] - CLI_SCHW_PLAQ[0]) <= bound,
+            f"cli schwinger plaq {r['plaq']} vs {CLI_SCHW_PLAQ[0]} (bound "
+            f"{bound})")
+    require(abs(r["exp_mdh"] - 1.0) <= 0.05,
+            f"cli schwinger <exp(-dH)> {r['exp_mdh']}")
+    return r
+
+
+def cli_schwinger_ft(spec, path_c_acceptance: float) -> dict:
+    """`schwinger --ckpt` with the flagship flow at path C's shape from z0
+    = f^-1(0): K1, K6-K8 and K11 as dyn_expected counts them."""
+    cfg, n = DYN["C"], CLI_SCHW_FT_TRAJ
+    argv = ["schwinger", "--ckpt", str(FLAGSHIP_NPZ), "--L", str(cfg.L),
+            "--beta", str(cfg.beta), "--mass", str(cfg.mass), "--tau",
+            str(cfg.tau), "--nstep", str(cfg.nstep), "--chains",
+            str(cfg.n_chains), "--start", "cold", "--ntraj", str(n)]
+    nf = force_evaluations(cfg)["dyn"]
+    expect = {**_ft_launches(nf, spec.n_layers, n), "K11": (nf + 1) * n}
+    out, wall, launches = _cli(argv, expect)
+    require(np.isfinite(out["exp_mdh"]), "cli schwinger --ckpt not finite")
+    return {"argv": argv, "acceptance": out["acc"],
+            "path_c_acceptance": path_c_acceptance,
+            "exp_mdh": out["exp_mdh"], "plaq": out["plaq"],
+            "s_per_traj": out["s_per_traj"], "wall_s": wall,
+            "launches": launches}
+
+
+def cli_train_sample_fthmc(tmp: str) -> dict:
+    """`train` at the reference configuration, then `sample` and `fthmc`
+    from its checkpoints: K6 exactly once a layer a block in sampling, the
+    FT run's launches a force and a flow."""
+    cfg = REF_TRAIN
+    outdir = os.path.join(tmp, "train")
+    argv = ["train", "--n-layers", str(cfg.flow.n_layers), "--hidden",
+            *map(str, cfg.flow.hidden_sizes), "--L", str(cfg.L), "--beta",
+            str(cfg.beta), "--n-era", "1", "--n-epoch", str(cfg.n_epoch),
+            "--outdir", outdir]
+    tr, wall_t, l_t = _cli(argv, {})
+    ck = os.path.join(outdir, "checkpoints")
+    size, chains, batch = CLI_SAMPLE
+    nblocks = -(-(size - 1) // batch)
+    nl = cfg.flow.n_layers
+    sargv = ["sample", "--ckpt", ck, "--L", str(cfg.L), "--beta",
+             str(cfg.beta), "--ensemble-size", str(size), "--sample-chains",
+             str(chains), "--batch-size", str(batch)]
+    sm, wall_s, l_s = _cli(sargv, {"K6": nl * (nblocks + 1)})
+    require(0.0 < sm["accept_rate"] <= 1.0,
+            f"cli sample acceptance {sm['accept_rate']}")
+    n, nstep = CLI_TRAINED_FT
+    fargv = ["fthmc", "--ckpt", ck, "--L", str(cfg.L), "--beta",
+             str(cfg.beta), "--ntraj", str(n), "--nstep", str(nstep)]
+    # position Verlet (hmc.leapfrog): nstep forces a trajectory
+    ft, wall_f, l_f = _cli(fargv, _ft_launches(nstep, nl, n))
+    require(np.isfinite(ft["exp_mdh"]), "cli fthmc (trained) not finite")
+    plots = os.path.isdir(os.path.join(outdir, "plots"))
+    return {"train": {"argv": argv, "ess": tr["ess"],
+                      "loss_dkl": tr["loss_dkl"], "wall_s": wall_t,
+                      "steps_per_s": cfg.n_epoch / tr["wall_s"],
+                      "plots_written": plots, "launches": l_t},
+            "sample": {"argv": sargv, "accept_rate": sm["accept_rate"],
+                       "chi_q": sm["suscept_mean"],
+                       "tau_int_q": sm["tau_int_q"], "blocks": nblocks,
+                       "wall_s": wall_s, "launches": l_s},
+            "fthmc": {"argv": fargv, "acceptance": ft["acc"],
+                      "exp_mdh": ft["exp_mdh"], "wall_s": wall_f,
+                      "launches": l_f}}
+
+
+def cli_pipeline_highbeta(spec) -> dict:
+    """`pipeline --mode highbeta` with the flagship flow at 16^2, beta=6:
+    FT-HMC (cold, Omelyan) then plain HMC ('auto': K3 at 16^2), the
+    head-to-head keys returned."""
+    ft_n, ft_nstep, ft_chains, pl_n, pl_nstep, pl_chains = CLI_HIGHBETA
+    argv = ["pipeline", "--mode", "highbeta", "--ckpt", str(FLAGSHIP_NPZ),
+            "--L", str(L), "--beta", str(BETA), "--tau", str(TAU),
+            "--ntraj", str(ft_n), "--ft-nstep", str(ft_nstep),
+            "--ft-chains", str(ft_chains), "--plain-ntraj", str(pl_n),
+            "--plain-nstep", str(pl_nstep), "--plain-chains",
+            str(pl_chains)]
+    expect = {**_ft_launches(2 * ft_nstep + 1, spec.n_layers, ft_n),
+              "K3": pl_n}
+    out, wall, launches = _cli(argv, expect)
+    keys = {"mode", "L", "beta", "fthmc", "hmc", "tau_int_speedup",
+            "tau_int_speedup_err"}
+    require(keys <= set(out), f"cli pipeline keys {sorted(out)}")
+    return {"argv": argv, "ft_acceptance": out["fthmc"]["acc"],
+            "plain_acceptance": out["hmc"]["acc"],
+            "tau_int_ft": out["fthmc"]["tau_int_q"],
+            "tau_int_plain": out["hmc"]["tau_int_q"],
+            "tau_int_speedup": out["tau_int_speedup"],
+            "tau_int_speedup_err": out["tau_int_speedup_err"],
+            "wall_s": wall, "launches": launches}
+
+
+def cli_subprocess() -> dict:
+    """`python3 -m fthmc_tpu_torch.cli hmc` in a process of its own (the
+    card by default); it must exit 0."""
+    argv = [sys.executable, "-m", "fthmc_tpu_torch.cli", "hmc", "--L", "16",
+            "--ntraj", "16", "--chains", "64"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    tail = r.stdout.strip().splitlines()[-1:] + r.stderr.strip().splitlines(
+    )[-3:]
+    require(r.returncode == 0, f"python3 -m fthmc_tpu_torch.cli hmc exited "
+            f"{r.returncode}: {tail}")
+    return {"argv": argv[1:], "returncode": r.returncode, "wall_s": wall,
+            "last_line": tail[0] if tail else ""}
+
+
+def facade_and_trace(dev, params, spec, z, tmp: str) -> dict:
+    """api.FieldTransformation's force (the kernels) against hmc.ft_force
+    (autograd) at phase 3's kernel-chain tolerance; utils.profiling.trace
+    around two flagship trajectories writes a Chrome trace naming K6/K7's
+    and K8's kernels."""
+    from fthmc_tpu_torch import api
+    from fthmc_tpu_torch.utils.profiling import trace
+    lf = LeapfrogConfig(tau=TAU, nstep=NSTEP)
+    ft = api.FieldTransformation(params, spec, BETA, lf)
+    with full_fp32():
+        _build.reset_counts()
+        f_k = ft.force(z)
+        torch.cuda.synchronize()
+        facade_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        f_a = ft_force(params, spec, z, BETA, device=dev)
+    err = float((f_k - f_a).abs().max())
+    tol = 2e-3 * max(1.0, float(f_a.abs().max()))
+    nl = spec.n_layers
+    require(facade_launches == {"K1": 1, "K7": nl, "K8": nl},
+            f"facade force launches {facade_launches}")
+    require(err <= tol, f"facade force vs autograd: {err} > {tol}")
+    _build.reset_counts()
+    with trace(os.path.join(tmp, "trace")):
+        ft.run(torch.Generator(dev).manual_seed(95), z, num_trajs=2)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    (name,) = os.listdir(os.path.join(tmp, "trace"))
+    path = os.path.join(tmp, "trace", name)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    count = {k: sum(k in n for n in kernels)
+             for k in ("coupling_fwd_kernel", "coupling_bwd_kernel")}
+    require(all(count.values()), f"trace: kernel names {count} missing "
+            f"from {path}")
+    return {"force_max_abs_err": err, "force_tolerance": tol,
+            "force_launches": facade_launches,
+            "trace_file": os.path.basename(path),
+            "trace_bytes": os.path.getsize(path),
+            "trace_kernel_events": count, "trace_run_launches": launches}
+
+
+def cli_phase(dev, params, spec, z, ref: dict) -> dict:
+    """Phase 13: the CLI's subcommands driven in this process at full
+    width, each with its launch counters set to 0 just before it and held
+    to its count; a subprocess of the CLI; the facade's force and the
+    profiler's trace. Returns the launches of the phase's runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    seconds = {}
+    runs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        runs[name] = fn()
+        seconds[name] = time.perf_counter() - t
+        say("cli_" + name, **runs[name])
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        timed("fthmc", lambda: cli_fthmc_flagship(spec, ref["s_per_traj"]))
+        timed("hmc", lambda: cli_hmc(ref["hmc_acceptance"]))
+        timed("schwinger", lambda: cli_schwinger_state(dev, tmp))
+        timed("schwinger_ft", lambda: cli_schwinger_ft(spec,
+                                                       ref["c_acceptance"]))
+        timed("train_sample_fthmc", lambda: cli_train_sample_fthmc(tmp))
+        timed("pipeline", lambda: cli_pipeline_highbeta(spec))
+        timed("subprocess", cli_subprocess)
+        timed("facade", lambda: facade_and_trace(dev, params, spec, z, tmp))
+    launched = dict.fromkeys(_build.KERNELS, 0)
+
+    def add(d):
+        for k, v in d.items():
+            launched[k] += v
+
+    add(runs["fthmc"]["launches"])
+    add(runs["hmc"]["headline"]["launches"])
+    add(runs["hmc"]["nrun"]["launches"])
+    for d in runs["schwinger"]["launches"]:
+        add(d)
+    add(runs["schwinger_ft"]["launches"])
+    for k in ("train", "sample", "fthmc"):
+        add(runs["train_sample_fthmc"][k]["launches"])
+    add(runs["pipeline"]["launches"])
+    say("cli", seconds=time.perf_counter() - t0, by_part=seconds,
+        launches=launched)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3355,7 +3737,13 @@ def main() -> None:
     for k, v in parallel_phase(dev, params, spec, z0).items():
         launches[k] += v
 
-    # 13. the kernels line
+    # 13. the command line and the API facade on the card
+    ref = {"s_per_traj": t_traj, "hmc_acceptance": runs["K2"]["acceptance"],
+           "c_acceptance": dyn["C"]["acceptance"]}
+    for k, v in cli_phase(dev, params, spec, z0, ref).items():
+        launches[k] += v
+
+    # 14. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -3377,7 +3765,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 14. the device line
+    # 15. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,8 @@ JAX or of ``fthmc_tpu``.
 
 __version__ = "0.1.0"
 
-from fthmc_tpu_torch.config import FlowSpec, HMCConfig, LeapfrogConfig
+from fthmc_tpu_torch.config import (FlowSpec, HMCConfig, LeapfrogConfig,
+                                    SchedulerConfig, TrainConfig)
 
-__all__ = ["FlowSpec", "HMCConfig", "LeapfrogConfig", "__version__"]
+__all__ = ["FlowSpec", "HMCConfig", "LeapfrogConfig", "SchedulerConfig",
+           "TrainConfig", "__version__"]

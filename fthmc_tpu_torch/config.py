@@ -1,6 +1,7 @@
 """Run configuration of the PyTorch port: the flow architecture, the
 integrator, plain-HMC run parameters, and flow training with its
-reduce-on-plateau scheduler.
+reduce-on-plateau scheduler; and their JSON loading (``make_configs``,
+``load_json_configs``).
 
 The port's own copy of the dataclasses in ``fthmc_tpu/config.py`` (the port
 imports nothing of the JAX package). Field names and defaults are the same,
@@ -8,12 +9,14 @@ so a FlowSpec recorded in a checkpoint's metadata loads into either.
 """
 from __future__ import annotations
 
+import json
 import os
-from dataclasses import dataclass, field, fields
+from dataclasses import asdict, dataclass, field, fields, replace
 from typing import Any
 
 __all__ = ["FlowSpec", "LeapfrogConfig", "HMCConfig", "SchedulerConfig",
-           "TrainConfig", "filter_kwargs"]
+           "TrainConfig", "filter_kwargs", "make_configs",
+           "load_json_configs", "config_to_dict", "with_updates"]
 
 
 @dataclass(frozen=True)
@@ -113,8 +116,8 @@ class TrainConfig:
                                    # force_weight * mean(F_eff^2) on the
                                    # same prior batch; 0 = off
     ferm_mass: float = 0.0        # F_eff with the exact two-flavour
-                                   # log-det at this Wilson mass (not
-                                   # ported: train.py raises for > 0)
+                                   # log-det at this Wilson mass (dense,
+                                   # train volumes only); 0 = pure gauge
     dkl_factor: float = 1.0
     beta_init: float | None = None  # beta ramps linearly from beta_init to
                                     # beta over beta_anneal_frac of all
@@ -157,3 +160,54 @@ def filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:
     """Keep only the keys of ``d`` that are fields of dataclass ``cls``."""
     names = {f.name for f in fields(cls)}
     return {k: v for k, v in d.items() if k in names}
+
+
+def make_configs(raw: dict[str, Any]):
+    """(HMCConfig, TrainConfig, LeapfrogConfig, SchedulerConfig or None)
+    from one JSON dict: either nested {"hmc": {...}, "train": {...},
+    "fthmc": {...}, "scheduler": {...}} or a flat one, each flat key routed
+    to every configuration that has a field of that name. The reference's
+    spellings ``n_s_nets`` (n_mixture) and ``activation_fn`` (activation)
+    are read too."""
+    nested = {k: raw.get(k, {})
+              for k in ("hmc", "train", "fthmc", "scheduler")}
+    flat = {k: v for k, v in raw.items() if k not in nested}
+
+    train_raw = {**flat, **nested["train"]}
+    flow_kwargs = filter_kwargs(FlowSpec, train_raw)
+    for src, dst in (("n_s_nets", "n_mixture"),
+                     ("activation_fn", "activation")):
+        v = train_raw.get(src)
+        if v is not None:
+            flow_kwargs[dst] = v
+    if "hidden_sizes" in flow_kwargs:
+        flow_kwargs["hidden_sizes"] = tuple(flow_kwargs["hidden_sizes"])
+    flow = FlowSpec(**flow_kwargs)
+
+    hmc = HMCConfig(**filter_kwargs(HMCConfig, {**flat, **nested["hmc"]}))
+    train = TrainConfig(flow=flow, **filter_kwargs(
+        TrainConfig, {k: v for k, v in train_raw.items() if k != "flow"}))
+    lf = LeapfrogConfig(**filter_kwargs(LeapfrogConfig,
+                                        {**flat, **nested["fthmc"]}))
+    sched = None
+    if nested["scheduler"]:
+        sched = SchedulerConfig(
+            **filter_kwargs(SchedulerConfig, nested["scheduler"]))
+    return hmc, train, lf, sched
+
+
+def load_json_configs(path: str):
+    """``make_configs`` of a JSON file."""
+    with open(path) as f:
+        raw = json.load(f)
+    return make_configs(raw)
+
+
+def config_to_dict(cfg) -> dict:
+    """A configuration as a plain dict (nested dataclasses included)."""
+    return asdict(cfg)
+
+
+def with_updates(cfg, **kwargs):
+    """A copy of ``cfg`` with the given fields replaced."""
+    return replace(cfg, **kwargs)

@@ -9,7 +9,7 @@ flow back.
 from __future__ import annotations
 
 import json
-from dataclasses import asdict
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import numpy as np
@@ -89,10 +89,12 @@ def save_flow_npz(path, tree, spec: FlowSpec) -> None:
         json.dumps(asdict(spec), indent=1) + "\n")
 
 
-def load_flow_npz(path=FLAGSHIP_NPZ, device=None, name: str | None = None):
+def load_flow_npz(path=FLAGSHIP_NPZ, device=None, name: str | None = None,
+                  spec_overrides: dict | None = None):
     """(params, spec) of a flow written by ``save_flow_npz``, on ``device``
     (the card by default): the file ``path``, or the exported flow ``name``
-    (one of ``FLOWS``) from ``DATA_DIR``."""
+    (one of ``FLOWS``) from ``DATA_DIR``. ``spec_overrides`` replace fields
+    of the stored FlowSpec; the arrays must still fit the result."""
     if name is not None:
         if name not in FLOWS:
             raise ValueError(f"unknown flow {name!r}; one of {FLOWS}")
@@ -100,6 +102,8 @@ def load_flow_npz(path=FLAGSHIP_NPZ, device=None, name: str | None = None):
     path = Path(path)
     spec = FlowSpec(**filter_kwargs(
         FlowSpec, json.loads(path.with_suffix(".json").read_text())))
+    if spec_overrides:
+        spec = replace(spec, **spec_overrides)
     with np.load(path) as data:
         n_convs = len(spec.hidden_sizes) + 1
         tree = [[{leaf: data[_key(i, j, leaf)] for leaf in ("w", "b")}

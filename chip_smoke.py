@@ -108,11 +108,11 @@ Phases, each printed on its own line:
      port (1e-4), and the pion correlator on path B's final 128
      configurations beside the JAX package's (pulls printed, not gated);
      fermion-aware training (ferm_mass 0.1, force_weight 0.5) at 8^2: one
-     step's loss and gradients against the CPU (1e-4), then an era of 20
+     step's loss and gradients against the CPU (1e-4), then an era of 10
      epochs (eager: train.FERM_ERA_GRAPHED);
   11. the slice around the samplers: the JAX package's bf16 recipe at
      64^2 (BF16_SPEC, fresh weights, 32 chains, beta=6, 8 Omelyan steps
-     from z0 = 0): 'auto' and 'kernel' refuse it, 'autograd' runs 16 + 16
+     from z0 = 0): 'auto' and 'kernel' refuse it, 'autograd' runs 8 + 8
      trajectories (<exp(-dH)> within 0.1 of 1, the flow's round trip on
      the final fields within 5e-4, no K6-K8 launch), and its bench beside
      fp32's (autograd, and the kernels where they take the shape); the
@@ -162,11 +162,23 @@ Phases, each printed on its own line:
      subprocess (exit 0), the facade's force against autograd (phase 3's
      chain tolerance) and utils.profiling.trace around two flagship
      trajectories (the trace names the coupling kernels);
-  14. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
+  14. the entry points, each run's launch counters set to 0 just before
+     it and held to its count: `python3 -m fthmc_tpu_torch.bench` at its
+     defaults in a subprocess (exit 0, one stdout line, the JAX script's
+     four keys; the headline and the two flagship extras' times), one
+     step of entry.entry() (its force against autograd at phase 3's chain
+     tolerance, dH finite), entry.dryrun_multichip(1) on one NCCL rank
+     (its stages' asserts), and the three demos in this process at their
+     default widths, their run lengths cut: demo_highbeta (<exp(-dH)>
+     within 0.1 of 1, acceptance >= 0.5, <plaq> beside exact),
+     demo_schwinger (gamma_5-hermiticity <= 1e-8, the plain leg's
+     <exp(-dH)> within 0.05 of 1) and demo_2d_u1 (the HMC's and FT-HMC's
+     <plaq> within max(0.004, 5 sigma) of exact);
+  15. a {"kernels": [...]} JSON line, K1-K11 and K11_bf16 (K6's launches
      those of the FT path and the sampling path, K9's the operator path's
      and path G's; K1, K6-K8 and K11 with the probes', the runner's and
-     phase 12's added; every kernel phase 13's);
-  15. last, {"ok": true, "device": {...}}.
+     phase 12's added; every kernel phases 13's and 14's);
+  16. last, {"ok": true, "device": {...}}.
 Any failed phase raises, so the script exits non-zero without the last line.
 It needs a CUDA device and the fthmc_tpu_torch package beside it.
 """
@@ -413,8 +425,10 @@ DYN_READING.update({"D": (0.7928059697151184, 0.9980745911598206,
                           0.8967482447624207),
                     "G": (0.895263671875, 1.0111162662506104,
                           0.9148247241973877)})
-DYN_TRAJ.update({"D": (30, 60), "E": (30, 40), "F": (30, 40),
-                 "G": (30, 40)})
+# (thermalizing, measured) trajectories, cut for the time limit (D was
+# 30 + 60, E-G 30 + 40)
+DYN_TRAJ.update({"D": (20, 40), "E": (20, 20), "F": (20, 30),
+                 "G": (20, 30)})
 # the CG backend of a path other than the default 'auto' (K11)
 DYN_CG = {"G": "mixed"}
 # FT paths: acceptance floors (C: the first port's; F: the JAX package's
@@ -478,18 +492,20 @@ SAMPLING = dict(beta=2.0, L=8, batch_size=64, num_samples=4096, n_chains=64)
 # conv_dtype='bfloat16')): the flagship spec with bf16 convs and fresh
 # weights at 64^2, 32 chains, beta=6, tau=0.5, 8 Omelyan steps from z0 = 0,
 # the force by autograd (the kernels refuse bf16); (thermalizing,
-# measured) trajectories; the bench's (trajectories a repeat, repeats).
+# measured) trajectories, cut for the time limit (16 + 16 before); the
+# bench's (trajectories a repeat, repeats).
 BF16_SPEC = dataclasses.replace(FLAGSHIP_TRAIN.flow, conv_dtype="bfloat16")
-BF16_L, BF16_CHAINS, BF16_TRAJ, BF16_BENCH = 64, 32, (16, 16), (1, 2)
+BF16_L, BF16_CHAINS, BF16_TRAJ, BF16_BENCH = 64, 32, (8, 8), (1, 2)
 # The mobility probes at the production selection regime
 # (experiments/finetune_force.py:66-100): 16^2, beta=6, 128 chains,
 # tau=0.5, 4 Omelyan steps, the trained flagship flow; the trajectories
 # cut (therm, timed, call block). The dynamical probe (m=0.1) is path C's
-# configuration; its blocks of 4 give exactly 100 and 128. The floor
-# extension: a small plain budget under an event floor it cannot meet.
+# configuration; its blocks of 4 give exactly 52 and 64 (100 and 128
+# before the cut for the time limit). The floor extension: a small plain budget under an event
+# floor it cannot meet.
 PROBE = dict(L=16, beta=6.0, n_chains=128, tau=0.5, nstep=4)
 PROBE_QUENCHED = dict(therm=64, ntraj=256, call_block=64)
-PROBE_DYN = dict(mass=MASS, therm=100, ntraj=128, call_block=4,
+PROBE_DYN = dict(mass=MASS, therm=52, ntraj=64, call_block=4,
                  cg_maxiter=1500)
 PROBE_FLOOR = dict(therm=8, ntraj=16, call_block=8, min_events=1e9,
                    max_extra_blocks=2)
@@ -558,6 +574,14 @@ CLI_SCHW_PLAQ = (0.7109524607658386, 0.00047828661536474844)
 CLI_SCHW_FT_TRAJ = 16
 CLI_SAMPLE, CLI_TRAINED_FT = (4096, 64, 64), (4, 64)
 CLI_HIGHBETA = (16, 8, 64, 64, 16, 128)
+# Phase 14, the entry points: the bench entry at its defaults in a
+# subprocess; entry()'s step; dryrun_multichip(1); the three demos in this
+# process at their default widths, their run lengths cut: demo_highbeta's
+# trajectories (128 by default, ~0.5 s each), demo_schwinger's of each
+# leg (512), demo_2d_u1's FT and transfer trajectories (1024, 256)
+DEMO_HIGHBETA_NTRAJ = 32
+DEMO_SCHWINGER_NTRAJ = 48
+DEMO_2D_U1_CUT = {"ft_ntraj": 128, "transfer_ntraj": 32}
 
 
 def say(phase: str, **kw) -> None:
@@ -1973,7 +1997,7 @@ def ferm_training(dev) -> dict:
     """Fermion-aware training (ferm_mass = 0.1, force_weight = 0.5) with
     the reference flow (ncp, 16 layers, hidden (8, 8)) at 8^2, beta=2,
     batch 64: one step's loss and gradients on the card against the CPU on
-    the same z and parameters (1e-4 relative in norm), then an era of 20
+    the same z and parameters (1e-4 relative in norm), then an era of 10
     epochs through train_era (graphed or eager, as FERM_ERA_GRAPHED says):
     metrics finite, steps/s."""
     cfg = dataclasses.replace(REF_TRAIN, force_weight=0.5, ferm_mass=0.1)
@@ -1992,7 +2016,7 @@ def ferm_training(dev) -> dict:
     rel_loss = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
     require(rel <= 1e-4 and rel_loss <= 1e-4,
             f"ferm_mass gradients card vs CPU: {rel}, loss {rel_loss}")
-    n_epoch = 20
+    n_epoch = 10
     t0 = time.perf_counter()
     state, hist = ttrain.train_era(state, cfg.flow, cfg.batch_size, cfg.L,
                                    cfg.beta, cfg.dkl_factor, cfg.base_lr,
@@ -3124,24 +3148,34 @@ def parallel_phase(dev, params, spec, z0) -> dict:
 # phase 13: the command line and the API facade on the card
 # ---------------------------------------------------------------------------
 
+def _counted(fn):
+    """fn() with the launch counters set to 0 just before it and read just
+    after: (its result, wall seconds, launches, plain twin calls)."""
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, dict(_build.LAUNCHES),
+            dict(_build.PLAIN_CALLS))
+
+
+def _hold_launches(what: str, launches: dict, plain: dict,
+                   expect: dict) -> dict:
+    want = {**dict.fromkeys(_build.KERNELS, 0), **expect}
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    require(not any(plain.values()), f"{what}: plain twins ran {plain}")
+    return want
+
+
 def _cli(argv: list, expect: dict | None = None):
     """fthmc_tpu_torch.cli.main(argv) in this process, the launch counters
     set to 0 just before it and read just after: (its dict, wall seconds,
     launches); held to ``expect`` (kernel -> count, the rest 0) when
     given, with no plain twin run."""
     from fthmc_tpu_torch import cli
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    out = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    out, wall, launches, plain = _counted(lambda: cli.main(argv))
     if expect is not None:
-        want = {**dict.fromkeys(_build.KERNELS, 0), **expect}
-        require(launches == want, f"cli {argv[0]}: launches {launches} != "
-                f"{want}")
-        require(not any(plain.values()), f"cli {argv[0]}: plain twins ran "
-                f"{plain}")
+        _hold_launches(f"cli {argv[0]}", launches, plain, expect)
     return out, wall, launches
 
 
@@ -3459,6 +3493,207 @@ def cli_phase(dev, params, spec, z, ref: dict) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the entry points on the card
+# ---------------------------------------------------------------------------
+
+def bench_entry(tmp: str) -> dict:
+    """`python3 -m fthmc_tpu_torch.bench` at its defaults in a process of
+    its own: exit 0, its first stdout line a JSON object with the JAX
+    script's four keys; the headline and the extras' times from its
+    --extra-json record."""
+    extra = os.path.join(tmp, "bench_extra.json")
+    argv = [sys.executable, "-m", "fthmc_tpu_torch.bench", "--extra-json",
+            extra]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    require(r.returncode == 0, f"bench entry exited {r.returncode}: "
+            f"{r.stderr.strip().splitlines()[-3:]}")
+    head = json.loads(lines[0])
+    require(list(head) == ["metric", "value", "unit", "vs_baseline"]
+            and len(lines) == 1, f"bench entry stdout {lines}")
+    with open(extra) as f:
+        rec = json.load(f)
+    return {"argv": argv[1:-2], "returncode": r.returncode, "wall_s": wall,
+            "headline": head,
+            "headline_s_per_traj": HMC_CFG.nstep * HMC_CFG.n_chains
+            / head["value"],
+            "extras": {k: {"chain_steps_per_s": v["value"],
+                           "s_per_traj": v["s_per_traj"]}
+                       for k, v in rec.items() if k != "headline"},
+            "stderr_tail": r.stderr.strip().splitlines()[-2:]}
+
+
+def entry_step(dev) -> dict:
+    """entry()'s FT-HMC step once (K7, K1, K8 a force, K6 a layer an energy
+    flow), its force held against the autograd force on the same z at
+    phase 3's chain tolerance; dH finite."""
+    from fthmc_tpu_torch import entry as pentry
+    fn, args = pentry.entry()
+    params, _, z, _ = args
+    spec, nl, n = pentry.ENTRY_SPEC, pentry.ENTRY_SPEC.n_layers, \
+        pentry.ENTRY_NSTEP
+    (_, _, _, m), wall, launches, plain = _counted(lambda: fn(*args))
+    want = _hold_launches("entry()", launches, plain,
+                          {"K1": n, "K6": 2 * nl, "K7": n * nl,
+                           "K8": n * nl})
+    with full_fp32():
+        f_k = ft_force_kernel(params, spec, z, pentry.ENTRY_BETA)
+        f_a = ft_force(params, spec, z, pentry.ENTRY_BETA, device=dev)
+    err = float((f_k - f_a).abs().max())
+    tol = 2e-3 * max(1.0, float(f_a.abs().max()))
+    require(err <= tol, f"entry() force vs autograd: {err} > {tol}")
+    require(bool(torch.isfinite(m.dh).all()), "entry() dH not finite")
+    return {"dh": m.dh.tolist(), "acc": m.acc.tolist(), "wall_s": wall,
+            "force_max_abs_err": err, "force_tolerance": tol,
+            "launches": launches, "expected": want}
+
+
+def dryrun_one_rank(dev) -> dict:
+    """dryrun_multichip(1) on a group of one NCCL rank, with its launches:
+    the chain-sharded runs' kernels (K3 at 8^2; the FT steps' K1, K6-K8;
+    the dynamical runs' K11 a solve and K1 a force); the training and the
+    row-sharded stages launch none."""
+    from fthmc_tpu_torch import entry as pentry
+    out, wall, launches, plain = _counted(lambda: pentry.dryrun_multichip(1))
+    scfg = SchwingerConfig(L=8, beta=2.0, mass=0.3, tau=0.5, nstep=2)
+    nf = force_evaluations(scfg)["dyn"]
+    # (leapfrog forces, trajectories) of the FT step and run, the
+    # dynamical runs' trajectories, the dry run's flow's layers
+    ft_runs, dyn_n, nl = ((2, 1), (2, 3)), 2, 2
+    expect = {"K1": sum(a * b for a, b in ft_runs) + 2 * nf * dyn_n,
+              "K3": 4,
+              "K6": nl * (2 + (2 * 3 + 1) + (2 * dyn_n + 1)),
+              "K7": nl * (sum(a * b for a, b in ft_runs) + nf * dyn_n),
+              "K11": 2 * (nf + 1) * dyn_n}
+    expect["K8"] = expect["K7"]
+    want = _hold_launches("dryrun_multichip(1)", launches, plain, expect)
+    return {"stages": out, "wall_s": wall, "launches": launches,
+            "expected": want}
+
+
+def demo_highbeta_run(spec) -> dict:
+    """demo_highbeta at its defaults (16^2, 64 chains, 128 Omelyan steps,
+    the beta=3 flow at beta=6, hot start) for DEMO_HIGHBETA_NTRAJ
+    trajectories: <exp(-dH)> within 0.1 of 1, acceptance >= 0.5; <plaq>
+    printed beside exact. K1, K7, K8 a force, K6 a layer an energy flow
+    (two a trajectory and one a block of 16)."""
+    from fthmc_tpu_torch.examples import demo_highbeta
+    n = DEMO_HIGHBETA_NTRAJ
+    argv = ["--ntraj", str(n)]
+    out, wall, launches, plain = _counted(lambda: demo_highbeta.main(argv))
+    nf, nl = 2 * 128 + 1, spec.n_layers
+    blocks = -(-n // demo_highbeta.BLOCK)
+    want = _hold_launches("demo_highbeta", launches, plain, {
+        "K1": nf * n, "K6": nl * (2 * n + blocks), "K7": nf * nl * n,
+        "K8": nf * nl * n})
+    require(abs(out["exp_mdh"] - 1.0) <= 0.1,
+            f"demo_highbeta <exp(-dH)> {out['exp_mdh']}")
+    require(out["acc"] >= 0.5, f"demo_highbeta acceptance {out['acc']}")
+    return {"argv": argv, **out, "wall_s": wall, "s_per_traj": wall / n,
+            "launches": launches, "expected": want}
+
+
+def demo_schwinger_run(dev, spec) -> dict:
+    """demo_schwinger at its default widths (8^2, 32 chains, beta=3,
+    m=0.2, 'auto': K11) for DEMO_SCHWINGER_NTRAJ trajectories a leg:
+    gamma_5-hermiticity <= 1e-8, the plain leg's <exp(-dH)> within 0.05
+    of 1. K11 a solve and K1 a force in both legs, K7/K8 a layer a force
+    and K6 a layer an energy flow in the FT leg, and the pion
+    correlator's solve (counted alone first, on links of its shape)."""
+    from fthmc_tpu_torch.examples import demo_schwinger
+    n, L, chains = DEMO_SCHWINGER_NTRAJ, 8, 32
+    x = near_equilibrium(torch.Generator(dev).manual_seed(92), 4, L, 3.0,
+                         dev)
+    _, _, pion, _ = _counted(lambda: tf.pion_correlator(x, 0.2))
+    argv = ["--ntraj", str(n)]
+    out, wall, launches, plain = _counted(lambda: demo_schwinger.main(argv))
+    nf = force_evaluations(SchwingerConfig(L=L, beta=3.0, mass=0.2,
+                                           tau=1.0, nstep=16))["dyn"]
+    nf_ft = force_evaluations(SchwingerConfig(L=L, beta=3.0, mass=0.2,
+                                              tau=0.5, nstep=8))["dyn"]
+    nl = spec.n_layers
+    want = _hold_launches("demo_schwinger", launches, plain, {
+        "K1": (nf + nf_ft) * n,
+        "K11": (nf + 1 + nf_ft + 1) * n + pion["K11"],
+        "K6": nl * (2 * n + 1), "K7": nf_ft * nl * n,
+        "K8": nf_ft * nl * n})
+    require(out["chains"] == chains, f"demo_schwinger chains {out}")
+    require(out["g5_hermiticity"] <= 1e-8,
+            f"demo_schwinger gamma5 {out['g5_hermiticity']}")
+    require(abs(out["plain"]["exp_mdh"] - 1.0) <= 0.05,
+            f"demo_schwinger <exp(-dH)> {out['plain']['exp_mdh']}")
+    return {"argv": argv, **out, "wall_s": wall,
+            "pion_launches": {k: v for k, v in pion.items() if v},
+            "launches": launches, "expected": want}
+
+
+def demo_2d_u1_run() -> dict:
+    """demo_2d_u1 at its defaults (8^2, beta=2, 64 HMC chains, the
+    16-layer flow trained 10 x 100 epochs, 8192 flow samples, 16 FT
+    chains with 64 leapfrog steps), the FT and transfer trajectories cut
+    (DEMO_2D_U1_CUT): the HMC's and FT-HMC's <plaq> within max(0.004, 5
+    sigma) of exact (sigma over the chains). K3 a plain trajectory; K6 a
+    layer a sampling block and the initial draw; K1, K7, K8 a force and
+    K6 a layer an energy flow in FT-HMC."""
+    from fthmc_tpu_torch.examples import demo_2d_u1
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in DEMO_2D_U1_CUT.items()]
+    out, wall, launches, plain = _counted(lambda: demo_2d_u1.main(argv))
+    n = out["lengths"]
+    nl, nstep = 16, 64
+    blocks = max(1, -(-(n["ensemble_size"] - 1) // 64))
+    ft = n["ft_ntraj"] + n["transfer_ntraj"]
+    want = _hold_launches("demo_2d_u1", launches, plain, {
+        "K3": n["hmc_ntraj"], "K1": nstep * ft,
+        "K6": nl * (blocks + 1) + nl * (2 * ft + 2),
+        "K7": nstep * nl * ft, "K8": nstep * nl * ft})
+    exact = lattice.PLAQ_EXACT[2.0]
+    for leg in ("hmc", "fthmc"):
+        r = out[leg]
+        bound = max(0.004, 5 * r["plaq_err"])
+        r["plaq_bound"] = bound
+        require(abs(r["plaq"] - exact) <= bound,
+                f"demo_2d_u1 {leg} plaq {r['plaq']} vs {exact} (bound "
+                f"{bound})")
+    return {"argv": argv, **out, "wall_s": wall, "launches": launches,
+            "expected": want}
+
+
+def entry_phase(dev, spec) -> dict:
+    """Phase 14: the bench entry in a subprocess, entry()'s step,
+    dryrun_multichip(1) and the three demos in this process, each run's
+    launch counters set to 0 just before it and held to its count.
+    Returns the launches of the runs in this process."""
+    import tempfile
+    t0 = time.perf_counter()
+    seconds, runs = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        runs[name] = fn()
+        seconds[name] = time.perf_counter() - t
+        say("entry_" + name, **runs[name])
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        timed("bench", lambda: bench_entry(tmp))
+    timed("step", lambda: entry_step(dev))
+    timed("dryrun", lambda: dryrun_one_rank(dev))
+    timed("demo_highbeta", lambda: demo_highbeta_run(spec))
+    timed("demo_schwinger", lambda: demo_schwinger_run(dev, spec))
+    timed("demo_2d_u1", demo_2d_u1_run)
+    launched = dict.fromkeys(_build.KERNELS, 0)
+    for name, r in runs.items():
+        for k, v in r.get("launches", {}).items():
+            launched[k] += v
+    say("entry_points", seconds=time.perf_counter() - t0, by_part=seconds,
+        launches=launched)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3743,7 +3978,12 @@ def main() -> None:
     for k, v in cli_phase(dev, params, spec, z0, ref).items():
         launches[k] += v
 
-    # 14. the kernels line
+    # 14. the entry points: the bench entry, entry(), the dry run, the
+    # demos
+    for k, v in entry_phase(dev, spec).items():
+        launches[k] += v
+
+    # 15. the kernels line
     bnd = bounds(spec, sum(t.numel() for c in layer for t in c.values()),
                  mu, off)
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
@@ -3765,7 +4005,7 @@ def main() -> None:
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 15. the device line
+    # 16. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

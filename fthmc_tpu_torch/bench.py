@@ -1,11 +1,22 @@
 """Benchmark functions of the port: leapfrog throughput, FT-HMC, the FT
-force's two backends, training steps/s and flow-sampling throughput.
+force's two backends, training steps/s and flow-sampling throughput; and
+the one-line benchmark entry, ``python -m fthmc_tpu_torch.bench``.
 
 Counterpart of ``fthmc_tpu/bench.py``, with its arguments, defaults, metric
 names and units; each function takes ``device`` (the card by default) and
 returns the JAX function's dict. Times are host clocks around work that ends
-in ``torch.cuda.synchronize()`` (on the card). The FT force's backends are
-the port's: 'kernel' (K7, K1, K8) and 'autograd' (the JAX package's 'xla').
+in a wait for the card (``_sync``: a CUDA event polled from Python, so a
+SIGALRM watchdog can interrupt a hang). The FT force's backends are the
+port's: 'kernel' (K7, K1, K8) and 'autograd' (the JAX package's 'xla').
+
+The entry (``main``) is the counterpart of the JAX package's root
+``bench.py``: one JSON line on stdout, the plain-HMC headline
+(``bench_hmc_leapfrog`` at 64^2, 1024 chains, beta=6, 25 steps, 20
+trajectories), flushed before anything else runs; then the flagship
+FT-HMC extras (16^2 fp32 through the kernels, 64^2 with bf16 convs through
+the autograd force, which the kernels refuse) under a watchdog, reported
+on stderr and, with ``--extra-json PATH``, in that file. An extra that
+fails or times out makes the process exit 1 after the headline is out.
 
 Reference baselines (BASELINE.md): the reference runs plain HMC at ~9.3
 chain-steps/s at 64^2 (volume-scaled from 12^2 on a CPU) and FT-HMC at
@@ -14,7 +25,11 @@ at ~0.52 s a step on a Colab GPU.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import signal
+import sys
 import time
 
 import numpy as np
@@ -33,7 +48,8 @@ from fthmc_tpu_torch.train import init_train_state, train_era
 
 __all__ = ["bench_hmc_leapfrog", "bench_fthmc_leapfrog",
            "bench_fthmc_flagship", "bench_fthmc_force_backends",
-           "bench_train", "bench_flow_sampling", "run_benchmarks"]
+           "bench_train", "bench_flow_sampling", "run_benchmarks",
+           "build_parser", "main"]
 
 # reference CPU leapfrog throughput at 64^2 (chain-steps/s)
 BASELINE_LEAPFROG_64 = 9.3
@@ -42,8 +58,16 @@ BASELINE_FT_LEAPFROG_8 = 1.0 / 0.183
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream: an event
+    recorded there and queried until it completes. Python runs signal
+    handlers between these queries, so the entry's watchdog can end a hung
+    wait, which a blocking ``torch.cuda.synchronize()`` would not let it
+    do."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        while not ev.query():
+            pass
 
 
 def _gen(device: torch.device, seed: int) -> torch.Generator:
@@ -271,3 +295,99 @@ def run_benchmarks(L: int = 64, chains: int = 1024, beta: float = 6.0,
         out["sample"] = bench_flow_sampling(device=device)
         print(out["sample"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the one-line benchmark entry
+# ---------------------------------------------------------------------------
+
+HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m fthmc_tpu_torch.bench",
+        description="Plain-HMC headline as one JSON line on stdout, then "
+                    "the flagship FT-HMC extras on stderr.")
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    g = ap.add_argument_group("the headline (bench_hmc_leapfrog)")
+    g.add_argument("--L", type=int, default=64)
+    g.add_argument("--chains", type=int, default=1024)
+    g.add_argument("--ntraj", type=int, default=20)
+    g.add_argument("--repeats", type=int, default=5)
+    g = ap.add_argument_group("the flagship extras (bench_fthmc_flagship)")
+    g.add_argument("--ft-L", type=int, default=16)
+    g.add_argument("--ft-chains", type=int, default=64)
+    g.add_argument("--ft-nstep", type=int, default=8,
+                   help="Omelyan steps of both extras")
+    g.add_argument("--ft-ntraj", type=int, default=4)
+    g.add_argument("--ft-repeats", type=int, default=3,
+                   help="timed repeats of both extras")
+    g.add_argument("--bf16-L", type=int, default=64)
+    g.add_argument("--bf16-chains", type=int, default=32)
+    g.add_argument("--bf16-ntraj", type=int, default=2)
+    ap.add_argument("--timeout", type=int, default=1200,
+                    help="watchdog over the extras, seconds")
+    ap.add_argument("--extra-json", default=None, metavar="PATH",
+                    help="write the headline's and the extras' dicts here")
+    return ap
+
+
+def _extras(args, device) -> list:
+    """(key, label, bench_fthmc_flagship keywords) of the two extras: the
+    fp32 recipe through the kernels ('auto') and the bf16 recipe, which
+    names the autograd force."""
+    common = dict(nstep=args.ft_nstep, repeats=args.ft_repeats,
+                  device=device)
+    return [(f"fthmc_flagship_L{args.ft_L}",
+             f"flagship FT {args.ft_L}^2 fp32",
+             dict(L=args.ft_L, chains=args.ft_chains, ntraj=args.ft_ntraj,
+                  **common)),
+            (f"fthmc_flagship_L{args.bf16_L}_bf16",
+             f"flagship FT {args.bf16_L}^2 bf16",
+             dict(L=args.bf16_L, chains=args.bf16_chains,
+                  ntraj=args.bf16_ntraj, conv_dtype="bfloat16",
+                  force_backend="autograd", **common))]
+
+
+def main(argv=None) -> int:
+    """The headline line on stdout, then the extras under the watchdog;
+    returns the exit status: 0, or 1 when an extra failed or timed out
+    (its error is in the extras record and on stderr)."""
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    r = bench_hmc_leapfrog(L=args.L, chains=args.chains, beta=6.0,
+                           nstep=25, ntraj=args.ntraj, repeats=args.repeats,
+                           device=device)
+    print(json.dumps({k: r[k] for k in HEADLINE_KEYS}), flush=True)
+    extra = {"headline": r}
+    failed = False
+
+    def _alarm(signum, frame):
+        raise TimeoutError(f"flagship bench watchdog ({args.timeout} s)")
+
+    old = signal.signal(signal.SIGALRM, _alarm)
+    try:
+        signal.alarm(args.timeout)
+        for key, label, kw in _extras(args, device):
+            f = bench_fthmc_flagship(**kw)
+            print(f"{label}: {f['value']:.3g} chain-steps/s "
+                  f"({f['s_per_traj'] * 1e3:.1f} ms/traj)", file=sys.stderr)
+            extra[key] = f
+    except Exception as e:  # the watchdog's TimeoutError included
+        failed = True
+        extra["fthmc_flagship_error"] = f"{type(e).__name__}: {e}"
+        print(f"flagship FT bench failed: {extra['fthmc_flagship_error']}",
+              file=sys.stderr)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    if args.extra_json:
+        with open(args.extra_json, "w") as fh:
+            json.dump(extra, fh, indent=1)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -176,3 +176,22 @@ def test_probe_and_diagnostics_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tm.mobility_probe(None, None, **kw)
     assert tm.mobility_probe(None, None, device="cpu", **kw)["ntraj"] == 2
+
+
+def test_entry_modules_raise_without_cuda(no_cuda):
+    """The bench entry, entry()/dryrun_multichip() and the three demos
+    (in the import scan above) default to the card and raise without
+    one, before any work."""
+    from fthmc_tpu_torch import bench as tb
+    from fthmc_tpu_torch import entry as te
+    from fthmc_tpu_torch.examples import (demo_2d_u1, demo_highbeta,
+                                          demo_schwinger)
+    for name in ("bench.py", "entry.py", "examples/demo_2d_u1.py",
+                 "examples/demo_highbeta.py", "examples/demo_schwinger.py"):
+        assert (ROOT / "fthmc_tpu_torch" / name).exists()
+    calls = [lambda: tb.main([]), te.entry, lambda: te.dryrun_multichip(1),
+             lambda: demo_2d_u1.main([]), lambda: demo_highbeta.main([]),
+             lambda: demo_schwinger.main([])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

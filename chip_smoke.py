@@ -1251,8 +1251,11 @@ def profile_busy(run, ntraj: int, s_per_traj: float) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
+        # the device-side mirrors of host spans (the samplers'
+        # ``fthmc.step`` ranges) are no device work
         rows = [(e.key, e.self_device_time_total) for e in events
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         host = sorted(((e.key, e.self_cpu_time_total, e.count)
                        for e in events), key=lambda r: -r[1])[:6]
     except (RuntimeError, AttributeError) as e:

@@ -51,6 +51,7 @@ from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_kernels import (kernel_fits,
                                                   kernel_flow_forward)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import ft_force_kernel
+from fthmc_tpu_torch.utils.profiling import span
 
 __all__ = ["TrajMetrics", "leapfrog", "omelyan", "BACKENDS",
            "resolve_backend", "run_leapfrog", "hmc_step", "run_hmc",
@@ -214,24 +215,45 @@ def run_leapfrog(x: torch.Tensor, v: torch.Tensor, beta: float, dt: float,
 
 def _hmc_step(generator, x, q_old, beta, dt, nstep, backend, integrator):
     """hmc_step on a resolved backend, with x and q_old on the run's
-    device."""
-    if backend == "fused":
-        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             dtype=torch.int32, device=generator.device)
-        x_new, dh, acc = lk.hmc_traj(x, seed.to(x.device), beta, dt, nstep)
-        exp_mdh = torch.exp(-dh)
-    elif backend == "fused_hostrng":
-        v0 = _normal(generator, x)
-        u = _uniform(generator, x[:, 0, 0, 0])
-        x_new, dh, acc = lk.hmc_traj_hostrng(x, v0, u, beta, dt, nstep)
-        exp_mdh = torch.exp(-dh)
-    else:
-        v0 = _normal(generator, x)
-        x1, v1 = _trajectory(x, v0, beta, dt, nstep, backend, integrator)
-        x1 = lattice.wrap(x1)
-        dh = lattice.delta_action(x1, x, beta) + _kinetic_delta(v1, v0)
-        exp_mdh, acc, (x_new,) = _metropolis(generator, dh, (x1,), (x,))
-    m = _metrics(dh, exp_mdh, acc, x_new, q_old)
+    device. The trajectory is the span ``fthmc.step``, its phases the
+    spans ``fthmc.step.{momenta,integrate,energy,accept,observe}`` (see
+    ``_fthmc_step``); a fused kernel is ``integrate``, the draws it takes
+    ``momenta``, and its dH needs no ``energy``."""
+    with span("fthmc.step"):
+        if backend == "fused":
+            with span("fthmc.step.momenta"):
+                seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=generator, dtype=torch.int32,
+                                     device=generator.device)
+            with span("fthmc.step.integrate"):
+                x_new, dh, acc = lk.hmc_traj(x, seed.to(x.device), beta, dt,
+                                             nstep)
+            with span("fthmc.step.accept"):
+                exp_mdh = torch.exp(-dh)
+        elif backend == "fused_hostrng":
+            with span("fthmc.step.momenta"):
+                v0 = _normal(generator, x)
+                u = _uniform(generator, x[:, 0, 0, 0])
+            with span("fthmc.step.integrate"):
+                x_new, dh, acc = lk.hmc_traj_hostrng(x, v0, u, beta, dt,
+                                                     nstep)
+            with span("fthmc.step.accept"):
+                exp_mdh = torch.exp(-dh)
+        else:
+            with span("fthmc.step.momenta"):
+                v0 = _normal(generator, x)
+            with span("fthmc.step.integrate"):
+                x1, v1 = _trajectory(x, v0, beta, dt, nstep, backend,
+                                     integrator)
+            with span("fthmc.step.energy"):
+                x1 = lattice.wrap(x1)
+                dh = (lattice.delta_action(x1, x, beta)
+                      + _kinetic_delta(v1, v0))
+            with span("fthmc.step.accept"):
+                exp_mdh, acc, (x_new,) = _metropolis(generator, dh, (x1,),
+                                                     (x,))
+        with span("fthmc.step.observe"):
+            m = _metrics(dh, exp_mdh, acc, x_new, q_old)
     return x_new, m.q, m
 
 
@@ -476,18 +498,33 @@ def _flow_and_force(params, spec, beta, remat, backend):
 @torch.no_grad()
 def _fthmc_step(generator, z, q_old, beta, dt, nstep, integrator, flow,
                 force_fn):
-    v0 = _normal(generator, z)
-    y0, logdet0 = flow(z)
-    integ = omelyan if integrator == "omelyan" else leapfrog
-    z1, v1 = integ(z, v0, dt, nstep, force_fn)
-    z1 = lattice.wrap(z1)
-    y1, logdet1 = flow(z1)
-    # dH = [S(y1) - logdet1] - [S(y0) - logdet0] + dK, delta-form Wilson term
-    dh = (lattice.delta_action(y1, y0, beta) - (logdet1 - logdet0)
-          + _kinetic_delta(v1, v0))
-    exp_mdh, acc, (z_new, y_new) = _metropolis(generator, dh, (z1, y1),
-                                               (z, y0))
-    m = _metrics(dh, exp_mdh, acc, y_new, q_old)
+    """One trajectory, the span ``fthmc.step``. Its phases are the spans
+    ``fthmc.step.momenta`` (the draw), ``.energy`` (the flow of z, and
+    after the trajectory the flow of z1 with dH), ``.integrate`` (every
+    force), ``.accept`` (Metropolis) and ``.observe`` (charge and
+    plaquette): a profiler's trace holds them on the clock of the card's
+    kernels (``utils.profiling.span``); without a profiler each costs one
+    check."""
+    with span("fthmc.step"):
+        with span("fthmc.step.momenta"):
+            v0 = _normal(generator, z)
+        with span("fthmc.step.energy"):
+            y0, logdet0 = flow(z)
+        with span("fthmc.step.integrate"):
+            integ = omelyan if integrator == "omelyan" else leapfrog
+            z1, v1 = integ(z, v0, dt, nstep, force_fn)
+        with span("fthmc.step.energy"):
+            z1 = lattice.wrap(z1)
+            y1, logdet1 = flow(z1)
+            # dH = [S(y1) - logdet1] - [S(y0) - logdet0] + dK, delta-form
+            # Wilson term
+            dh = (lattice.delta_action(y1, y0, beta) - (logdet1 - logdet0)
+                  + _kinetic_delta(v1, v0))
+        with span("fthmc.step.accept"):
+            exp_mdh, acc, (z_new, y_new) = _metropolis(generator, dh,
+                                                       (z1, y1), (z, y0))
+        with span("fthmc.step.observe"):
+            m = _metrics(dh, exp_mdh, acc, y_new, q_old)
     return z_new, y_new, m.q, m
 
 

@@ -1,5 +1,5 @@
-"""Profiling hooks: a ``torch.profiler`` trace around any run, and a
-steps/s meter.
+"""Profiling hooks: a ``torch.profiler`` trace around any run, and the
+named spans the samplers open on the profiler's timeline.
 
 Counterpart of ``fthmc_tpu/utils/profiling.py``, whose ``trace`` is a
 ``jax.profiler`` trace. Here it records the host's activity, and the
@@ -14,7 +14,11 @@ import time
 
 import torch
 
-__all__ = ["trace", "Timer"]
+__all__ = ["trace", "span"]
+
+_OFF = contextlib.nullcontext()
+# looked up once: a span's cost with no profiler is this one call
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 @contextlib.contextmanager
@@ -36,19 +40,12 @@ def trace(logdir: str | None):
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-class Timer:
-    """Steps/sec meter with exponential moving average."""
-
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.rate = None
-        self._last = time.perf_counter()
-
-    def tick(self, n: int = 1) -> float:
-        now = time.perf_counter()
-        dt = now - self._last
-        self._last = now
-        r = n / dt if dt > 0 else 0.0
-        self.rate = r if self.rate is None else (
-            self.alpha * r + (1 - self.alpha) * self.rate)
-        return self.rate
+def span(name: str):
+    """Context manager: a range named ``name`` on the profiler's timeline
+    while a ``torch.profiler`` session runs (``trace``, or any other), so
+    the card's work and idle time can be charged to it; otherwise one
+    shared no-op context, whose cost is the one check. The samplers' names
+    start with ``fthmc.``."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

@@ -3,7 +3,7 @@ CPU: the logger's strings and MetricsWriter's lines equal JAX's exactly
 (torch tensors read as the numpy arrays they hold); therm_arr,
 moving_average and drop_nans equal; plotting runs headless; TBWriter
 writes, and writes nothing when torch.utils.tensorboard cannot be
-imported; profiling.trace writes a Chrome trace, and Timer ticks. With
+imported; profiling.trace writes a Chrome trace that shows a span. With
 mirrors of the logger, plotting and table tests of
 tests/test_diagnostics.py.
 """
@@ -26,7 +26,6 @@ from fthmc_tpu_torch.utils import profiling as tprof
 from fthmc_tpu_torch.utils import tboard as ttb
 from fthmc_tpu_torch.utils.logger import (Logger, MetricsWriter,
                                           format_metrics)
-from fthmc_tpu_torch.utils.profiling import Timer
 
 METRICS = {"loss": 0.123456789, "n": 7, "flag": True, "name": "ft",
            "ess": np.asarray([0.1, 0.3]), "one": np.asarray([[2.5]]),
@@ -41,8 +40,8 @@ def _as_torch(m: dict) -> dict:
 def test_all_match_jax():
     for a, b in ((tlog, jlog), (tplot, jplot), (ttb, jtb)):
         assert a.__all__ == b.__all__
-    from fthmc_tpu.utils import profiling as jprof
-    assert tprof.__all__ == jprof.__all__
+    # JAX's trace, and the samplers' span where JAX has its Timer
+    assert tprof.__all__ == ["trace", "span"]
 
 
 @pytest.mark.parametrize("torch_values", [False, True])
@@ -155,13 +154,6 @@ def test_plotting_headless(tmp_path):
     assert os.path.exists(fname)
 
 
-def test_timer():
-    t = Timer()
-    r = t.tick(10)
-    assert r > 0
-    assert t.tick(5) > 0 and t.rate > 0
-
-
 def test_logger_prints(capsys):
     log = Logger()
     log.rule("hello")
@@ -264,11 +256,13 @@ def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(None):
         pass
     with tprof.trace(str(tmp_path / "tr")):
-        x = torch.randn(64, 64)
-        (x @ x).sum()
+        with tprof.span("fthmc.test"):
+            x = torch.randn(64, 64)
+            (x @ x).sum()
     (name,) = os.listdir(tmp_path / "tr")
     assert name.startswith(f"trace_{os.getpid()}_") and name.endswith(".json")
     with open(tmp_path / "tr" / name) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("mm" in n for n in names), sorted(names)[:20]
+    assert "fthmc.test" in names

@@ -208,7 +208,8 @@ from fthmc_tpu_torch.diagnostics import (flow_inverse_residual,
                                          summarize_step_info)
 from fthmc_tpu_torch.hmc import (TrajMetrics, ft_force, hmc_step,
                                  leapfrog, resolve_backend,
-                                 resolve_force_backend, run_fthmc, run_hmc)
+                                 resolve_force_backend, run_fthmc, run_hmc,
+                                 run_leapfrog)
 from fthmc_tpu_torch.mobility import mobility_probe
 from fthmc_tpu_torch.models.flow import (flow_forward, flow_reverse,
                                          init_flow_params)
@@ -292,6 +293,11 @@ AUTO_RULE_SHAPES = ((1024, 8), (1024, 16), (1024, 32), (1024, 48),
 # L), each a launch of the headline's sites
 LARGE_L, LARGE_CHAINS = (128, 256), 16
 PLAN_SHAPES = ((1024, 64), (256, 128), (64, 256))
+# K12's wide kernel (above the band plans' reach, after the K1 loop): the
+# (chains, L) it is checked at in phase 3, and those it is timed at (each
+# ~4x the headline's sites)
+K12_WIDE_SHAPE = (4, 512)
+K12_WIDE_TIMED = ((64, 512), (16, 1024))
 # From the cold start the plaquette's excess over its equilibrium falls
 # over some 500 trajectories (slow modes of fixed-length trajectories), so
 # 600 thermalize; 1000 are measured, in 10 blocks for the error.
@@ -334,6 +340,9 @@ SOURCES = {
     # the JAX package (_cg_solve_mixed's inner), no Pallas kernel
     "K11_bf16": ("fthmc_tpu_torch/csrc/fermion.cu",
                  "fthmc_tpu/fermion.py:259"),
+    # the plain step's epilogue after K2, K3 or the K1 loop: no Pallas
+    # kernel, XLA fuses hmc_step's ops
+    "K12": ("fthmc_tpu_torch/csrc/hmc_traj.cu", "fthmc_tpu/hmc.py:195"),
 }
 # Dynamical fermions (fthmc_tpu_torch.schwinger): the JAX package's own
 # production runs, which used its fused CG, and what they read (acceptance,
@@ -720,13 +729,16 @@ ENERGY_OPS = 64      # 2 plaquettes 6, 2 cosf 40, 2 sums; kinetic 2 x 4;
                      # wrap and select 2 x 4
 DRAW_OPS = 310       # 2 momenta x (Philox4x32-10 100, 2 uniforms 8, logf,
                      # sqrtf, cosf 44, 3 muls)
+EPILOGUE_OPS = 78    # K12: 2 plaquettes 6, 2 cosf 40, wraps of 2 links and
+                     # 2 plaquettes 16, kinetic 2 x 4, 6 sums, select 2
 
 
 def traj_bounds(B: int, L: int, nstep: int) -> dict:
-    """Least time (ms) of K2-K5 for B chains of L^2 sites over nstep steps:
-    the larger of bytes / peak bandwidth (each input read once, each output
-    written once) and the operations above / peak fp32 rate. K4 draws each
-    momentum once (and keeps it for the kinetic term)."""
+    """Least time (ms) of K2-K5 for B chains of L^2 sites over nstep steps,
+    and of K12 after one: the larger of bytes / peak bandwidth (each input
+    read once, each output written once) and the operations above / peak
+    fp32 rate. K4 draws each momentum once (and keeps it for the kinetic
+    term)."""
     sites = B * L * L
     field = 4 * 2 * sites                      # one (B, 2, L, L) fp32 field
     lf = sites * (STEP_OPS * nstep + HALF_DRIFT_OPS)
@@ -735,7 +747,9 @@ def traj_bounds(B: int, L: int, nstep: int) -> dict:
             "K4": (2 * field + 4 + 8 * B,      # x, seed in; x', dh, acc out
                    lf + sites * (ENERGY_OPS + DRAW_OPS)),
             "K5": (3 * field + 12 * B,         # x, v0, u in; x', dh, acc out
-                   lf + sites * ENERGY_OPS)}
+                   lf + sites * ENERGY_OPS),
+            # x, x1, v1, v0, u, q_old in; x', the (6, B) rows out
+            "K12": (5 * field + 32 * B, sites * EPILOGUE_OPS)}
     return {k: _bound(nbytes, flops) for k, (nbytes, flops) in work.items()}
 
 
@@ -971,6 +985,53 @@ def traj_plan_sweep(dev, n_sm: int) -> dict:
     return out
 
 
+def k12_wide_times(dev) -> dict:
+    """Phase 7: K12's wide kernel (above the band plans' reach) after a
+    trajectory of the K1 loop at each of K12_WIDE_TIMED, held against its
+    fp64 twin, then timed (card ms, CUDA events), beside its bound: six
+    fields of traffic (four read, the chosen one read again, x_new
+    written)."""
+    cfg = HMC_CFG
+    g = torch.Generator(device=dev).manual_seed(2031)
+    out = {}
+    for B, L in K12_WIDE_TIMED:
+        x, v, u, _ = traj_inputs(g, B, L, dev)
+        x1, v1 = run_leapfrog(x, v, cfg.beta, cfg.dt, cfg.nstep,
+                              backend="xla", device=dev)
+        q = torch.zeros(B, device=dev)
+        field = 4 * 2 * B * L * L
+        out[f"{L}^2 x {B}"] = {
+            "check": k12_check(x, x1, v1, v, u, q, cfg.beta),
+            "K12": cuda_ms(lambda: lk.hmc_epilogue(x, x1, v1, v, u, q,
+                                                   cfg.beta)),
+            **_bound(6 * field + 32 * B, B * L * L * EPILOGUE_OPS)}
+    return out
+
+
+def k12_plan_sweep(dev, n_sm: int) -> dict:
+    """Phase 7: K12 after a K2 trajectory under every plan of traj_plans at
+    each of PLAN_SHAPES, each held against its fp64 twin, then timed (card
+    ms, CUDA events), beside the plan traj_plan picks and the bound."""
+    cfg = HMC_CFG
+    g = torch.Generator(device=dev).manual_seed(2030)
+    out = {}
+    for B, L in PLAN_SHAPES:
+        x, v, u, _ = traj_inputs(g, B, L, dev)
+        x1, v1 = lk.leapfrog(x, v, cfg.beta, cfg.dt, cfg.nstep)
+        q = torch.zeros(B, device=dev)
+        row = {"chains": B, "L": L,
+               "picked": list(lk.traj_plan(L, B, n_sm, "K12")),
+               "bound_ms": traj_bounds(B, L, cfg.nstep)["K12"]["bound_ms"],
+               "plans": []}
+        for plan in lk.traj_plans(L):
+            k12_check(x, x1, v1, v, u, q, cfg.beta, plan)
+            row["plans"].append({"plan": list(plan), "K12": cuda_ms(
+                lambda: lk.hmc_epilogue(x, x1, v1, v, u, q, cfg.beta,
+                                        plan=plan))})
+        out[f"{L}^2"] = row
+    return out
+
+
 def compare_k1(dev) -> tuple[float, float, dict]:
     """Phase 3: K1 at each of K1_SHAPES (uniform links) against its twin,
     within 1e-4 x max(1, max|F|) (PERF.md section 2), and two launches
@@ -1114,12 +1175,50 @@ def k1_timings(dev) -> dict:
     return out
 
 
+def k12_check(x, x1, v1, v0, u, q_old, beta, plan=None) -> dict:
+    """K12 against its twin run in float64 on the same fp32 inputs: dH
+    within lk.epilogue_dh_tolerance (2^-19 of beta sum|cos P1 - cos P0| +
+    beta sum(|sin P0| + |sin P1|) + 1/2 sum|(v1 - v0)(v1 + v0)|), the
+    accept equal wherever log u lies further than the dH gap (and 1e-6)
+    from -dH, and the largest plaquette and charge gaps where the accept is
+    equal. Beside them the share of chains on which the control, the
+    twin's dH with each cos P rounded to bfloat16, breaks that bound."""
+    got = lk.hmc_epilogue(x, x1, v1, v0, u, q_old, beta, plan=plan)
+    d = [t.double().cpu() for t in (x, x1, v1, v0, u, q_old)]
+    xr, rr = lk.hmc_epilogue_plain(*d, beta)
+    tol = lk.epilogue_dh_tolerance(*d[:4], beta)
+    c0, c1 = (lk._plaq_of(f).cos().bfloat16().double()
+              for f in (d[0], torch.remainder(d[1] + math.pi, 2 * math.pi)
+                        - math.pi))
+    ctrl = (-beta * (c1 - c0).sum((1, 2))
+            + 0.5 * ((d[2] - d[3]) * (d[2] + d[3])).sum((1, 2, 3)))
+    rk = got[1].double().cpu()
+    decided = ((torch.log(d[4]) + rr[0]).abs()
+               > (rk[0] - rr[0]).abs() + 1e-6)
+    same = rk[2] == rr[2]
+    r = {"dh_max_abs_err": float((rk[0] - rr[0]).abs().max()),
+         "dh_within_tolerance": bool(((rk[0] - rr[0]).abs() <= tol).all()),
+         "dh_tolerance_min": float(tol.min()),
+         "bf16_cos_control_over_tolerance": float(
+             ((ctrl - rr[0]).abs() > tol).double().mean()),
+         "decided": int(decided.sum()), "chains": len(decided),
+         "acc_flips_decided": int((rk[2] != rr[2])[decided].sum()),
+         "x_max_wrapped_err": wrapped_err(got[0].cpu()[same], xr[same]),
+         "plaq_max_abs_err": float((rk[3] - rr[3]).abs()[same].max()),
+         "q_max_abs_err": float((rk[4] - rr[4]).abs()[same].max())}
+    require(r["dh_within_tolerance"] and r["acc_flips_decided"] == 0
+            and r["x_max_wrapped_err"] < 1e-5 and r["q_max_abs_err"] < 0.01,
+            f"K12 vs its fp64 twin: {r}")
+    return r
+
+
 def compare_trajectory_kernels(dev):
     """Phase 3, plain HMC: K2, K4, K5 at the headline shapes, each against
     its plain twin from near-equilibrium links (K3: compare_k3); K5
     against hmc_step's 'xla' path (the torch loop with K1) on the same
-    generator draws. Returns (errors, tolerances, details, inputs, with
-    K3's timed CL_L^2 links and momenta)."""
+    generator draws; K12 after K2's trajectory against its fp64 twin.
+    Returns (errors, tolerances, details, inputs, with K3's timed CL_L^2
+    links and momenta)."""
     cfg = HMC_CFG
     B, L, beta, dt, n = cfg.n_chains, cfg.L, cfg.beta, cfg.dt, cfg.nstep
     g = torch.Generator(device=dev).manual_seed(2027)
@@ -1152,6 +1251,17 @@ def compare_trajectory_kernels(dev):
     for k in ("K4", "K5"):
         errs[k], tols[k] = (info[k]["dh_max_abs_err"],
                             info[k]["dh_tolerance_min"])
+    x1, v1 = lk.leapfrog(x, v, beta, dt, n)
+    info["K12"] = k12_check(x, x1, v1, v, u, torch.zeros(B, device=dev),
+                            beta)
+    # above the band plans' reach, after the K1 loop: K12's wide kernel
+    xw, vw, uw, _ = traj_inputs(g, *K12_WIDE_SHAPE, dev)
+    x1w, v1w = run_leapfrog(xw, vw, beta, dt, n, backend="xla", device=dev)
+    info["K12_wide"] = k12_check(xw, x1w, v1w, vw, uw,
+                                 torch.zeros(len(uw), device=dev), beta)
+    errs["K12"] = max(info[k]["dh_max_abs_err"] for k in ("K12", "K12_wide"))
+    tols["K12"] = min(info[k]["dh_tolerance_min"]
+                      for k in ("K12", "K12_wide"))
     return errs, tols, info, (x, v, u, seed, x3, v3)
 
 
@@ -1178,6 +1288,8 @@ def plain_hmc_runs(dev) -> dict:
         t_run = time.perf_counter() - t0
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
         expect = {k: cfg.ntraj if k == kernel else 0 for k in _build.KERNELS}
+        if kernel in ("K2", "K3"):   # the step's epilogue, one a trajectory
+            expect["K12"] = cfg.ntraj
         meas = slice(H_THERM, None)
         ptraj = hist.plaq[meas].mean(dim=1)
         stderr = float(ptraj.reshape(10, -1).mean(dim=1).std()
@@ -2478,7 +2590,8 @@ def _probe_expected(kw, cfg_forces: dict, n_layers: int | None) -> dict:
     ``cfg_forces`` (by kind): K1 a gauge or single-scale force; with the
     flow K7 and K8 a layer a force and K6 a layer an energy flow (two a
     trajectory and one a block's start charge); K11 (dynamical) one a
-    solve: a force's and the Metropolis solve."""
+    solve: a force's and the Metropolis solve; plain quenched HMC one K12
+    a trajectory."""
     block = min(kw["call_block"], kw["ntraj"])
     blocks = -(-kw["therm"] // block) + -(-kw["ntraj"] // block)
     n = blocks * block
@@ -2488,6 +2601,8 @@ def _probe_expected(kw, cfg_forces: dict, n_layers: int | None) -> dict:
                     + cfg_forces.get("quenched", 0)) * n
     if kw.get("mass", 0.0) > 0:
         expect["K11"] = (forces + 1) * n
+    elif n_layers is None:   # plain HMC: K12 ends each step
+        expect["K12"] = n
     if n_layers is not None:
         expect.update({"K6": n_layers * (2 * n + blocks),
                        "K7": n_layers * forces * n,
@@ -2900,7 +3015,7 @@ def parallel_chain_runs(mesh, dev, params, spec, z0) -> dict:
         return torch.Generator(device=dev).manual_seed(seed)
 
     expect = dict.fromkeys(_build.KERNELS, 0)
-    expect["K2"] = hc.ntraj
+    expect["K2"] = expect["K12"] = hc.ntraj
     out["hmc"] = chain_sharded_pair(
         "sharded_run_hmc",
         lambda: pmesh.sharded_run_hmc(mesh, hc, x0=x0, generator=gen(61)),
@@ -3222,14 +3337,15 @@ def cli_hmc(phase6_acceptance: float) -> dict:
     argv = ["hmc", "--L", str(hc.L), "--beta", str(hc.beta), "--tau",
             str(hc.tau), "--nstep", str(hc.nstep), "--chains",
             str(hc.n_chains), "--start", "cold", "--ntraj", str(n)]
-    out, wall, launches = _cli(argv, {"K2": n})
+    out, wall, launches = _cli(argv, {"K2": n, "K12": n})
     require(abs(out["exp_mdh"] - 1.0) <= 0.05,
             f"cli hmc <exp(-dH)> {out['exp_mdh']}")
     n3, runs = CLI_NRUN
     argv3 = ["hmc", "--L", "16", "--beta", str(hc.beta), "--tau",
              str(hc.tau), "--nstep", str(hc.nstep), "--chains", "64",
              "--start", "cold", "--ntraj", str(n3), "--nrun", str(runs)]
-    out3, wall3, launches3 = _cli(argv3, {"K3": n3 * runs})
+    out3, wall3, launches3 = _cli(argv3, {"K3": n3 * runs,
+                                          "K12": n3 * runs})
     require(out3["plaq_err"] > 0 and abs(out3["exp_mdh"] - 1.0) <= 0.05,
             f"cli hmc --nrun: {out3}")
     return {"headline": {"argv": argv, "acceptance": out["acc"],
@@ -3376,7 +3492,7 @@ def cli_pipeline_highbeta(spec) -> dict:
             "--plain-nstep", str(pl_nstep), "--plain-chains",
             str(pl_chains)]
     expect = {**_ft_launches(2 * ft_nstep + 1, spec.n_layers, ft_n),
-              "K3": pl_n}
+              "K3": pl_n, "K12": pl_n}
     out, wall, launches = _cli(argv, expect)
     keys = {"mode", "L", "beta", "fthmc", "hmc", "tau_int_speedup",
             "tau_int_speedup_err"}
@@ -3557,9 +3673,9 @@ def entry_step(dev) -> dict:
 
 def dryrun_one_rank(dev) -> dict:
     """dryrun_multichip(1) on a group of one NCCL rank, with its launches:
-    the chain-sharded runs' kernels (K3 at 8^2; the FT steps' K1, K6-K8;
-    the dynamical runs' K11 a solve and K1 a force); the training and the
-    row-sharded stages launch none."""
+    the chain-sharded runs' kernels (K3 and K12 at 8^2; the FT steps' K1,
+    K6-K8; the dynamical runs' K11 a solve and K1 a force); the training
+    and the row-sharded stages launch none."""
     from fthmc_tpu_torch import entry as pentry
     out, wall, launches, plain = _counted(lambda: pentry.dryrun_multichip(1))
     scfg = SchwingerConfig(L=8, beta=2.0, mass=0.3, tau=0.5, nstep=2)
@@ -3568,7 +3684,7 @@ def dryrun_one_rank(dev) -> dict:
     # dynamical runs' trajectories, the dry run's flow's layers
     ft_runs, dyn_n, nl = ((2, 1), (2, 3)), 2, 2
     expect = {"K1": sum(a * b for a, b in ft_runs) + 2 * nf * dyn_n,
-              "K3": 4,
+              "K3": 4, "K12": 4,
               "K6": nl * (2 + (2 * 3 + 1) + (2 * dyn_n + 1)),
               "K7": nl * (sum(a * b for a, b in ft_runs) + nf * dyn_n),
               "K11": 2 * (nf + 1) * dyn_n}
@@ -3650,7 +3766,7 @@ def demo_2d_u1_run() -> dict:
     blocks = max(1, -(-(n["ensemble_size"] - 1) // 64))
     ft = n["ft_ntraj"] + n["transfer_ntraj"]
     want = _hold_launches("demo_2d_u1", launches, plain, {
-        "K3": n["hmc_ntraj"], "K1": nstep * ft,
+        "K3": n["hmc_ntraj"], "K12": n["hmc_ntraj"], "K1": nstep * ft,
         "K6": nl * (blocks + 1) + nl * (2 * ft + 2),
         "K7": nstep * nl * ft, "K8": nstep * nl * ft})
     exact = lattice.PLAQ_EXACT[2.0]
@@ -3810,6 +3926,7 @@ def main() -> None:
     runs = plain_hmc_runs(dev)
     for k, r in runs.items():
         launches[k] = r["launches"][k]
+    launches["K12"] = sum(r["launches"]["K12"] for r in runs.values())
 
     # 7. timings
     layer, (mu, off) = params[TIMED_LAYER], layer_mask_params(TIMED_LAYER)
@@ -3884,7 +4001,13 @@ def main() -> None:
                "K4": cuda_ms(lambda: lk.hmc_traj(xh, seed, *hargs)),
                "K5": cuda_ms(lambda: lk.hmc_traj_hostrng(xh, vh, uh,
                                                          *hargs))})
+    x1h, v1h = lk.leapfrog(xh, vh, *hargs)
+    qh = torch.zeros(hc.n_chains, device=dev)
+    ms["K12"] = cuda_ms(lambda: lk.hmc_epilogue(xh, x1h, v1h, vh, uh, qh,
+                                                hc.beta))
     plain_ms.update({
+        "K12": cuda_ms(lambda: lk.hmc_epilogue_plain(xh, x1h, v1h, vh, uh,
+                                                     qh, hc.beta), reps=3),
         "K2": cuda_ms(lambda: lk.leapfrog_plain(xh, vh, *hargs), reps=3),
         "K3": cuda_ms(lambda: lk.leapfrog_cl_plain(x3, v3, *hargs), reps=3),
         "K4": cuda_ms(lambda: lk.hmc_traj_plain(xh, seed, *hargs), reps=3),
@@ -3897,8 +4020,11 @@ def main() -> None:
     say("traj_plans", nstep=hc.nstep, kernel_ms_by_plan=traj_plan_sweep(
         dev, n_sm))
     rates = {b: headline_rate(dev, b) for b in ("auto", "fused")}
-    say("timing_hmc", kernel_ms={k: ms[k] for k in ("K2", "K3", "K4", "K5")},
-        plain_ms={k: plain_ms[k] for k in ("K2", "K3", "K4", "K5")},
+    say("k12_plans", kernel_ms_by_plan=k12_plan_sweep(dev, n_sm),
+        wide_kernel_ms=k12_wide_times(dev))
+    say("timing_hmc", kernel_ms={k: ms[k] for k in ("K2", "K3", "K4", "K5",
+                                                    "K12")},
+        plain_ms={k: plain_ms[k] for k in ("K2", "K3", "K4", "K5", "K12")},
         k2_vs_k3_ms_by_L=k2_vs_k3, chains=hc.n_chains,
         headline=rates,
         device_busy={b: device_busy(dev, b, rates[b]["s_per_traj"])
@@ -3992,7 +4118,7 @@ def main() -> None:
     tb_h = traj_bounds(hc.n_chains, hc.L, hc.nstep)
     tb_3 = traj_bounds(hc.n_chains, CL_L, hc.nstep)
     bnd.update({"K2": tb_h["K2"], "K3": tb_3["K3"], "K4": tb_h["K4"],
-                "K5": tb_h["K5"]})
+                "K5": tb_h["K5"], "K12": tb_h["K12"]})
     fb_a, fb_b = (fermion_bounds(64, 64, K11_TIMED_ITERS),
                   fermion_bounds(128, 16))
     bnd.update({"K9": fb_a["K9"], "K10": fb_b["K10"], "K11": fb_a["K11"],

@@ -1,5 +1,6 @@
 // The device body of the trajectory kernels, the band body: K2 and K3
-// (leapfrog.cu), K4 and K5 (hmc_traj.cu).
+// (leapfrog.cu), K4 and K5 (hmc_traj.cu); K12 (hmc_traj.cu) takes its band
+// geometry, plaquette and sums.
 //
 // Replaces the bodies of the TPU kernels _leapfrog_kernel,
 // _leapfrog_cl_kernel and _hmc_traj_body (fthmc_tpu/ops/pallas_lattice.py).
@@ -367,6 +368,56 @@ __device__ inline void band_sum2(float& dsw, float& dk, const BandGeo& g,
         g.C > 1 ? cg::this_cluster().map_shared_rank(part, r) : part;
     dsw += pr[0];
     dk += pr[1];
+  }
+}
+
+// Sums of the chain's N values (each thread's in s) in a fixed order: a
+// shuffle tree in each warp, the warps' sums in order by the first warp,
+// then the CTAs' sums in rank order; every thread of every CTA of the chain
+// (C of them, a cluster) gets the same N values (K12). `red` holds 32 N
+// floats, `part` N. A warp cut short by the CTA's size (threads not a
+// multiple of 32) adds only the lanes it has. A caller with C > 1 holds a
+// cluster barrier before it exits: its peers read its `part`.
+template <int N>
+__device__ inline void band_sum_n(float (&s)[N], int C, float* red,
+                                  float* part) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int T = blockDim.x, warps = (T + 31) >> 5;
+  auto warp_sum = [lane](float (&v)[N], int width) {
+    const unsigned mask = width == 32 ? 0xffffffffu : (1u << width) - 1u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float o_v = __shfl_down_sync(mask, v[i], o);
+        if (lane + o < width) v[i] += o_v;
+      }
+    }
+  };
+  warp_sum(s, min(32, T - (w << 5)));
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * 32 + w] = s[i];
+  }
+  __syncthreads();
+  if (w == 0) {
+    float r[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = lane < warps ? red[i * 32 + lane] : 0.f;
+    warp_sum(r, min(32, T));
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) part[i] = r[i];
+    }
+  }
+  band_sync(C);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = 0.f;
+  for (int r = 0; r < C; ++r) {
+    const float* pr =
+        C > 1 ? cg::this_cluster().map_shared_rank(part, r) : part;
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] += pr[i];
   }
 }
 

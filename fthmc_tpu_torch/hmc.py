@@ -218,7 +218,12 @@ def _hmc_step(generator, x, q_old, beta, dt, nstep, backend, integrator):
     device. The trajectory is the span ``fthmc.step``, its phases the
     spans ``fthmc.step.{momenta,integrate,energy,accept,observe}`` (see
     ``_fthmc_step``); a fused kernel is ``integrate``, the draws it takes
-    ``momenta``, and its dH needs no ``energy``."""
+    ``momenta``, and its dH needs no ``energy``. After a trajectory of K2,
+    K3 or the K1 loop the accept uniforms are drawn (``accept``; the
+    generator gives the momenta, then the uniforms) and the rest of the
+    step is one epilogue, ``lk.hmc_epilogue`` (``energy``): K12 on the
+    card, on the CPU its twin, the torch ops of wrap, dH, accept and
+    ``_metrics``."""
     with span("fthmc.step"):
         if backend == "fused":
             with span("fthmc.step.momenta"):
@@ -245,13 +250,13 @@ def _hmc_step(generator, x, q_old, beta, dt, nstep, backend, integrator):
             with span("fthmc.step.integrate"):
                 x1, v1 = _trajectory(x, v0, beta, dt, nstep, backend,
                                      integrator)
-            with span("fthmc.step.energy"):
-                x1 = lattice.wrap(x1)
-                dh = (lattice.delta_action(x1, x, beta)
-                      + _kinetic_delta(v1, v0))
             with span("fthmc.step.accept"):
-                exp_mdh, acc, (x_new,) = _metropolis(generator, dh, (x1,),
-                                                     (x,))
+                u = _uniform(generator, x[:, 0, 0, 0])
+            with span("fthmc.step.energy"):
+                x_new, rows = lk.hmc_epilogue(x, x1, v1, v0, u, q_old, beta)
+            with span("fthmc.step.observe"):
+                m = TrajMetrics(*rows)
+            return x_new, m.q, m
         with span("fthmc.step.observe"):
             m = _metrics(dh, exp_mdh, acc, x_new, q_old)
     return x_new, m.q, m

@@ -37,9 +37,10 @@ SOURCES = ("force", "coupling_fwd", "coupling_bwd", "leapfrog", "hmc_traj",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# K11_bf16: K11's bf16 instance, the mixed-precision CG's inner solve
+# K11_bf16: K11's bf16 instance, the mixed-precision CG's inner solve; K12
+# the plain HMC step's epilogue
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11", "K11_bf16")
+           "K11", "K11_bf16", "K12")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -76,7 +77,14 @@ _SIGNATURES = {
                  "traj_band_smem_bytes": [_I] * 6},
     "hmc_traj": {"k4_hmc_traj": [_P] * 5 + _TRAJ + _BAND + [_P],
                  "k5_hmc_traj_hostrng": [_P] * 6 + _TRAJ + _BAND + [_P],
-                 "traj_band_smem_bytes": [_I] * 6},
+                 "traj_band_smem_bytes": [_I] * 6,
+                 # K12: (x, x1, v1, v0, u, q_old, xo, out, B, L, beta, the
+                 # band plan, stream); a CTA's shared memory
+                 "k12_hmc_epilogue": [_P] * 8 + [_I, _I, _F] + _BAND + [_P],
+                 # ... above the band plans' reach: (C, row0) of the bands
+                 "k12_hmc_epilogue_wide": [_P] * 8 + [_I, _I, _F, _I, _IP,
+                                                      _P],
+                 "epilogue_smem_bytes": [_I] * 4},
     # (pointers, B, L0, L1, a, b, eo, C, row0, [tile,] stream) of the
     # operators: the band plan, and K10's chain tile
     "fermion": {"k9_mdagm": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _I, _IP,

@@ -1,5 +1,5 @@
-"""The lattice kernels K1-K5 and their plain PyTorch twins: the counterpart
-of ``fthmc_tpu/ops/pallas_lattice.py``.
+"""The lattice kernels K1-K5 and K12 and their plain PyTorch twins: the
+counterpart of ``fthmc_tpu/ops/pallas_lattice.py``.
 
   K1 ``force``             csrc/force.cu     <- _force_kernel (pallas_force)
   K2 ``leapfrog``          csrc/leapfrog.cu  <- _leapfrog_kernel
@@ -10,6 +10,8 @@ of ``fthmc_tpu/ops/pallas_lattice.py``.
                                                 (pallas_hmc_traj)
   K5 ``hmc_traj_hostrng``  csrc/hmc_traj.cu  <- _hmc_traj_hostrng_kernel
                                                 (pallas_hmc_traj_hostrng)
+  K12 ``hmc_epilogue``     csrc/hmc_traj.cu  <- none: XLA's fusion of
+                                                fthmc_tpu/hmc.py:195-212
 
 A CPU tensor takes the plain twin (``*_plain``, same signature); a CUDA
 tensor launches the kernel, or raises for what the kernel does not take. K1
@@ -18,8 +20,11 @@ rows (``force_plan``), bounded by bytes. K2-K5 run the band body of
 csrc/traj_common.cuh: a cluster of C row bands a chain (K3: a tile of
 chains, the chain the fastest thread index), each thread keeping its S
 sites' links and momenta in registers for the whole trajectory, under the
-plan ``traj_plan`` picks; they are bounded by operations. Their envelope on
-the card: fp32, (B, 2, L, L), any B; K1 2 <= L <= 1024 (a thread a column:
+plan ``traj_plan`` picks; they are bounded by operations. K12, the plain
+step's epilogue after K2, K3 or the K1 loop, takes K2's band geometry up to
+``traj_reach`` and above it a thread a column in EPILOGUE_WIDE_BANDS bands
+a chain; it is bounded by bytes. Their envelope on the card: fp32, (B, 2,
+L, L), any B; K1 and K12 2 <= L <= 1024 (a thread a column:
 ``FORCE_MAX_L``), K2-K5 2 <= L <= 256 (``traj_reach``; eight bands of 32
 rows, 512 threads of 16 sites).
 """
@@ -35,7 +40,8 @@ from fthmc_tpu_torch.ops import _build, rng
 
 __all__ = ["force", "force_plain", "leapfrog", "leapfrog_plain",
            "leapfrog_cl", "leapfrog_cl_plain", "hmc_traj", "hmc_traj_plain",
-           "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "dh_tolerance",
+           "hmc_traj_hostrng", "hmc_traj_hostrng_plain", "hmc_epilogue",
+           "hmc_epilogue_plain", "dh_tolerance", "epilogue_dh_tolerance",
            "ForcePlan", "force_plan", "force_plans", "force_plan_of",
            "force_smem_bytes_of", "FORCE_MAX_L", "TrajPlan", "traj_plan",
            "traj_plans", "traj_plan_of", "traj_reach", "traj_smem_bytes_of"]
@@ -143,6 +149,40 @@ def hmc_traj_hostrng_plain(x, v0, u, beta, dt, nstep):
     return _hmc_traj_of(x, v0, u, beta, dt, nstep)
 
 
+def hmc_epilogue_plain(x, x1, v1, v0, u, q_old, beta):
+    """K12's twin: the plain step after its trajectory, ``lattice.wrap``,
+    ``delta_action`` + ``hmc._kinetic_delta``, ``hmc._metropolis``'s accept
+    on the given uniforms and ``hmc._metrics``. Returns (x_new, the (6, B)
+    rows of hmc.TrajMetrics' fields)."""
+    from fthmc_tpu_torch import hmc, lattice   # both import this module
+    _build.PLAIN_CALLS["K12"] += 1
+    x1 = lattice.wrap(x1)
+    dh = lattice.delta_action(x1, x, beta) + hmc._kinetic_delta(v1, v0)
+    exp_mdh = torch.exp(-dh)
+    acc = u < exp_mdh
+    x_new = torch.where(acc[:, None, None, None], x1, x)
+    return x_new, torch.stack(hmc._metrics(dh, exp_mdh, acc, x_new, q_old))
+
+
+def epilogue_dh_tolerance(x, x1, v1, v0, beta) -> torch.Tensor:
+    """Per chain, how far K12's fp32 dH may lie from its twin's in float64
+    on the same fp32 inputs: 2^-19 (32 units of fp32 roundoff) times beta
+    sum|cos P1 - cos P0| + beta sum(|sin P0| + |sin P1|) + 1/2 sum|(v1 -
+    v0)(v1 + v0)|, dH's scale in dh_tolerance with both fields' plaquettes
+    (K12 computes both in fp32). The first and last terms bound the sums'
+    order (each errs by at most its depth, under 32, times 2^-24 times the
+    sum of magnitudes); the middle one each plaquette's three fp32
+    roundings of pi-sized sums and the fp32 wrap's shift of x1's links,
+    under 2^-19 an angle."""
+    x, x1, v1, v0 = (t.double() for t in (x, x1, v1, v0))
+    p0 = _plaq_of(x)
+    p1 = _plaq_of(torch.remainder(x1 + math.pi, 2 * math.pi) - math.pi)
+    mags = (beta * (p1.cos() - p0.cos()).abs().sum((1, 2))
+            + beta * (p0.sin().abs() + p1.sin().abs()).sum((1, 2))
+            + 0.5 * ((v1 - v0) * (v1 + v0)).abs().sum((1, 2, 3)))
+    return mags * 2.0 ** -19
+
+
 # ---------------------------------------------------------------------------
 # the band plan of K1 (csrc/force.cu)
 # ---------------------------------------------------------------------------
@@ -225,9 +265,15 @@ def force_plan(L: int) -> ForcePlan:
 MAX_BANDS = 8            # bands a chain: the portable cluster (common.cuh)
 TRAJ_SITES = (1, 2, 4, 8, 16)   # sites a thread: the kernels' instances
 # sites a thread each kernel's plan starts from: the fastest on an H100
-# (PERF.md, the plan sweep; K4/K5 at 8 sites hold 128 registers a thread)
-SITES_PREFERRED = {"K2": 8, "K3": 4, "K4": 4, "K5": 4}
+# (PERF.md, the plan sweep; K4/K5 at 8 sites hold 128 registers a thread;
+# K12 0.080 ms at 16 sites against 0.091 at 8, 64^2 x 1024, and 0.035
+# against 0.036 at 128^2 x 64, by CUDA graphs)
+SITES_PREFERRED = {"K2": 8, "K3": 4, "K4": 4, "K5": 4, "K12": 16}
 MIN_BAND_ROWS = 8        # bands added to fill the card keep this many rows
+EPILOGUE_SUMS = 6        # K12's sums a chain (EPI_SUMS, csrc/hmc_traj.cu)
+# K12 above traj_reach: bands a chain, a thread a column (csrc/hmc_traj.cu,
+# epilogue_wide_kernel)
+EPILOGUE_WIDE_BANDS = MAX_BANDS
 KINDS = {"K2": 0, "K3": 0, "K4": 1, "K5": 2}   # the smem count's kinds
 # chains a K3 tile, and the threads a CTA its sites a thread keep: tiles
 # of 2 with the most sites (up to 4) that keep 128 threads made plans
@@ -280,12 +326,16 @@ def traj_plan_of(L: int, C: int, sites: int,
 
 
 def traj_smem_bytes_of(L: int, plan: TrajPlan, kernel: str) -> int:
-    """Shared-memory bytes a CTA of ``kernel`` ('K2'-'K5') takes under
-    ``plan``: the layout of ``band_smem`` (csrc/traj_common.cuh), which the
-    card tests hold equal to the library's own count. x0 and sin P of the
-    band's rows (of each chain of the tile), x1 of each run's first row;
-    K4/K5 cos P0 and the dH tree; K4 its drawn momenta."""
+    """Shared-memory bytes a CTA of ``kernel`` ('K2'-'K5', 'K12') takes
+    under ``plan``: the layout of ``band_smem`` (csrc/traj_common.cuh) or
+    ``epilogue_smem`` (K12, csrc/hmc_traj.cu), which the card tests hold
+    equal to the library's own count. x0 and sin P of the band's rows (of
+    each chain of the tile), x1 of each run's first row; K4/K5 cos P0 and
+    the dH tree; K4 its drawn momenta. K12: x0 of the band's rows, x1 of
+    each run's first row, the warps' six sums and the CTA's."""
     rl, t = plan.rows * L, plan.threads
+    if kernel == "K12":
+        return 4 * (rl + t + 33 * EPILOGUE_SUMS)
     floats = 2 * rl * plan.tile + t
     if kernel in ("K4", "K5"):
         floats += rl + 2 * (1 << (t - 1).bit_length()) + 2
@@ -334,11 +384,11 @@ def traj_reach() -> int:
 
 @lru_cache(maxsize=None)
 def traj_plan(L: int, B: int, n_sm: int, kernel: str = "K2") -> TrajPlan:
-    """The plan ``kernel`` ('K2'-'K5') runs B chains of L^2 sites under on a
-    card of ``n_sm`` SMs. K2, K4, K5: one CTA a chain where it holds the
-    chain with threads of the kernel's SITES_PREFERRED sites (bands
-    doubling while the grid of B x C CTAs is under the SM count and the
-    bands keep MIN_BAND_ROWS rows), else the largest cluster, MAX_BANDS
+    """The plan ``kernel`` ('K2'-'K5', 'K12') runs B chains of L^2 sites
+    under on a card of ``n_sm`` SMs. K2, K4, K5, K12: one CTA a chain where
+    it holds the chain with threads of the kernel's SITES_PREFERRED sites
+    (bands doubling while the grid of B x C CTAs is under the SM count and
+    the bands keep MIN_BAND_ROWS rows), else the largest cluster, MAX_BANDS
     bands, with the fewest sites a thread from there up that fit. On an
     H100 one CTA a chain was the fastest plan at 64^2 and eight bands the
     fastest at 128^2, where a cluster's barriers cost the same whatever its
@@ -414,17 +464,20 @@ def _band_bytes(name: str, kernel: str, L: int, plan: TrajPlan) -> int:
             or plan.row0[-1] != L \
             or min(b - a for a, b in zip(plan.row0, plan.row0[1:])) < 1:
         return -1
+    if kernel == "K12":
+        return _build.library(name).epilogue_smem_bytes(
+            L, plan.rows, plan.threads, plan.sites)
     return _build.library(name).traj_band_smem_bytes(
         L, plan.rows, plan.threads, plan.sites, KINDS[kernel], plan.tile)
 
 
 def _band_library(what: str, kernel: str, name: str, x: torch.Tensor,
                   plan, *tensors: torch.Tensor):
-    """(library, plan) of a band-body launch (K2-K5), the plan's arguments
-    (C, row0, threads, sites) first, after refusing what it does not take:
-    other dtypes, layouts or devices, L above the plans' reach, and a plan
-    the library's count refuses or the card's shared memory does not hold.
-    ``plan``: a TrajPlan, by default ``traj_plan``'s."""
+    """(library, plan) of a band-body launch (K2-K5, K12), the plan's
+    arguments (C, row0, threads, sites) first, after refusing what it does
+    not take: other dtypes, layouts or devices, L above the plans' reach,
+    and a plan the library's count refuses or the card's shared memory does
+    not hold. ``plan``: a TrajPlan, by default ``traj_plan``'s."""
     _build.require_fp32_contiguous(what, x, *tensors)
     B, _, L, _ = x.shape
     index = _device_index(x)
@@ -577,3 +630,56 @@ def hmc_traj_hostrng(x: torch.Tensor, v0: torch.Tensor, u: torch.Tensor,
     _build.check(rc, "K5 hmc_traj_hostrng", lib)
     _build.LAUNCHES["K5"] += 1
     return xo, dh, acc
+
+
+def hmc_epilogue(x: torch.Tensor, x1: torch.Tensor, v1: torch.Tensor,
+                 v0: torch.Tensor, u: torch.Tensor, q_old: torch.Tensor,
+                 beta: float, *, plan: TrajPlan | None = None):
+    """The plain HMC step after its trajectory, in one launch of K12: from
+    the start x, the trajectory's unwrapped end (x1, v1) of momenta v0
+    (each (B, 2, L, L)), the accept uniforms u and the last charges q_old
+    (each (B,)): x1 wrapped, the delta-form dH, the accept u < exp(-dH),
+    x_new (wrapped x1 where accepted, else x) and its plaquette and charge.
+    Returns (x_new, the (6, B) rows of hmc.TrajMetrics' fields in x's
+    dtype). Up to traj_reach() the band kernel runs under ``plan`` (default
+    ``traj_plan(..., 'K12')``'s; another for timing and tests), above it, up
+    to FORCE_MAX_L, the wide kernel in EPILOGUE_WIDE_BANDS bands a chain."""
+    from fthmc_tpu_torch import hmc   # hmc imports this module
+    _check_links("K12 hmc_epilogue", x, x1, v1, v0)
+    B, _, L, _ = x.shape
+    for name, t in (("u", u), ("q_old", q_old)):
+        if t.shape != (B,):
+            raise ValueError(f"K12 hmc_epilogue: {name} must be ({B},), got "
+                             f"{tuple(t.shape)}")
+    for t in (x1, v1, v0, u, q_old):
+        if t.dtype != x.dtype:
+            raise TypeError(f"K12 hmc_epilogue: dtypes {t.dtype} and "
+                            f"{x.dtype} differ")
+        if t.device != x.device:
+            raise ValueError(f"K12 hmc_epilogue: tensors on {t.device} and "
+                             f"{x.device}")
+    if _on_cpu(x):
+        return hmc_epilogue_plain(x, x1, v1, v0, u, q_old, beta)
+    args = (x1, v1, v0, u, q_old)
+    if L <= traj_reach():
+        lib, pa, _ = _band_library("K12 hmc_epilogue", "K12", "hmc_traj", x,
+                                   plan, *args)
+        entry = lib.k12_hmc_epilogue
+    else:
+        _build.require_fp32_contiguous("K12 hmc_epilogue", x, *args)
+        if L > FORCE_MAX_L or plan is not None:
+            raise ValueError(f"K12 hmc_epilogue takes L <= {FORCE_MAX_L}, "
+                             f"with band plans up to L = {traj_reach()}; got "
+                             f"L={L}" + (" and a plan" if plan else ""))
+        lib = _build.library("hmc_traj")
+        C = EPILOGUE_WIDE_BANDS
+        pa = (C, _build.int_array([r * L // C for r in range(C + 1)]))
+        entry = lib.k12_hmc_epilogue_wide
+    xo = torch.empty_like(x)
+    out = x.new_empty((len(hmc.TrajMetrics._fields), B))
+    rc = entry(x.data_ptr(), x1.data_ptr(), v1.data_ptr(), v0.data_ptr(),
+               u.data_ptr(), q_old.data_ptr(), xo.data_ptr(), out.data_ptr(),
+               B, L, float(beta), *pa, _build.stream_handle(x))
+    _build.check(rc, "K12 hmc_epilogue", lib)
+    _build.LAUNCHES["K12"] += 1
+    return xo, out

@@ -96,7 +96,7 @@ def test_kernels_match_plain_twins(card, spec, B, L):
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                         "K6": 8, "K7": 8, "K8": 8, "K9": 0, "K10": 0,
-                        "K11": 0, "K11_bf16": 0}
+                        "K11": 0, "K11_bf16": 0, "K12": 0}
 
 
 def test_shared_memory_envelope(card):
@@ -431,7 +431,8 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"K1": 0, "K2": n + 2, "K3": len(plans3) + 2,
                         "K4": n + 2, "K5": n + 2, "K6": 0, "K7": 0, "K8": 0,
-                        "K9": 0, "K10": 0, "K11": 0, "K11_bf16": 0}
+                        "K9": 0, "K10": 0, "K11": 0, "K11_bf16": 0,
+                        "K12": 0}
 
 
 # K3 at ragged chain counts (a tile's last chains past B) and at the
@@ -485,7 +486,7 @@ def test_traj_smem_count_is_the_libraries(card, L):
     hold against the H100's limit) is the libraries' own, for every plan."""
     for plan in lk.traj_plans(L):
         for kernel, name in (("K2", "leapfrog"), ("K4", "hmc_traj"),
-                             ("K5", "hmc_traj")):
+                             ("K5", "hmc_traj"), ("K12", "hmc_traj")):
             assert lk._band_bytes(name, kernel, L, plan) == \
                 lk.traj_smem_bytes_of(L, plan, kernel)
     for plan in lk.traj_plans(L, lk.K3_TILES):
@@ -510,6 +511,16 @@ def test_trajectory_kernels_refuse_what_they_do_not_take(card):
         lk.leapfrog(x, x, 1.0, 0.1, 1, plan=bad)
     with pytest.raises(ValueError, match="L <= 256"):   # K3's reach
         lk.leapfrog_cl(big, big, 1.0, 0.1, 1)
+    one = torch.zeros(1, device=card)
+    huge = torch.zeros((1, 2, 1025, 1025), device=card)
+    with pytest.raises(ValueError, match="L <= 1024"):   # K12's reach
+        lk.hmc_epilogue(huge, huge, huge, huge, one, one, 1.0)
+    with pytest.raises(ValueError, match="band plans"):   # none above 256
+        lk.hmc_epilogue(big, big, big, big, one, one, 1.0,
+                        plan=lk.TrajPlan(1, (0, 257), 257, 1))
+    with pytest.raises(TypeError):
+        lk.hmc_epilogue(*(x.double(),) * 4, *(x[:, 0, 0, 0].double(),) * 2,
+                        1.0)
     # a tile of 8 chains needs threads in multiples of 64 at 8^2
     with pytest.raises(ValueError, match="plan"):
         lk.leapfrog_cl(x, x, 1.0, 0.1, 1,
@@ -539,6 +550,8 @@ def test_trajectory_kernels_refuse_what_they_do_not_take(card):
     ("auto", "K2"), ("auto", "K3"), ("pallas", "K2"), ("pallas_cl", "K3"),
     ("fused", "K4"), ("fused_hostrng", "K5"), ("xla", "K1")])
 def test_run_hmc_launches_only_its_kernel(card, backend, kernel):
+    """Each backend's trajectory kernel, and after K2, K3 or the K1 loop one
+    K12 a trajectory (the fused kernels end the step themselves)."""
     # 'auto' is K3 up to 16^2 and K2 above (hmc.AUTO_K3_MAX_L)
     L = 32 if (backend, kernel) == ("auto", "K2") else 8
     cfg = HMCConfig(beta=2.0, L=L, tau=1.0, nstep=5, ntraj=6, n_chains=8,
@@ -547,10 +560,216 @@ def test_run_hmc_launches_only_its_kernel(card, backend, kernel):
     x, hist = th.run_hmc(cfg, backend=backend)
     torch.cuda.synchronize()
     per_traj = cfg.nstep if kernel == "K1" else 1
+    epilogues = 0 if kernel in ("K4", "K5") else cfg.ntraj
     assert _build.LAUNCHES[kernel] == cfg.ntraj * per_traj
-    assert sum(_build.LAUNCHES.values()) == cfg.ntraj * per_traj
+    assert _build.LAUNCHES["K12"] == epilogues
+    assert sum(_build.LAUNCHES.values()) == cfg.ntraj * per_traj + epilogues
     assert not any(_build.PLAIN_CALLS.values())
     assert x.is_cuda and bool(torch.isfinite(hist.dh).all())
+
+
+# ---------------------------------------------------------------------------
+# K12, the plain step's epilogue (csrc/hmc_traj.cu), against its twin in
+# float64. Its dH is held within lk.epilogue_dh_tolerance (2^-19 of dH's
+# magnitudes: the plaquettes' fp32 roundings and the sums' order), and
+# that bound catches a kernel that is not fp32 throughout: the twin with
+# its cos P rounded to bfloat16 breaks it on most chains at 64^2. The
+# plaquette's bound is 2^-19 of sum(|sin P0| + |sin P1|) + V, over V. The
+# charge is an integer for any field (the plaquettes of a periodic lattice
+# sum to 0 before the wrap), and K12's is held to the twin's within the
+# benchmark's obs_gap limit, 0.01, where no plaquette lies within 1e-4 of
+# the wrap's edge at +-pi.
+# ---------------------------------------------------------------------------
+
+def _epilogue_bounds(x, x1, v1, v0, beta):
+    """Per chain in float64: (dH bound, plaquette bound, and the charge's
+    margin, the least distance of either field's plaquettes from the wrap's
+    edge at +-pi)."""
+    x, x1, v1, v0 = (t.double().cpu() for t in (x, x1, v1, v0))
+    p0, p1 = lk._plaq_of(x), lk._plaq_of(torch.remainder(x1 + math.pi,
+                                                         2 * math.pi)
+                                         - math.pi)
+    V = x.shape[-1] ** 2
+    sin_abs = (p0.sin().abs() + p1.sin().abs()).sum((1, 2))
+    plaq = 2.0 ** -19 * (sin_abs + V) / V
+    edge = torch.minimum(*(
+        (math.pi - (torch.remainder(p + math.pi, 2 * math.pi)
+                    - math.pi).abs()).amin((1, 2)) for p in (p0, p1)))
+    return lk.epilogue_dh_tolerance(x, x1, v1, v0, beta), plaq, edge
+
+
+def _bf16_cos_dh(x, x1, v1, v0, beta):
+    """The control: the twin's dH in float64 with each cos P rounded to
+    bfloat16, the nearest precision below fp32 of a card's fast paths."""
+    x, x1, v1, v0 = (t.double().cpu() for t in (x, x1, v1, v0))
+    c0, c1 = (lk._plaq_of(f).cos().bfloat16().double()
+              for f in (x, torch.remainder(x1 + math.pi, 2 * math.pi)
+                        - math.pi))
+    return (-beta * (c1 - c0).sum((1, 2))
+            + 0.5 * ((v1 - v0) * (v1 + v0)).sum((1, 2, 3)))
+
+
+def _decided(u, dh_ref, dh_gap):
+    """Chains whose decision no dH within ``dh_gap`` of the twin's can
+    change: log u further than that (and 1e-6 for expf's rounding) from
+    -dH; u = 0 always accepts."""
+    return (u == 0) | ((torch.log(u) + dh_ref).abs() > dh_gap + 1e-6)
+
+
+def _check_epilogue(got, ref, u, bounds):
+    """K12's (x_new, rows) against the fp64 twin's: dH within its bound,
+    exp(-dH) within what that bound allows; the accept equal wherever the
+    dH gap cannot flip it (``_decided``); where the accept is equal,
+    x_new equal (wrapped) to 1e-5, and exactly the start where both
+    reject, the plaquette within its bound and the charge and dq within
+    0.01 away from the wrap's edge. Returns the count of decided chains and
+    of accepts."""
+    dh_b, plaq_b, edge = bounds
+    (xk, rk), (xp, rp) = (got[0].double().cpu(), got[1].double().cpu()), ref
+    u = u.double().cpu()
+    assert bool(((rk[0] - rp[0]).abs() <= dh_b).all()), \
+        float(((rk[0] - rp[0]).abs() / dh_b).max())
+    assert bool(((rk[1] - rp[1]).abs()
+                 <= rp[1] * (torch.expm1(dh_b) + 1e-6)).all())
+    decided = _decided(u, rp[0], (rk[0] - rp[0]).abs())
+    assert torch.equal(rk[2][decided], rp[2][decided])
+    same = rk[2] == rp[2]
+    if bool(same.any()):
+        assert _wrapped(xk[same], xp[same]) < 1e-5
+    assert bool(((rk[3] - rp[3]).abs()[same] <= plaq_b[same]).all())
+    far = same & (edge > 1e-4)
+    for row in (4, 5):
+        assert bool(((rk[row] - rp[row]).abs()[far] <= 0.01).all())
+    return int(decided.sum()), int(rk[2].sum())
+
+
+@pytest.mark.parametrize("B,L", [(1, 8), (3, 16), (13, 32), (5, 48),
+                                 (1024, 64), (4, 128), (2, 256), (3, 300),
+                                 (2, 512), (1, 1024)])
+def test_k12_matches_its_twin_in_fp64(card, B, L):
+    """K12 under its default plan (and, up to 64^2, every plan of
+    traj_plans(L); above 256 its wide kernel) against its twin run in
+    float64 on the same fp32 inputs, with u = 0 (every chain accepts),
+    u = 1 - 2^-24 (every chain of dH > 0 rejects) and random u; a hot start
+    and a trajectory's end of small moves and whole turns of 2 pi; one
+    launch a call, two launches bit-equal. At 64^2 the bfloat16-cos control
+    breaks the dH bound on most chains."""
+    g = torch.Generator(device=card).manual_seed(B * 1000 + L)
+    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * 3.0
+    step = 1.0 / L   # dH of order 1 at every L
+    x1 = (x + step * torch.randn(x.shape, generator=g, device=card)
+          + 2 * math.pi * torch.randint(-1, 2, x.shape, generator=g,
+                                        device=card))
+    v0 = torch.randn(x.shape, generator=g, device=card)
+    v1 = v0 + step * torch.randn(x.shape, generator=g, device=card)
+    q_old = torch.randint(-3, 4, (B,), generator=g, device=card).float()
+    beta = 2.0
+    bounds = _epilogue_bounds(x, x1, v1, v0, beta)
+    plans = [None] + (lk.traj_plans(L) if L <= 64 else [])
+    before = _build.LAUNCHES["K12"]
+    accepts = {}
+    for mode in ("zero", "one", "random"):
+        u = {"zero": torch.zeros(B, device=card),
+             "one": torch.full((B,), 1 - 2.0 ** -24, device=card),
+             "random": torch.rand((B,), generator=g, device=card)}[mode]
+        ref = lk.hmc_epilogue_plain(
+            *(t.double().cpu() for t in (x, x1, v1, v0, u, q_old)), beta)
+        for p in plans:
+            got = lk.hmc_epilogue(x, x1, v1, v0, u, q_old, beta, plan=p)
+            torch.cuda.synchronize()
+            rejected = got[1][2] == 0
+            assert torch.equal(got[0][rejected], x[rejected])
+            decided, accepts[mode] = _check_epilogue(got, ref, u, bounds)
+        if mode == "zero":
+            assert decided == B and accepts[mode] == B
+    if B >= 13:   # both outcomes of the decision
+        assert 0 < accepts["one"] < B and 0 < accepts["random"] < B
+    if L == 64:
+        miss = (_bf16_cos_dh(x, x1, v1, v0, beta) - ref[1][0]).abs() \
+            > bounds[0]
+        assert float(miss.double().mean()) > 0.5
+    a = lk.hmc_epilogue(x, x1, v1, v0, u, q_old, beta)
+    b = lk.hmc_epilogue(x, x1, v1, v0, u, q_old, beta)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert _build.LAUNCHES["K12"] - before == 3 * len(plans) + 2
+
+
+def _hold_k12_to_its_twin(monkeypatch) -> list:
+    """Replaces lk.hmc_epilogue by K12 followed by its fp64 twin on the same
+    inputs; each call appends (decided chains, dH within its bound and the
+    decided accepts equal, the largest plaquette or charge gap where the
+    accepts agree) to the list returned."""
+    real = lk.hmc_epilogue
+    seen = []
+
+    def both(x, x1, v1, v0, u, q_old, beta):
+        got = real(x, x1, v1, v0, u, q_old, beta)
+        ref = lk.hmc_epilogue_plain(
+            *(t.double().cpu() for t in (x, x1, v1, v0, u, q_old)), beta)
+        dh_b = _epilogue_bounds(x, x1, v1, v0, beta)[0]
+        rk, rp = got[1].double().cpu(), ref[1]
+        gap = (rk[0] - rp[0]).abs()
+        decided = _decided(u.double().cpu(), rp[0], gap)
+        same = rk[2] == rp[2]
+        seen.append((int(decided.sum()), bool((gap <= dh_b).all())
+                     and bool(torch.equal(rk[2][decided], rp[2][decided])),
+                     float((rk[3:5] - rp[3:5]).abs()[:, same].max())))
+        return got
+
+    monkeypatch.setattr(lk, "hmc_epilogue", both)
+    return seen
+
+
+def _check_followed(seen, cfg):
+    """Every trajectory's K12 held: dH within its bound, decisions equal
+    away from the threshold (95% of them decided), plaquette and charge
+    within 1e-3 (a tenth of the benchmark's obs_gap limit)."""
+    assert len(seen) == cfg.ntraj
+    assert sum(n for n, _, _ in seen) >= 0.95 * cfg.ntraj * cfg.n_chains
+    assert all(equal for _, equal, _ in seen)
+    assert max(gap for _, _, gap in seen) < 1e-3
+
+
+def test_run_hmc_k12_follows_its_twin(card, monkeypatch):
+    """40 trajectories of run_hmc ('auto': K2 and K12) at 64^2 x 64 chains,
+    beta = 6, from the cold start: every K12 launch held against its fp64
+    twin on the same inputs, so both see one generator state
+    (_check_followed)."""
+    seen = _hold_k12_to_its_twin(monkeypatch)
+    cfg = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, ntraj=40,
+                    n_chains=64)
+    _build.reset_counts()
+    x, hist = th.run_hmc(cfg, backend="auto")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K2"] == _build.LAUNCHES["K12"] == cfg.ntraj
+    _check_followed(seen, cfg)
+    assert 0.5 < float(hist.acc.mean()) < 1.0
+
+
+@pytest.mark.parametrize("integrator", ["leapfrog", "omelyan"])
+def test_run_hmc_k12_follows_its_twin_above_the_band_reach(card, monkeypatch,
+                                                           integrator):
+    """run_hmc on 'xla' (the K1 loop) at 512^2, above the band plans' reach
+    of 256, where K12 runs its wide kernel: 6 trajectories of 40 steps and
+    4 chains, beta = 6, from the cold start, each K12 launch held against
+    its fp64 twin (_check_followed); only K1 and K12 launch, K12 once a
+    trajectory. (At 10 steps every omelyan trajectory from the cold start
+    reads dH ~ +12 and is rejected, in fp64 on the CPU too.)"""
+    seen = _hold_k12_to_its_twin(monkeypatch)
+    cfg = HMCConfig(beta=6.0, L=512, tau=0.5, nstep=40, ntraj=6,
+                    n_chains=4)
+    _build.reset_counts()
+    x, hist = th.run_hmc(cfg, backend="xla", integrator=integrator)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K12"] == cfg.ntraj
+    assert _build.LAUNCHES["K1"] > 0
+    assert sum(_build.LAUNCHES.values()) == \
+        _build.LAUNCHES["K1"] + _build.LAUNCHES["K12"]
+    plain = dict(_build.PLAIN_CALLS)
+    assert plain.pop("K12") == cfg.ntraj   # the check's own twin
+    assert not any(plain.values())
+    _check_followed(seen, cfg)
+    assert float(hist.acc.mean()) > 0
 
 
 def test_fused_hostrng_follows_xla(card):

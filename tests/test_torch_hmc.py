@@ -19,7 +19,7 @@ from fthmc_tpu import lattice as jl
 from fthmc_tpu_torch import hmc as th
 from fthmc_tpu_torch import lattice as tl
 from fthmc_tpu_torch.config import HMCConfig
-from fthmc_tpu_torch.ops import rng
+from fthmc_tpu_torch.ops import _build, rng
 from fthmc_tpu_torch.ops.lattice_kernels import hmc_traj_hostrng_plain
 
 TOL = 1e-10
@@ -205,6 +205,23 @@ def test_run_hmc_physics(backend, integrator, nstep, ntraj, min_acc):
     assert abs(float(hist.plaq[half:].mean()) - tl.PLAQ_EXACT[2.0]) < 0.01
     assert abs(float(hist.exp_mdh[half:].mean()) - 1.0) < 0.05
     assert min_acc < float(hist.acc.mean()) <= 1.0
+
+
+@pytest.mark.parametrize("backend,integrator,epilogues", [
+    ("auto", "leapfrog", 1), ("xla", "omelyan", 1), ("pallas", "leapfrog", 1),
+    ("pallas_cl", "leapfrog", 1), ("fused", "leapfrog", 0),
+    ("fused_hostrng", "leapfrog", 0)])
+def test_run_hmc_takes_the_epilogue_twin_once_a_trajectory(
+        backend, integrator, epilogues):
+    """On the CPU a step after K2, K3 or the K1 loop ends in K12's twin,
+    once a trajectory; the fused steps have their own epilogue; nothing is
+    launched."""
+    cfg = HMCConfig(beta=2.0, L=8, tau=0.5, nstep=2, ntraj=5, n_chains=3,
+                    randinit=True, seed=1)
+    _build.reset_counts()
+    th.run_hmc(cfg, backend=backend, integrator=integrator, device="cpu")
+    assert _build.PLAIN_CALLS["K12"] == epilogues * cfg.ntraj
+    assert not any(_build.LAUNCHES.values())
 
 
 def test_run_hmc_chunked_matches_shapes():

@@ -17,8 +17,13 @@ import torch
 from fthmc_tpu.ops.pallas_lattice import (pallas_hmc_traj_hostrng,
                                           pallas_leapfrog, pallas_leapfrog_cl)
 from fthmc_tpu_torch.ops import _build, rng
+from fthmc_tpu_torch import hmc as th
+from fthmc_tpu_torch import lattice as tl
 from fthmc_tpu_torch.ops.lattice_kernels import (K3_TILE, K3_TILES,
-                                                 TrajPlan,
+                                                 TrajPlan, _plaq_of,
+                                                 epilogue_dh_tolerance,
+                                                 hmc_epilogue,
+                                                 hmc_epilogue_plain,
                                                  hmc_traj, hmc_traj_hostrng,
                                                  hmc_traj_hostrng_plain,
                                                  hmc_traj_plain, leapfrog,
@@ -170,7 +175,7 @@ def test_wrappers_run_the_twins_on_the_cpu():
     plain = {k: _build.PLAIN_CALLS[k] - before[0][k] for k in before[0]}
     assert plain == {"K1": 0, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 0,
                      "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0,
-                     "K11_bf16": 0}
+                     "K11_bf16": 0, "K12": 0}
     assert dict(_build.LAUNCHES) == before[1]
 
 
@@ -186,6 +191,92 @@ def test_wrappers_refuse_bad_shapes_and_devices(call):
     x, v, u = (torch.as_tensor(a) for a in _inputs(14, 4))
     with pytest.raises(ValueError):
         call(x, v, u, torch.tensor([1], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K12's twin: the plain step's torch sequence after the trajectory
+# ---------------------------------------------------------------------------
+
+def _epilogue_inputs(seed, B, L, dtype):
+    """A start x, a trajectory's unwrapped end x1 (some links past +-pi, so
+    the wrap works), momenta v0, v1, uniforms u and last charges q_old."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand((B, 2, L, L), generator=g, dtype=dtype) * 2 - 1) * 3.0
+    x1 = x + 0.05 * torch.randn(x.shape, generator=g, dtype=dtype) \
+        + 2 * math.pi * torch.randint(-1, 2, x.shape, generator=g).to(dtype)
+    v0 = torch.randn(x.shape, generator=g, dtype=dtype)
+    v1 = v0 + 0.05 * torch.randn(x.shape, generator=g, dtype=dtype)
+    u = torch.rand((B,), generator=g, dtype=dtype)
+    q_old = torch.randint(-3, 4, (B,), generator=g).to(dtype)
+    return x, x1, v1, v0, u, q_old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,L", [(6, 8), (3, 5)])
+def test_k12_twin_is_the_steps_torch_sequence(dtype, B, L):
+    """The twin is, bit for bit, the composition of lattice.wrap,
+    delta_action + hmc._kinetic_delta, hmc._metropolis drawing u from the
+    generator and hmc._metrics."""
+    x, x1, v1, v0, _, q_old = _epilogue_inputs(B + L, B, L, dtype)
+    g = torch.Generator().manual_seed(7)
+    u = torch.rand((B,), generator=torch.Generator().manual_seed(7),
+                   dtype=dtype)
+    x1w = tl.wrap(x1)
+    dh = tl.delta_action(x1w, x, BETA) + th._kinetic_delta(v1, v0)
+    exp_mdh, acc, (want_x,) = th._metropolis(g, dh, (x1w,), (x,))
+    want = th._metrics(dh, exp_mdh, acc, want_x, q_old)
+    before = dict(_build.PLAIN_CALLS)
+    got_x, rows = hmc_epilogue(x, x1, v1, v0, u, q_old, BETA)
+    assert _build.PLAIN_CALLS["K12"] == before["K12"] + 1
+    assert 0 < int(acc.sum()) < B or B < 4   # both branches where B allows
+    assert torch.equal(got_x, want_x)
+    assert rows.shape == (6, B) and rows.dtype == dtype
+    for a, b in zip(th.TrajMetrics(*rows), want):
+        assert torch.equal(a, b)
+
+
+def test_epilogue_dh_tolerance_holds_fp32_and_not_a_bf16_cos():
+    """At 64^2 the twin in fp32 lies within epilogue_dh_tolerance of the
+    twin in float64 on every chain, and the twin in float64 with each cos P
+    rounded to bfloat16 (the control a kernel that is not fp32 throughout
+    would read) lies outside it on most chains."""
+    x, x1, v1, v0, u, q_old = _epilogue_inputs(64, 16, 64, torch.float32)
+    tol = epilogue_dh_tolerance(x, x1, v1, v0, BETA)
+    d = [t.double() for t in (x, x1, v1, v0, u, q_old)]
+    ref = hmc_epilogue_plain(*d, BETA)[1][0]
+    got = hmc_epilogue_plain(x, x1, v1, v0, u, q_old, BETA)[1][0].double()
+    assert bool(((got - ref).abs() <= tol).all())
+    c0, c1 = (_plaq_of(f).cos().bfloat16().double()
+              for f in (d[0], tl.wrap(d[1])))
+    ctrl = (-BETA * (c1 - c0).sum((1, 2))
+            + 0.5 * ((d[2] - d[3]) * (d[2] + d[3])).sum((1, 2, 3)))
+    assert float(((ctrl - ref).abs() > tol).double().mean()) > 0.5
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1[:, :, :4, :4], v1, v0,
+                                             u, q, BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1[:2], v0, u, q, BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1, v0, u[:2], q, BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1, v0, u, q[None],
+                                             BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1, v0, u.double(), q,
+                                             BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1.double(), v0, u, q,
+                                             BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x, x1, v1, v0, u,
+                                             q.to("meta"), BETA),
+    lambda x, x1, v1, v0, u, q: hmc_epilogue(x.to("meta"), x1, v1, v0, u, q,
+                                             BETA),
+])
+def test_k12_wrapper_refuses_mismatched_inputs(call):
+    """Other shapes, dtypes or devices are refused before the twin (or the
+    kernel) runs."""
+    args = _epilogue_inputs(1, 4, 8, torch.float32)
+    before = dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)
+    with pytest.raises((ValueError, TypeError)):
+        call(*args)
+    assert (dict(_build.PLAIN_CALLS), dict(_build.LAUNCHES)) == before
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +515,8 @@ def test_traj_plan_covers_every_L_within_the_h100s_limits(B):
     portable cluster; the plans' reach is 256."""
     assert traj_reach() == 256
     for L in range(2, 257):
-        for plan in {*(traj_plan(L, B, N_SM, k) for k in ("K2", "K4", "K5")),
+        for plan in {*(traj_plan(L, B, N_SM, k)
+                       for k in ("K2", "K4", "K5", "K12")),
                      *traj_plans(L)}:
             assert plan == traj_plan_of(L, plan.C, plan.sites)
             assert 1 <= plan.C <= min(8, L)
@@ -432,7 +524,7 @@ def test_traj_plan_covers_every_L_within_the_h100s_limits(B):
             assert plan.threads * (H100_REGS // max_threads(plan.sites)) \
                 <= H100_REGS
             assert plan.threads <= max_threads(plan.sites)
-            for k in ("K2", "K4", "K5"):
+            for k in ("K2", "K4", "K5", "K12"):
                 assert traj_smem_bytes_of(L, plan, k) <= H100_SMEM
             m = _BandMirror(L, plan)
             owned = np.sort(m.site[m.valid])
@@ -443,6 +535,7 @@ def test_traj_plans_of_the_cells():
     """The headline's plan is the one PERF.md records; 128^2 and 256^2 take
     bands in a cluster; K3's plans at 8^2-32^2."""
     assert traj_plan(64, 1024, N_SM, "K2") == TrajPlan(1, (0, 64), 512, 8)
+    assert traj_plan(64, 1024, N_SM, "K12") == TrajPlan(1, (0, 64), 256, 16)
     for k in ("K4", "K5"):
         assert traj_plan(64, 1024, N_SM, k) == TrajPlan(1, (0, 64), 1024, 4)
         assert traj_plan(128, 16, N_SM, k) == TrajPlan(
@@ -492,7 +585,7 @@ def test_k3_plan_covers_every_L_within_the_h100s_limits(B):
 
 
 @pytest.mark.parametrize("L", [1, 257, 1024])
-@pytest.mark.parametrize("kernel", ["K2", "K3", "K4", "K5"])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4", "K5", "K12"])
 def test_traj_plan_raises_above_the_reach(L, kernel):
     with pytest.raises(ValueError, match="L <= 256"):
         traj_plan(L, 4, N_SM, kernel)

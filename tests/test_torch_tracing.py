@@ -12,7 +12,7 @@ from fthmc_tpu_torch.config import FlowSpec, HMCConfig, LeapfrogConfig
 from fthmc_tpu_torch.models.flow import init_flow_params
 
 NTRAJ, BLOCK = 3, 2
-PLAIN = ["momenta", "integrate", "energy", "accept", "observe"]
+PLAIN = ["momenta", "integrate", "accept", "energy", "observe"]
 FUSED = ["momenta", "integrate", "accept", "observe"]
 FLOWED = ["momenta", "energy", "integrate", "energy", "accept", "observe"]
 RUNS = {"xla": PLAIN, "fused": FUSED, "fused_hostrng": FUSED, "ft": FLOWED}

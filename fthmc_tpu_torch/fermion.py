@@ -27,6 +27,11 @@ default, is 'fused' on the card and 'xla' on the CPU. On the card 'fused'
 outside the kernels' envelope raises, where the JAX package falls back to
 XLA unasked.
 
+Spans (``utils.profiling.span``, open only under a profiler):
+``fthmc.fermion.solve`` around ``cg_solve``, ``fthmc.fermion.force``
+around ``pf_force_at`` and ``ratio_force_at``, ``fthmc.fermion.refresh``
+around the heatbaths.
+
 Also here: Hasenbusch mass preconditioning (``hasenbusch_refresh``,
 ``ratio_action_lin``, ``ratio_action_exact``), the dense operator and the
 exact two-flavour log-determinant (``dirac_dense``, ``logdet_mdagm``), and
@@ -42,6 +47,7 @@ import torch
 from fthmc_tpu_torch.device import resolve_device
 from fthmc_tpu_torch.ops.fermion_kernels import (CGResult, cg_solve_fused,
                                                   cg_solve_mixed)
+from fthmc_tpu_torch.utils.profiling import span
 
 __all__ = ["dirac", "dirac_dag", "apply_mdagm", "cg_solve", "set_cg_backend",
            "pf_refresh", "pf_refresh_from", "pf_action_exact",
@@ -236,14 +242,17 @@ def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
     """Batched CG for (D^dag D) x = b, or with eo the Schur system on
     even-masked b. tol is on |r|^2 / |b|^2. ``backend`` overrides the
     process default (``set_cg_backend``); ``layout`` ('auto', 'cf', 'cl')
-    is the packed planes' layout for 'fused' and 'mixed'."""
+    is the packed planes' layout for 'fused' and 'mixed'. The span
+    ``fthmc.fermion.solve``."""
     backend = resolve_cg_backend(backend, b.device)
     theta = theta.detach()
-    if backend in ("fused", "mixed"):
-        solve = cg_solve_fused if backend == "fused" else cg_solve_mixed
-        return solve(theta, b, mass, x0, tol=tol, maxiter=maxiter, eo=eo,
-                     layout=layout)
-    return _cg_solve_xla(theta, b, mass, x0, tol=tol, maxiter=maxiter, eo=eo)
+    with span("fthmc.fermion.solve"):
+        if backend in ("fused", "mixed"):
+            solve = cg_solve_fused if backend == "fused" else cg_solve_mixed
+            return solve(theta, b, mass, x0, tol=tol, maxiter=maxiter,
+                         eo=eo, layout=layout)
+        return _cg_solve_xla(theta, b, mass, x0, tol=tol, maxiter=maxiter,
+                             eo=eo)
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +262,11 @@ def cg_solve(theta, b, mass: float, x0=None, *, tol: float = 1e-8,
 def pf_refresh_from(chi: torch.Tensor, theta, mass: float, eo: bool = False):
     """phi = D^dag chi (eo: chi even-masked, phi = Dhat^dag chi) and its
     exact start action s0 = chi^dag chi, per chain. chi: (..., L0, L1, 2)
-    complex, drawn CN(0, 1) by the caller."""
+    complex, drawn CN(0, 1) by the caller. The span
+    ``fthmc.fermion.refresh``."""
     theta = theta.detach()
     chi = chi.to(torch.complex64)
-    with torch.no_grad():
+    with torch.no_grad(), span("fthmc.fermion.refresh"):
         if eo:
             chi = chi * parity_mask(chi.shape, 0, chi.device)
             phi = dirac_hat_dag(theta, chi, mass)
@@ -300,8 +310,9 @@ def pf_action_lin(theta, phi, x_sol, mass: float, eo: bool = False):
 
 def pf_force_at(theta, phi, x_sol, mass: float, eo: bool = False):
     """d/dtheta of sum(pf_action_lin) at fixed X by torch.autograd (per
-    chain, since chains do not couple), in theta's dtype."""
-    with torch.enable_grad():
+    chain, since chains do not couple), in theta's dtype. The span
+    ``fthmc.fermion.force``."""
+    with torch.enable_grad(), span("fthmc.fermion.force"):
         th = theta.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(
             pf_action_lin(th, phi, x_sol, mass, eo).sum(), th)
@@ -435,10 +446,11 @@ def hasenbusch_refresh_from(chi1: torch.Tensor, chi2: torch.Tensor, theta,
     (CN(0, 1), (..., L0, L1, 2); eo: masked to the even sites here): phi1
     = W^dag chi1, phi2 = W (W^dag W)^-1 D^dag chi2 (one heavy solve), so
     that S1 + S2 at the start is s0 = |chi1|^2 + |chi2|^2 exactly. Returns
-    (phi1, phi2, s0, the heavy solve's CGResult)."""
+    (phi1, phi2, s0, the heavy solve's CGResult). The span
+    ``fthmc.fermion.refresh``."""
     theta = theta.detach()
     chi1, chi2 = chi1.to(torch.complex64), chi2.to(torch.complex64)
-    with torch.no_grad():
+    with torch.no_grad(), span("fthmc.fermion.refresh"):
         if eo:
             mask = parity_mask(chi1.shape, 0, chi1.device)
             chi1, chi2 = chi1 * mask, chi2 * mask
@@ -493,8 +505,8 @@ def ratio_action_exact(theta, phi2, m_light: float, m_heavy: float, *,
 def ratio_force_at(theta, phi2, y_sol, m_light: float, m_heavy: float,
                    eo: bool = False):
     """d/dtheta of sum(ratio_action_lin) at fixed Y by torch.autograd, in
-    theta's dtype."""
-    with torch.enable_grad():
+    theta's dtype. The span ``fthmc.fermion.force``."""
+    with torch.enable_grad(), span("fthmc.fermion.force"):
         th = theta.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(
             ratio_action_lin(th, phi2, y_sol, m_light, m_heavy, eo).sum(),

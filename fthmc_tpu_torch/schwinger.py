@@ -52,6 +52,7 @@ from fthmc_tpu_torch.models.flow import flow_forward
 from fthmc_tpu_torch.ops.conv import full_fp32
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (flow_vjp_kernel,
                                                       ft_force_kernel)
+from fthmc_tpu_torch.utils.profiling import span
 
 __all__ = ["SchwingerConfig", "dyn_force", "leapfrog_aux", "omelyan_aux",
            "hmc_step_dyn", "run_hmc_dyn", "run_hmc_dyn_chunked",
@@ -551,10 +552,16 @@ def _fthmc_step_dyn(params, spec, z, q_old, cfg, draws, remat, backend,
                     flow, cg_log=None):
     """fthmc_step_dyn on a resolved force backend and the caller's draws:
     single scale, or nested with n_inner > 0 (``ft_fermion_force`` outside
-    and ``ft_gauge_force`` inside)."""
+    and ``ft_gauge_force`` inside). Its phases are the spans of
+    ``hmc._fthmc_step`` after the draw: ``fthmc.step.energy`` (the flow of
+    z and the heatbath on it; after the trajectory the flow of z1, the
+    Metropolis solve and dH), ``.integrate``, ``.accept`` and
+    ``.observe``."""
     v0, chi, u = draws
-    y0, logdet0 = flow(z)
-    phi, s_pf0 = fermion.pf_refresh_from(chi, y0, cfg.mass, cfg.eo_precond)
+    with span("fthmc.step.energy"):
+        y0, logdet0 = flow(z)
+        phi, s_pf0 = fermion.pf_refresh_from(chi, y0, cfg.mass,
+                                             cfg.eo_precond)
 
     def guess_of(x_guess):
         return x_guess if cfg.warm_start else torch.zeros_like(phi)
@@ -571,21 +578,38 @@ def _fthmc_step_dyn(params, spec, z, q_old, cfg, draws, remat, backend,
         _log(cg_log, "force", res)
         return f, res.x
 
-    z1, v1, x_sol = _integrate(
-        cfg, z, v0, torch.zeros_like(phi), dyn=force_fn, fermion=fermion_fn,
-        gauge=lambda zz: ft_gauge_force(params, spec, zz, cfg.beta, remat,
-                                        backend))
-    z1 = lattice.wrap(z1)
-    y1, logdet1 = flow(z1)
-    s_pf1, res = fermion.pf_action_exact(
-        y1, phi, cfg.mass, tol=cfg.cg_tol_mh,
-        x0=x_sol if cfg.warm_start else None, **_solve_kw(cfg))
-    _log(cg_log, "mh", res)
-    dh = (lattice.delta_action(y1, y0, cfg.beta) + (s_pf1 - s_pf0)
-          - (logdet1 - logdet0) + _kinetic_delta(v1, v0))
-    exp_mdh, acc, (z_new, y_new) = _accept(dh, u, (z1, y1), (z, y0))
-    m = _metrics(dh, exp_mdh, acc, y_new, q_old)
+    with span("fthmc.step.integrate"):
+        z1, v1, x_sol = _integrate(
+            cfg, z, v0, torch.zeros_like(phi), dyn=force_fn,
+            fermion=fermion_fn,
+            gauge=lambda zz: ft_gauge_force(params, spec, zz, cfg.beta,
+                                            remat, backend))
+    with span("fthmc.step.energy"):
+        z1 = lattice.wrap(z1)
+        y1, logdet1 = flow(z1)
+        s_pf1, res = fermion.pf_action_exact(
+            y1, phi, cfg.mass, tol=cfg.cg_tol_mh,
+            x0=x_sol if cfg.warm_start else None, **_solve_kw(cfg))
+        _log(cg_log, "mh", res)
+        dh = (lattice.delta_action(y1, y0, cfg.beta) + (s_pf1 - s_pf0)
+              - (logdet1 - logdet0) + _kinetic_delta(v1, v0))
+    with span("fthmc.step.accept"):
+        exp_mdh, acc, (z_new, y_new) = _accept(dh, u, (z1, y1), (z, y0))
+    with span("fthmc.step.observe"):
+        m = _metrics(dh, exp_mdh, acc, y_new, q_old)
     return z_new, y_new, m.q, m
+
+
+def _fthmc_traj_dyn(params, spec, generator, z, q_old, cfg, remat, backend,
+                    flow, cg_log=None):
+    """One trajectory of ``_fthmc_step_dyn`` on draws from ``generator``:
+    the span ``fthmc.step``, its first phase ``fthmc.step.momenta`` (v0,
+    chi and u drawn)."""
+    with span("fthmc.step"):
+        with span("fthmc.step.momenta"):
+            draws = _draws(generator, z)
+        return _fthmc_step_dyn(params, spec, z, q_old, cfg, draws, remat,
+                               backend, flow, cg_log)
 
 
 def _ft_setup(params, spec, cfg, z, remat, force_backend, device):
@@ -614,9 +638,8 @@ def fthmc_step_dyn(params, spec: FlowSpec, generator: torch.Generator,
     device = resolve_device(device)
     z, remat, backend, flow = _ft_setup(params, spec, cfg, z, remat,
                                         force_backend, device)
-    return _fthmc_step_dyn(params, spec, z, q_old.to(device), cfg,
-                           _draws(generator, z), remat, backend, flow,
-                           cg_log)
+    return _fthmc_traj_dyn(params, spec, generator, z, q_old.to(device),
+                           cfg, remat, backend, flow, cg_log)
 
 
 def run_fthmc_dyn(params, spec: FlowSpec, cfg: SchwingerConfig, *,
@@ -634,9 +657,8 @@ def run_fthmc_dyn(params, spec: FlowSpec, cfg: SchwingerConfig, *,
         q = lattice.topo_charge(flow(z)[0])
     history = []
     for _ in range(cfg.ntraj):
-        z, _, q, m = _fthmc_step_dyn(params, spec, z, q, cfg,
-                                     _draws(generator, z), remat, backend,
-                                     flow, cg_log)
+        z, _, q, m = _fthmc_traj_dyn(params, spec, generator, z, q, cfg,
+                                     remat, backend, flow, cg_log)
         history.append(m)
     return z, _stack(history)
 

@@ -9,7 +9,10 @@
 // (coupling_common.cuh), in three stages:
 //   A. per own site: the link-lift and mixture-transform backward, giving
 //      the cotangents of the conditioner outputs (s, r, t), which land in
-//      the band planes, and the direct part of the plaquette cotangent gp.
+//      the band planes on the active stripe (0 elsewhere, and not read:
+//      the first transposed conv sums only the taps that reach the
+//      stripe, coupling_common.cuh's CONV_FROM_STRIPE), and the direct
+//      part of the plaquette cotangent gp.
 //      It keeps the value path's +-30 hard clip (zero gradient outside),
 //      logJ's detached |s| and the s_clip chain rule (d/ds c*tanh(s/c) =
 //      1 - (s_clipped/c)^2).
@@ -23,7 +26,9 @@
 //      the band above:
 //      gx0(i,j) = gy0 + gp(i,j) - gp(i,j-1),
 //      gx1(i,j) = gy1 + gp(i-1,j) - gp(i,j).
-// Bound: the transposed conv chain's flops, as K7's.
+// Bound: the transposed conv chain's flops, as K7's (276 MFLOP per flagship
+// launch; it runs 361, the taps of the first transposed conv that reach
+// the stripe and the rest dense).
 #include "coupling_common.cuh"
 
 // Stage A at one site, its components m = sub, sub + tps, ... taken by
@@ -120,7 +125,7 @@ struct GateEpi {
       }
   }
 
-  __device__ __forceinline__ void store(int o0, int r, int j0,
+  __device__ __forceinline__ void store(int o0, int r, int j0, int,
                                         const float (&acc)[KO][KS],
                                         const float (&g)[KO][KS]) const {
 #pragma unroll
@@ -152,7 +157,7 @@ struct FeatureEpi {
   __device__ __forceinline__ void gate(int, int, int,
                                        float (&)[KO][KS]) const {}
 
-  __device__ __forceinline__ void store(int o0, int r, int j0,
+  __device__ __forceinline__ void store(int o0, int r, int j0, int,
                                         const float (&acc)[KO][KS],
                                         const float (&)[KO][KS]) const {
     if (o0 != 0) return;
@@ -208,8 +213,6 @@ __global__ void __launch_bounds__(THREADS)
     const float g_xa = transform_site_grad(rawb + q, LL, g, sl.plane, p,
                                            g_delta, glb, active, ly, sub,
                                            tps);
-    if (valid && !active)
-      for (int c = sub; c < cn; c += tps) g[c * sl.plane] = 0.f;
     if (valid && sub == 0) {
       if (active) g[(ly.rncp ? 2 * ly.M : ly.M) * sl.plane] = g_delta;  // t
       gp[(r + 1) * L + j] = active ? -g_delta + g_xa : 0.f;
@@ -232,6 +235,8 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_wait<0>();
     __syncthreads();
 
+    // the first (k = 0) reads stage A's cotangents, on the active stripe
+    // only: its items sum the taps that reach the stripe
     if (l > 0) {
       GateEpi epi;
       epi.out = out;
@@ -242,7 +247,10 @@ __global__ void __launch_bounds__(THREADS)
       epi.rs = sl.rs;
       epi.plane = sl.plane;
       epi.act = ly.act;
-      conv_band(rin, rout, smem, in, sl, bd.R, L, epi);
+      if (k == 0)
+        conv_band<CONV_FROM_STRIPE>(rin, rout, smem, in, sl, bd, ly, epi);
+      else
+        conv_band<CONV_DENSE>(rin, rout, smem, in, sl, bd, ly, epi);
     } else {
       // few items (two output channels): the input channels are split
       // between threads, the partial sums in the unused output planes
@@ -253,8 +261,12 @@ __global__ void __launch_bounds__(THREADS)
       epi.r0 = bd.r0;
       epi.mu = ly.mu;
       epi.off = ly.off;
-      conv_band(rin, rout, smem, in, sl, bd.R, L, epi, out,
-                sl.cmax * sl.plane);
+      if (k == 0)
+        conv_band<CONV_FROM_STRIPE>(rin, rout, smem, in, sl, bd, ly, epi, out,
+                                    sl.cmax * sl.plane);
+      else
+        conv_band<CONV_DENSE>(rin, rout, smem, in, sl, bd, ly, epi, out,
+                              sl.cmax * sl.plane);
     }
   }
 

@@ -30,8 +30,15 @@
 // warps idle) and every item's input channels split over lanes with the
 // sums added by warp shuffles (the shuffles take the same bandwidth). So
 // only a conv whose items would occupy less than a quarter of the threads
-// (K8's last, two output channels) splits its input channels, with partial
-// sums in shared memory.
+// (K8's last, two output channels; K6/K7's last on the active stripe) splits
+// its input channels, with partial sums in planes the conv does not write.
+//
+// Stripe sparsity (ConvMode). The transform reads the conditioner's output
+// on the layer's active stripe only, one row or one column in four, so
+// K6/K7 compute their last conv only there (a quarter of its items, their
+// input channels split over the CTA); K8's first transposed conv reads that
+// cotangent, 0 off the stripe, so its items sum only the taps that reach
+// the stripe (3 of 9 where any does). Every other conv is dense.
 //
 // Weights sit as w_s[(c * 9 + tap) * cpad + o], cpad = Cout rounded up to
 // KO, followed by the cpad biases: the wrapper packs each conv once in that
@@ -313,11 +320,14 @@ __device__ void pad_columns(const SmemLayout& sl, float* buf, int ch, int R,
 }
 
 // The sums of one thread item, KO output channels x KS sites of a row,
-// from input channels [c0, c1), added to acc.
+// from input channels [c0, c1), added to acc, in the order (c, dy, dx).
+// ONE_ROW: only tap row dy1 (K8's first transposed conv, see item_sums).
+template <bool ONE_ROW = false>
 __device__ __forceinline__ void conv_item(int c0, int c1, int cpad,
                                           const float* w_s, const float* in,
                                           const SmemLayout& sl, int r, int j0,
-                                          int o0, float (&acc)[KO][KS]) {
+                                          int o0, float (&acc)[KO][KS],
+                                          int dy1 = 0) {
   const int rs = sl.rs, plane = sl.plane;
   // band row r (own row r + 1 in the plane) minus one, column j0 - 1
   const float* ip = in + r * rs + COL0 - 1 + j0;
@@ -325,7 +335,8 @@ __device__ __forceinline__ void conv_item(int c0, int c1, int cpad,
 #pragma unroll 2
   for (int c = c0; c < c1; ++c) {
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
+    for (int d = 0; d < (ONE_ROW ? 1 : 3); ++d) {
+      const int dy = ONE_ROW ? dy1 : d;
       const float* row = ip + c * plane + dy * rs;
       const float4 m = *reinterpret_cast<const float4*>(row + 1);
       const float v[KS + 2] = {row[0], m.x, m.y, m.z, m.w, row[KS + 1]};
@@ -346,27 +357,195 @@ __device__ __forceinline__ void conv_item(int c0, int c1, int cpad,
   }
 }
 
+// conv_item where the input is 0 off every fourth column: E is the index
+// in the item's six inputs v (columns j0 - 1 .. j0 + 4, j0 a multiple of
+// 4) of the first nonzero one, E + 4 the second where it is among them.
+// Site s sums, for each (c, dy), only the tap dx with s + dx = E or E + 4:
+// one tap or none (the site two columns from the stripe).
+template <int E>
+__device__ __forceinline__ void conv_item_cols(int c0, int c1, int cpad,
+                                               const float* w_s,
+                                               const float* in,
+                                               const SmemLayout& sl, int r,
+                                               int j0, int o0,
+                                               float (&acc)[KO][KS]) {
+  const int rs = sl.rs, plane = sl.plane;
+  const float* ip = in + r * rs + COL0 - 1 + j0;
+  const float* wp = w_s + o0;
+#pragma unroll 2
+  for (int c = c0; c < c1; ++c) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const float* row = ip + c * plane + dy * rs;
+      const float u0 = row[E];
+      const float u1 = E + 4 <= KS + 1 ? row[E + 4] : 0.f;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float4 w4 = *reinterpret_cast<const float4*>(
+            wp + (c * 9 + dy * 3 + dx) * cpad);
+        const int s0 = E - dx, s1 = E + 4 - dx;
+        if (s0 >= 0 && s0 < KS) {
+          acc[0][s0] = fmaf(w4.x, u0, acc[0][s0]);
+          acc[1][s0] = fmaf(w4.y, u0, acc[1][s0]);
+          acc[2][s0] = fmaf(w4.z, u0, acc[2][s0]);
+          acc[3][s0] = fmaf(w4.w, u0, acc[3][s0]);
+        }
+        if (E + 4 <= KS + 1 && s1 >= 0 && s1 < KS) {
+          acc[0][s1] = fmaf(w4.x, u1, acc[0][s1]);
+          acc[1][s1] = fmaf(w4.y, u1, acc[1][s1]);
+          acc[2][s1] = fmaf(w4.z, u1, acc[2][s1]);
+          acc[3][s1] = fmaf(w4.w, u1, acc[3][s1]);
+        }
+      }
+    }
+  }
+}
+
+// The sums of a thread item of KS sites of a row at stride 4 (the active
+// stripe's columns j0, j0 + 4, ...; a site at or past L repeats site j0 and
+// its sums are not stored), every tap, in conv_item's order.
+__device__ __forceinline__ void conv_item_stripe(int c0, int c1, int cpad,
+                                                 const float* w_s,
+                                                 const float* in,
+                                                 const SmemLayout& sl, int L,
+                                                 int r, int j0, int o0,
+                                                 float (&acc)[KO][KS]) {
+  const int rs = sl.rs, plane = sl.plane;
+  const float* ip = in + r * rs + COL0 - 1;
+  const float* wp = w_s + o0;
+  int col[KS];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) col[s] = j0 + 4 * s < L ? j0 + 4 * s : j0;
+#pragma unroll 2
+  for (int c = c0; c < c1; ++c) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const float* row = ip + c * plane + dy * rs;
+      float v[KS][3];
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) v[s][dx] = row[col[s] + dx];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float4 w4 = *reinterpret_cast<const float4*>(
+            wp + (c * 9 + dy * 3 + dx) * cpad);
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          const float u = v[s][dx];
+          acc[0][s] = fmaf(w4.x, u, acc[0][s]);
+          acc[1][s] = fmaf(w4.y, u, acc[1][s]);
+          acc[2][s] = fmaf(w4.z, u, acc[2][s]);
+          acc[3][s] = fmaf(w4.w, u, acc[3][s]);
+        }
+      }
+    }
+  }
+}
+
+// How a conv's thread items are laid and which taps they sum.
+//   CONV_DENSE: every own row, KS consecutive sites from a multiple of KS,
+//     every tap.
+//   CONV_TO_STRIPE: the last conv of K6/K7, whose output the transform reads
+//     on the active stripe only (stripe() == 0): mu == 1, the band's active
+//     rows, KS consecutive sites; mu == 0, every own row, its L / 4 active
+//     sites KS at a time at stride 4 (the last item of a row short where
+//     L / 4 is not a multiple of KS: L = 4, 8, 20).
+//   CONV_FROM_STRIPE: the first transposed conv of K8, whose input (the
+//     cotangent of the conditioner's output) is 0 off the active stripe:
+//     dense items, each summing only the taps whose input site is on the
+//     stripe (item_sums). The terms dropped are exact zeros and the rest
+//     keep conv_item's order, so the sums are the dense ones bit for bit.
+enum ConvMode { CONV_DENSE = 0, CONV_TO_STRIPE = 1, CONV_FROM_STRIPE = 2 };
+
+// The items of a conv: KO output channels x KS sites of own row
+// r_first + k r_step (k < nrows), sites j0 + s step from
+// j0 = j_first + g KS step (g < ngroups).
+struct Items {
+  int nrows, r_first, r_step;
+  int ngroups, j_first, step;
+
+  __device__ __forceinline__ void place(int item, int ncg, int* r, int* j0,
+                                        int* o0) const {
+    const int g = item % ngroups, q = item / ngroups;
+    *o0 = (q % ncg) * KO;
+    *r = r_first + (q / ncg) * r_step;
+    *j0 = j_first + g * KS * step;
+  }
+};
+
+__device__ inline Items items_of(int mode, const Band& bd, const Layer& ly) {
+  const int L = ly.L, o = (ly.off % 4 + 4) % 4;
+  if (mode != CONV_TO_STRIPE) return {bd.R, 0, 1, L / KS, 0, 1};
+  if (ly.mu == 1) {
+    const int first = ((o - bd.r0) % 4 + 4) % 4;  // first own active row
+    return {first < bd.R ? (bd.R - 1 - first) / 4 + 1 : 0, first, 4, L / KS,
+            0, 1};
+  }
+  return {bd.R, 0, 1, (L / 4 + KS - 1) / KS, o, 4};
+}
+
+// The sums of one item (r, j0, o0) of a conv of the given mode, input
+// channels [c0, c1), added to acc.
+template <int MODE>
+__device__ __forceinline__ void item_sums(int c0, int c1, int cpad,
+                                          const float* w_s, const float* in,
+                                          const SmemLayout& sl,
+                                          const Band& bd, const Layer& ly,
+                                          int step, int r, int j0, int o0,
+                                          float (&acc)[KO][KS]) {
+  if constexpr (MODE == CONV_FROM_STRIPE) {
+    if (ly.mu == 1) {
+      // the tap row whose input row r0 + r + dy - 1 is active; none (3)
+      // for the rows two steps from the stripe
+      const int dy = ((ly.off - bd.r0 - r + 1) % 4 + 4) % 4;
+      if (dy < 3)
+        conv_item<true>(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc, dy);
+    } else {
+      // v[e] is column j0 - 1 + e, active for e = off + 1 (mod 4)
+      switch (((ly.off + 1) % 4 + 4) % 4) {
+        case 0:
+          conv_item_cols<0>(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc);
+          break;
+        case 1:
+          conv_item_cols<1>(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc);
+          break;
+        case 2:
+          conv_item_cols<2>(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc);
+          break;
+        default:
+          conv_item_cols<3>(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc);
+      }
+    }
+  } else if (MODE == CONV_TO_STRIPE && step != 1) {
+    conv_item_stripe(c0, c1, cpad, w_s, in, sl, ly.L, r, j0, o0, acc);
+  } else {
+    conv_item(c0, c1, cpad, w_s, in, sl, r, j0, o0, acc);
+  }
+}
+
 // One circular 3x3 conv of a band: out[o](i, j) = b[o] + sum_{c,dy,dx}
-// w[o][c][dy][dx] * in[c](i + dy - 1, j + dx - 1) for the R own rows, the
-// input planes holding their halo rows and column images, w_s a packed
-// conv (its biases follow its weights). A thread item is KO channels x KS
-// sites of a row. epi.gate(o0, r, j0, g) may fill g[k][s] for channels
-// o0..o0+KO-1 at own row r (0-based), sites j0..j0+KS-1 before the sums
-// start (K8's activation gates, loaded early); epi.store(o0, r, j0, acc, g)
-// takes the sums. Where the items would occupy less than a quarter of the
-// CTA and `part` (part_floats floats of this CTA's memory, not read or
-// written by the epilogue) is given, the input channels are split between
-// threads and the partial sums added in a fixed order. Every thread of the
-// CTA calls this.
-template <class Epi>
+// w[o][c][dy][dx] * in[c](i + dy - 1, j + dx - 1) for the sites of the
+// mode's items (ConvMode), the input planes holding their halo rows and
+// column images, w_s a packed conv (its biases follow its weights).
+// epi.gate(o0, r, j0, g) may fill g[k][s] for channels o0..o0+KO-1 at own
+// row r (0-based), sites j0..j0+KS-1 before the sums start (K8's activation
+// gates, loaded early; dense items only); epi.store(o0, r, j0, step, acc,
+// g) takes the sums of sites j0 + s step. Where the items would occupy
+// less than a quarter of the CTA and `part` (part_floats floats of this
+// CTA's memory, not read or written by the epilogue) is given, the input
+// channels are split between threads and the partial sums added in a fixed
+// order. Every thread of the CTA calls this.
+template <int MODE, class Epi>
 __device__ void conv_band(int cin, int cout, const float* w_s,
-                          const float* in, const SmemLayout& sl, int R, int L,
-                          const Epi& epi, float* part = nullptr,
-                          int part_floats = 0) {
-  const int nsg = L / KS;
+                          const float* in, const SmemLayout& sl,
+                          const Band& bd, const Layer& ly, const Epi& epi,
+                          float* part = nullptr, int part_floats = 0) {
+  const Items it = items_of(MODE, bd, ly);
   const int cpad = round_up(cout, KO);
   const int ncg = cpad / KO;
-  const int nitems = R * ncg * nsg;
+  const int nitems = it.nrows * ncg * it.ngroups;
+  if (nitems == 0) return;
   const float* b_s = w_s + cin * 9 * cpad;
   int nsplit = 1;
   if (part != nullptr && 4 * nitems <= THREADS) {
@@ -374,20 +553,21 @@ __device__ void conv_band(int cin, int cout, const float* w_s,
     nsplit = nsplit < cin ? nsplit : cin;
     const int fit = part_floats / (nitems * KO * KS);
     nsplit = nsplit < fit ? nsplit : fit;
+    nsplit = nsplit > 1 ? nsplit : 1;
   }
   if (nsplit > 1) {
     const int t = threadIdx.x;
     if (t < nitems * nsplit) {
       const int item = t % nitems, chunk = t / nitems;
-      const int sg = item % nsg, q = item / nsg;
-      const int cgi = q % ncg, r = q / ncg;
+      int r, j0, o0;
+      it.place(item, ncg, &r, &j0, &o0);
       float acc[KO][KS];
 #pragma unroll
       for (int k = 0; k < KO; ++k)
 #pragma unroll
         for (int s = 0; s < KS; ++s) acc[k][s] = 0.f;
-      conv_item(chunk * cin / nsplit, (chunk + 1) * cin / nsplit, cpad, w_s,
-                in, sl, r, sg * KS, cgi * KO, acc);
+      item_sums<MODE>(chunk * cin / nsplit, (chunk + 1) * cin / nsplit, cpad,
+                      w_s, in, sl, bd, ly, it.step, r, j0, o0, acc);
       float4* dst = reinterpret_cast<float4*>(part) + t * KO;
 #pragma unroll
       for (int k = 0; k < KO; ++k)
@@ -396,10 +576,8 @@ __device__ void conv_band(int cin, int cout, const float* w_s,
     __syncthreads();
   }
   for (int item = threadIdx.x; item < nitems; item += THREADS) {
-    const int sg = item % nsg;
-    const int q = item / nsg;
-    const int cgi = q % ncg, r = q / ncg;
-    const int o0 = cgi * KO, j0 = sg * KS;
+    int r, j0, o0;
+    it.place(item, ncg, &r, &j0, &o0);
     float g[KO][KS];
     epi.gate(o0, r, j0, g);
     float acc[KO][KS];
@@ -412,7 +590,8 @@ __device__ void conv_band(int cin, int cout, const float* w_s,
       acc[3][s] = bv.w;
     }
     if (nsplit == 1) {
-      conv_item(0, cin, cpad, w_s, in, sl, r, j0, o0, acc);
+      item_sums<MODE>(0, cin, cpad, w_s, in, sl, bd, ly, it.step, r, j0, o0,
+                      acc);
     } else {
       for (int chunk = 0; chunk < nsplit; ++chunk) {
         const float4* src = reinterpret_cast<const float4*>(part) +
@@ -427,7 +606,7 @@ __device__ void conv_band(int cin, int cout, const float* w_s,
         }
       }
     }
-    epi.store(o0, r, j0, acc, g);
+    epi.store(o0, r, j0, it.step, acc, g);
   }
 }
 

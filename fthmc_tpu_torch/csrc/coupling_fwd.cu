@@ -4,8 +4,8 @@
 // (pallas_link_coupling_forward): links -> (links', logJ).
 // K7 replaces fthmc_tpu/ops/pallas_coupling_vjp.py::_fwd_res_kernel
 // (pallas_link_coupling_fwd_res): the same layer, keeping as residuals every
-// hidden pre-activation and the raw conditioner output (s_raw, r, t), so
-// that K8 needs no conv recompute.
+// hidden pre-activation and the raw conditioner output (s_raw, r, t) on the
+// active stripe, 0 elsewhere, so that K8 needs no conv recompute.
 //
 // Both are one cluster launch of coupling_fwd_kernel: a cluster of C CTAs a
 // chain, each owning a band of rows (coupling_common.cuh). A CTA computes
@@ -13,34 +13,50 @@
 // halo rows itself, then runs the circular 3x3 conv chain with its
 // activations in its band planes: the activation is applied once, as a
 // conv's output lands there, and between convs the halo rows come from the
-// neighbours' planes after a cluster barrier. K7 also stores every
+// neighbours' planes after a cluster barrier. The last conv runs on the
+// active stripe only, the one place the transform reads it
+// (coupling_common.cuh, CONV_TO_STRIPE). K7 also stores every hidden
 // pre-activation to its residual outputs as it lands (float4 stores of four
-// consecutive sites). Then the mixture transform with its logsumexp
-// log-Jacobian and the link update on the own rows, and logJ summed in a
+// consecutive sites), and the last after the chain. Then the mixture
+// transform with its logsumexp log-Jacobian and the link update on the own
+// rows, and logJ summed in a
 // fixed order: per CTA, then by rank 0 over the cluster in rank order
 // through distributed shared memory. Two launches on one input are
 // bit-equal, and K6's logJ equals K7's.
 //
 // Bound: the conv flops the layer's outputs depend on (the last conv on the
 // active stripe, the one before on its one-site halo: 285 MFLOP per
-// flagship launch at 16^2 x 64 chains; the kernel runs all 481 MFLOP of
-// the dense chain on fp32 CUDA cores); bytes are far below.
+// flagship launch at 16^2 x 64 chains; the kernel runs 361 MFLOP, the
+// convs before the last dense, on fp32 CUDA cores); bytes are far below.
 #include "coupling_common.cuh"
 
 // The epilogue of forward conv l: the pre-activations to K7's residuals,
-// the activation (none after the last conv) into the output planes.
+// the activation into the output planes. The last conv's items lie on the
+// active stripe (CONV_TO_STRIPE): its raw output goes to the planes at
+// those sites alone, and K7's residual of it is stored after the chain.
 struct FwdEpi {
   float* out;         // output planes
-  float* res;         // this chain's residual of conv l, or null (K6)
+  float* res;         // this chain's residual of conv l; null: K6, last
   int cout, L, r0, rs, plane, act;
   bool last;
 
   __device__ __forceinline__ void gate(int, int, int,
                                        float (&)[KO][KS]) const {}
 
-  __device__ __forceinline__ void store(int o0, int r, int j0,
+  __device__ __forceinline__ void store(int o0, int r, int j0, int step,
                                         const float (&acc)[KO][KS],
                                         const float (&)[KO][KS]) const {
+    if (last) {
+#pragma unroll
+      for (int k = 0; k < KO; ++k) {
+        if (o0 + k >= cout) continue;
+        float* row = out + (o0 + k) * plane + (r + 1) * rs + COL0;
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          if (j0 + s * step < L) row[j0 + s * step] = acc[k][s];
+      }
+      return;
+    }
     const int i = r0 + r;
 #pragma unroll
     for (int k = 0; k < KO; ++k) {
@@ -48,8 +64,7 @@ struct FwdEpi {
       if (o < cout) {
         float a[KS];
 #pragma unroll
-        for (int s = 0; s < KS; ++s)
-          a[s] = last ? acc[k][s] : act_fn(act, acc[k][s]);
+        for (int s = 0; s < KS; ++s) a[s] = act_fn(act, acc[k][s]);
         float* row = out + o * plane + (r + 1) * rs + COL0;
 #pragma unroll
         for (int q = 0; q < KS / 4; ++q) {
@@ -112,20 +127,45 @@ __global__ void __launch_bounds__(THREADS)
 
     FwdEpi epi;
     epi.out = (l & 1) ? buf0 : buf1;
-    epi.res = keep ? res.act[l] + static_cast<size_t>(bd.b) * cout * LL
-                   : nullptr;
+    epi.last = l == n - 1;
+    epi.res = keep && !epi.last
+                  ? res.act[l] + static_cast<size_t>(bd.b) * cout * LL
+                  : nullptr;
     epi.cout = cout;
     epi.L = L;
     epi.r0 = bd.r0;
     epi.rs = sl.rs;
     epi.plane = sl.plane;
     epi.act = ly.act;
-    epi.last = l == n - 1;
-    conv_band(cin, cout, smem, in, sl, bd.R, L, epi);
+    if (epi.last)  // the partial sums in the output planes past cout
+      conv_band<CONV_TO_STRIPE>(cin, cout, smem, in, sl, bd, ly, epi,
+                                epi.out + cout * sl.plane,
+                                (sl.cmax - cout) * sl.plane);
+    else
+      conv_band<CONV_DENSE>(cin, cout, smem, in, sl, bd, ly, epi);
   }
   __syncthreads();  // the raw conditioner output is in its planes
 
   const float* raw = (n & 1) ? buf1 : buf0;
+  if (keep) {
+    // K7's residual of the last conv: the raw output on the active stripe,
+    // 0 elsewhere (stored, not computed), four sites a store
+    const int cn = net.width[n], n4 = L / 4;
+    float* rl = res.act[n - 1] + static_cast<size_t>(bd.b) * cn * LL;
+    for (int e = threadIdx.x; e < cn * bd.R * n4; e += THREADS) {
+      const int q = e % n4, t = e / n4;
+      const int r = t % bd.R, o = t / bd.R, i = bd.r0 + r;
+      const float4 v = *reinterpret_cast<const float4*>(
+          raw + o * sl.plane + (r + 1) * sl.rs + COL0 + 4 * q);
+      const float a[4] = {v.x, v.y, v.z, v.w};
+      float z[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        z[s] = stripe(i, 4 * q + s, ly.mu, ly.off) == 0 ? a[s] : 0.f;
+      *reinterpret_cast<float4*>(rl + (o * L + i) * L + 4 * q) =
+          make_float4(z[0], z[1], z[2], z[3]);
+    }
+  }
   float* fxb = fx + static_cast<size_t>(bd.b) * 2 * LL;
   // the transform, tps threads a site, every lane in every pass (the
   // group's shuffles)

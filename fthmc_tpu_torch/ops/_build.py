@@ -9,7 +9,9 @@ flags, so a changed source is rebuilt and an unchanged one is reused.
 
 Counters: every kernel wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and every plain PyTorch twin adds one to
-``PLAIN_CALLS[name]``; ``reset_counts`` zeroes both.
+``PLAIN_CALLS[name]``; the coupling kernels' launches also add the conv
+multiply-adds they run to ``CONV_MACS[name]`` (reckoned on the host,
+``coupling_kernels.launch_macs``); ``reset_counts`` zeroes all three.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "KERNELS", "SOURCES", "reset_counts",
-           "build_all", "library", "bind", "check", "smem_limit",
-           "sm_count", "stream_handle",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "CONV_MACS", "KERNELS", "SOURCES",
+           "reset_counts", "build_all", "library", "bind", "check",
+           "smem_limit", "sm_count", "stream_handle",
            "require_fp32_contiguous", "require_contiguous", "ptr_array",
            "int_ptrs", "int_array"]
 
@@ -43,6 +45,7 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
            "K11", "K11_bf16", "K12")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+CONV_MACS = dict.fromkeys(("K6", "K7", "K8"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
@@ -108,6 +111,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in CONV_MACS:
+        CONV_MACS[k] = 0
 
 
 def _nvcc() -> str:

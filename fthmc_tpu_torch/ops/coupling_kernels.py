@@ -6,12 +6,13 @@ Replaces the TPU kernel ``fthmc_tpu/ops/pallas_coupling.py::_ncp_kernel``
 CUDA source: ``csrc/coupling_fwd.cu`` (with ``csrc/coupling_common.cuh``):
 a thread-block cluster per chain, each CTA a band of rows (``band_plan``),
 the conv chain's activations kept in the bands' shared memory with halo
-rows exchanged between neighbours. Bound on the card: the conv flops the
+rows exchanged between neighbours, the last conv computed on the active
+stripe alone (``stripe_items``). Bound on the card: the conv flops the
 layer's outputs depend on (the last conv on the active stripe, the one
 before on its one-site halo: 285 MFLOP per launch at the flagship's widths,
-16^2 and 64 chains, of the dense chain's 481); the bytes it must move are
-~100x smaller. The energy flows of FT-HMC (y = f(z) before and after a
-trajectory) run through it.
+16^2 and 64 chains; the kernel runs 361, the dense chain 481); the bytes
+it must move are ~100x smaller. The energy flows of FT-HMC (y = f(z)
+before and after a trajectory) run through it.
 
 The launch path is made once per (layer, shape, dtype, device): the full
 envelope check, the ctypes arguments (widths, band plan, pointers) and the
@@ -20,7 +21,8 @@ cached (``launch_args``) for as long as the layer's tensors live and stay
 as they were, so a new input of any kind is checked again. Every K6/K7
 launch goes through ``forward_call``, which counts it: the wrappers (one
 output buffer a call), the flow forward of the energies and the FT force
-(one workspace a flow, raw pointers).
+(one workspace a flow, raw pointers), and adds the conv multiply-adds
+the launch runs (``launch_macs``) to ``_build.CONV_MACS``.
 """
 from __future__ import annotations
 
@@ -38,10 +40,12 @@ from fthmc_tpu_torch.ops import _build
 
 __all__ = ["coupling_forward", "coupling_forward_plain",
            "kernel_flow_forward", "kernel_fits", "band_plan", "smem_bytes",
-           "launch_args", "forward_call", "pack_conv"]
+           "launch_args", "forward_call", "pack_conv", "stripe_items",
+           "launch_macs"]
 
 ACT_CODES = {"relu": 0, "silu": 1, "swish": 1, "leaky_relu": 2, "tanh": 3}
 MAX_BANDS = 8            # CTAs a chain's cluster (csrc/coupling_common.cuh)
+KS = 4                   # sites, and output channels, of a conv thread item
 
 
 def band_plan(L: int, B: int, n_sm: int) -> tuple[int, tuple[int, ...]]:
@@ -62,6 +66,52 @@ def band_plan(L: int, B: int, n_sm: int) -> tuple[int, tuple[int, ...]]:
 
 
 sm_count = _build.sm_count
+
+
+def stripe_items(r0: int, R: int, L: int, mu: int,
+                 off: int) -> tuple[int, int, int, int, int, int]:
+    """The thread items of K6/K7's last conv in the band of own rows
+    [r0, r0 + R), which lie on the layer's active stripe (the kernels'
+    ``items_of`` under CONV_TO_STRIPE, csrc/coupling_common.cuh): (nrows,
+    r_first, r_step, ngroups, j_first, step), an item being 4 output
+    channels x 4 sites of own row r_first + k r_step (k < nrows), sites
+    j0 + s step from j0 = j_first + 4 g step (g < ngroups). mu = 1: the
+    band's active rows, consecutive sites; mu = 0: every row, its L / 4
+    active sites 4 at a time at stride 4 (a site at or past L repeats the
+    item's first: its sums are computed, not stored)."""
+    o = off % 4
+    if mu == 1:
+        first = (o - r0) % 4
+        return ((R - 1 - first) // 4 + 1 if first < R else 0, first, 4,
+                L // KS, 0, 1)
+    return R, 0, 1, -(-(L // 4) // KS), o, 4
+
+
+@lru_cache(maxsize=None)
+def launch_macs(widths: tuple[int, ...], L: int, B: int,
+                row0: tuple[int, ...], mu: int, off: int) -> tuple[int, int]:
+    """Conv multiply-adds one launch runs, (K6 or K7, K8), for B chains
+    of L^2 sites under the band plan's ``row0`` on layer (mu, off), each
+    conv's outputs padded to a multiple of 4 as the kernels' items are:
+    every conv dense but two. K6/K7's last runs on ``stripe_items``' sites;
+    K8's first transposed conv sums, at each site, the taps whose input
+    site is on the active stripe (3 of 9 where any is, for 3 sites in 4)."""
+    pad = lambda c: -(-c // KS) * KS
+    n = len(widths) - 1
+    fwd = sum(L * L * widths[li] * 9 * pad(widths[li + 1])
+              for li in range(n - 1))
+    bwd = sum(L * L * widths[li + 1] * 9 * pad(widths[li])
+              for li in range(n - 1))
+    sites = 0
+    for a, b in zip(row0, row0[1:]):
+        nrows, _, _, ngroups, _, _ = stripe_items(a, b - a, L, mu, off)
+        sites += nrows * ngroups * KS
+    fwd += sites * widths[n - 1] * 9 * pad(widths[n])
+    # the rows (mu = 1) or columns (mu = 0) c whose one tap row or column
+    # reaching the stripe, (off + 1 - c) mod 4, is a tap (3 taps a site)
+    reach = sum(1 for c in range(L) if (off + 1 - c) % 4 < 3)
+    bwd += 3 * L * reach * widths[n] * pad(widths[n - 1])
+    return B * fwd, B * bwd
 
 
 @lru_cache(maxsize=None)
@@ -169,6 +219,8 @@ class LaunchArgs:
     B: int
     L: int
     n: int
+    conv_widths: tuple      # ``widths`` as a tuple (``launch_macs``' key)
+    plan: tuple             # ``row0`` as a tuple
     widths: object          # int[n + 1]
     w_fwd: object           # void*[n], the convs packed forward
     w_bwd: object           # void*[n], the convs packed transposed
@@ -222,7 +274,8 @@ def launch_args(what: str, layer, x: torch.Tensor, spec: FlowSpec,
         fwd = [pack_conv(p["w"], p["b"]) for p in layer]
         bwd = [pack_conv(p["w"], None) for p in layer]
     args = LaunchArgs(
-        B=B, L=L, n=len(layer), widths=_build.int_array(widths),
+        B=B, L=L, n=len(layer), conv_widths=tuple(widths), plan=tuple(row0),
+        widths=_build.int_array(widths),
         w_fwd=_build.ptr_array(fwd), w_bwd=_build.ptr_array(bwd),
         packed=(*fwd, *bwd),
         rncp=int(spec.coupling == "rncp"), M=spec.n_mixture,
@@ -253,15 +306,19 @@ def scratch_for(a: LaunchArgs, x: torch.Tensor):
 
 def forward_call(a: LaunchArgs, x: int, fx: int, logj: int, res,
                  scratch, mu: int, off: int, stream: int) -> None:
-    """One launch of the coupling forward entry on device pointers, counted:
-    K6 (``res`` None) or K7 (``res`` a C array of the residual outputs).
-    Every K6 and K7 launch of the port goes through here."""
+    """One launch of the coupling forward entry on device pointers, counted
+    with the conv multiply-adds it runs: K6 (``res`` None) or K7 (``res``
+    a C array of the residual outputs). Every K6 and K7 launch of the port
+    goes through here."""
     lib = _build.library("coupling_fwd")
     rc = lib.ft_coupling_forward(x, fx, logj, res, scratch, a.B, a.L, a.n,
                                  a.widths, a.w_fwd, a.rncp, a.M, a.s_clip,
                                  a.act, mu, off, a.C, a.row0, a.limit, stream)
     _build.check(rc, "ft_coupling_forward", lib)
-    _build.LAUNCHES["K6" if res is None else "K7"] += 1
+    name = "K6" if res is None else "K7"
+    _build.LAUNCHES[name] += 1
+    _build.CONV_MACS[name] += launch_macs(a.conv_widths, a.L, a.B, a.plan,
+                                          mu, off)[0]
 
 
 def launch_forward(a: LaunchArgs, x: torch.Tensor, mu: int, off: int,

@@ -12,11 +12,15 @@ cotangents) in the bands' shared memory (``coupling_kernels.band_plan``).
 Both are bound by the conv flops their outputs depend on (K7 285 MFLOP, K8
 276 MFLOP per launch at the flagship's widths, 16^2 and 64 chains:
 cotangents enter on the active stripe and leave on the frozen stripes;
-``chip_smoke.coupling_macs`` counts them). The force needs d/dz only, so
-K8 computes input cotangents and no parameter gradients, and reads the
-activation gates from K7's stored pre-activations instead of recomputing
-the convs. Fields stay chains-first (B, 2, L, L): the TPU kernels'
-chains-last layout was a lane-axis device and is not carried over.
+``chip_smoke.coupling_macs`` counts them). Each runs 361: K7 its last conv
+on the active stripe alone, K8 only the taps of its first transposed conv
+that reach that stripe (``coupling_kernels.launch_macs``). The force needs
+d/dz only, so K8 computes input cotangents and no parameter gradients, and
+reads the activation gates from K7's stored pre-activations instead of
+recomputing the convs; K7's residual of the last conv, the raw conditioner
+output, is kept on the active stripe, 0 elsewhere, as K8 reads it there.
+Fields stay chains-first (B, 2, L, L): the TPU kernels' chains-last layout
+was a lane-axis device and is not carried over.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from fthmc_tpu_torch.models.masks import layer_mask_params
 from fthmc_tpu_torch.ops import _build
 from fthmc_tpu_torch.ops.conv import circular_conv2d, conv_net_preacts
 from fthmc_tpu_torch.ops.coupling_kernels import (_conv_widths, forward_call,
-                                                  launch_args,
+                                                  launch_macs, launch_args,
                                                   launch_forward,
                                                   scratch_for)
 from fthmc_tpu_torch.ops.lattice_kernels import force as force_kernel
@@ -44,13 +48,16 @@ __all__ = ["coupling_fwd_res", "coupling_fwd_res_plain", "coupling_bwd",
 def coupling_fwd_res_plain(layer, x: torch.Tensor, mu: int, off: int,
                            spec: FlowSpec):
     """Plain twin of K7: (fx, logJ, residuals), the residuals being every
-    conv's pre-activation (the last is the raw conditioner output)."""
+    conv's pre-activation, the last (the raw conditioner output) on the
+    active stripe and 0 elsewhere, as the kernel stores it."""
     _build.PLAIN_CALLS["K7"] += 1
-    frozen = _masks(tuple(x.shape[-2:]), mu, off, x.dtype, x.device)[0]
+    frozen, active = _masks(tuple(x.shape[-2:]), mu, off, x.dtype,
+                            x.device)[:2]
     plaq = plaq_of_links(x)
     res = conv_net_preacts(layer, stack_cos_sin(frozen * plaq),
                            spec.activation)
     fx, logj = link_coupling_from_net_out(x, plaq, res[-1], mu, off, spec)
+    res[-1] = res[-1] * active
     return fx, logj, tuple(res)
 
 
@@ -165,14 +172,16 @@ def coupling_bwd(layer, x: torch.Tensor, residuals, gy: torch.Tensor,
 def bwd_call(a, x: int, gy: int, gl: int, gx: int, res, scratch, mu: int,
              off: int, stream: int) -> None:
     """One launch of the K8 entry on device pointers (``res`` a C array of
-    K7's residuals), counted. Every K8 launch of the port goes through
-    here."""
+    K7's residuals), counted with the conv multiply-adds it runs. Every
+    K8 launch of the port goes through here."""
     lib = _build.library("coupling_bwd")
     rc = lib.k8_coupling_bwd(x, gy, gl, gx, res, scratch, a.B, a.L, a.n,
                              a.widths, a.w_bwd, a.rncp, a.M, a.s_clip, a.act,
                              mu, off, a.C, a.row0, a.limit, stream)
     _build.check(rc, "k8_coupling_bwd", lib)
     _build.LAUNCHES["K8"] += 1
+    _build.CONV_MACS["K8"] += launch_macs(a.conv_widths, a.L, a.B, a.plan,
+                                          mu, off)[1]
 
 
 @torch.no_grad()

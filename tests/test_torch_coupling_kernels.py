@@ -27,7 +27,7 @@ from fthmc_tpu_torch.ops.coupling_kernels import (MAX_BANDS, band_plan,
                                                   coupling_forward,
                                                   kernel_fits,
                                                   kernel_flow_forward,
-                                                  pack_conv)
+                                                  pack_conv, stripe_items)
 from fthmc_tpu_torch.ops.coupling_vjp_kernels import (ACT_GRADS,
                                                       coupling_bwd,
                                                       coupling_bwd_plain,
@@ -111,6 +111,15 @@ def _jax_preacts(net, x, mu, off, activation):
     return pre
 
 
+def _check_last_residual(last, ref, mu, off):
+    """K7's residual of the last conv: JAX's pre-activation on the active
+    stripe, exactly 0 elsewhere."""
+    active = jm.plaq_masks(ref.shape[-2:], mu, off)[1].astype(bool)
+    np.testing.assert_allclose(last[..., active], ref[..., active], rtol=0,
+                               atol=TOL)
+    assert np.all(last[..., ~active] == 0.0)
+
+
 @pytest.mark.parametrize("kw", SPECS)
 def test_k7_plain_matches_forward_and_conv_intermediates(kw):
     mu, off = 1, 3
@@ -125,8 +134,40 @@ def test_k7_plain_matches_forward_and_conv_intermediates(kw):
     assert wrapped_diff(fx.numpy(), ref_x) < TOL
     np.testing.assert_allclose(lj.numpy(), ref_l, rtol=0, atol=TOL)
     assert len(res) == len(ref_res)
-    for r, rr in zip(res, ref_res):
+    for r, rr in zip(res[:-1], ref_res[:-1]):
         np.testing.assert_allclose(r.numpy(), rr, rtol=0, atol=TOL)
+    _check_last_residual(res[-1].numpy(), ref_res[-1], mu, off)
+
+
+LAST_RES_SPECS = [
+    dict(coupling="ncp", n_mixture=3, hidden_sizes=(8,), s_clip=None),
+    dict(coupling="rncp", n_mixture=2, hidden_sizes=(4, 4), s_clip=3.0,
+         activation="tanh"),
+    dict(coupling="rncp", n_mixture=2, hidden_sizes=(), s_clip=3.0),
+]
+
+
+@pytest.mark.parametrize("kw", LAST_RES_SPECS,
+                         ids=["ncp", "rncp", "one_conv"])
+@pytest.mark.parametrize("mu,off", [(m, o) for o in range(4)
+                                    for m in (0, 1)])
+def test_last_residual_is_the_stripe_preactivation(kw, mu, off):
+    """The twin and the banded mirror (ragged bands of 2 and 3 rows, some
+    with no active row) keep the last conv's pre-activation on the active
+    stripe and 0 elsewhere."""
+    L, B = 20, 3
+    net, x, gy, gl, _, tspec, tnet = case(kw, seed=11, B=B, L=L)
+    with jax.enable_x64():
+        ref = np.asarray(_jax_preacts(jax.tree.map(jnp.asarray, net),
+                                      jnp.asarray(x), mu, off,
+                                      tspec.activation)[-1])
+    xt = torch.as_tensor(x)
+    _, _, res = coupling_fwd_res_plain(tnet, xt, mu, off, tspec)
+    _check_last_residual(res[-1].numpy(), ref, mu, off)
+    C, row0 = band_plan(L, B, N_SM)
+    res_b, _ = banded_layer(tnet, xt, torch.as_tensor(gy),
+                            torch.as_tensor(gl), mu, off, tspec, C, row0)
+    _check_last_residual(res_b[-1].numpy(), ref, mu, off)
 
 
 def _vjp_case(kw, mu, off, seed=2, s_bias=0.0):
@@ -302,12 +343,52 @@ def _exchange(planes, row0, ch):
         planes[r][:, :ch, rows[r] + 1] = planes[dn][:, :ch, 1]
 
 
+def _stripe_plane(pre, r0, mu, off):
+    """The last conv's output planes of a band as K6/K7 leave them: pre at
+    the sites of its items (``stripe_items``; a site at or past L is the
+    item's repeat, not stored), NaN elsewhere."""
+    R, L = pre.shape[2], pre.shape[3]
+    out = torch.full_like(pre, float("nan"))
+    nrows, r_first, r_step, ngroups, j_first, step = stripe_items(
+        r0, R, L, mu, off)
+    for k in range(nrows):
+        r = r_first + k * r_step
+        for g in range(ngroups):
+            for s in range(4):
+                j = j_first + (4 * g + s) * step
+                if j < L:
+                    out[:, :, r, j] = pre[:, :, r, j]
+    return out
+
+
+def _band_conv_from_stripe(w, band, R, r0, mu, off):
+    """K8's first transposed conv of a band: at each site only the taps
+    whose input site is on the active stripe (mu = 1: tap row dy =
+    off - i + 1 mod 4, none where that is 3; mu = 0: tap column dx =
+    off + 1 - j mod 4), so what lies off the stripe is never read."""
+    L = band.shape[-1] - 8
+    i = torch.arange(r0, r0 + R)[:, None]
+    j = torch.arange(L)[None, :]
+    out = torch.zeros((band.shape[0], w.shape[0], R, L), dtype=band.dtype)
+    for dy in range(3):
+        for dx in range(3):
+            take = ((off - i + 1) % 4 == dy) if mu == 1 else \
+                ((off + 1 - j) % 4 == dx)
+            win = band[:, :, dy:dy + R, COL0 - 1 + dx:COL0 - 1 + dx + L]
+            term = torch.einsum("oc,bcrj->borj", w[:, :, dy, dx], win)
+            out = out + torch.where(take.expand(R, L), term, 0.0)
+    return out
+
+
 def banded_layer(layer, x, gy, gl, mu, off, spec, C, row0):
     """The forward chain (K7's residuals) and the input cotangent (K8) of
-    one coupling layer, band by band as the kernels compute them."""
+    one coupling layer, band by band as the kernels compute them: the last
+    conv on its items' sites, K7's residual of it the active stripe of
+    those planes (0 elsewhere), K8's first transposed conv on the taps that
+    reach the stripe, its input NaN off the stripe."""
     B, _, L, _ = x.shape
     act, act_grad = ACTIVATIONS[spec.activation], ACT_GRADS[spec.activation]
-    frozen = _masks((L, L), mu, off, x.dtype, x.device)[0]
+    frozen, active = _masks((L, L), mu, off, x.dtype, x.device)[:2]
     plaq = plaq_of_links(x)
     feat = stack_cos_sin(frozen * plaq)
     rows = [b - a for a, b in zip(row0, row0[1:])]
@@ -329,13 +410,20 @@ def banded_layer(layer, x, gy, gl, mu, off, spec, C, row0):
             _exchange(planes, row0, widths[li])
         nxt = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
         for r in range(C):
+            band = slice(row0[r], row0[r + 1])
             pre = _band_conv(prm["w"], prm["b"], planes[r][:, :widths[li]],
                              rows[r])
-            res[li][:, :, row0[r]:row0[r + 1]] = pre
-            _land(nxt[r], pre if li == len(layer) - 1 else act(pre))
+            if li < len(layer) - 1:
+                res[li][:, :, band] = pre
+                _land(nxt[r], act(pre))
+            else:
+                raw = _stripe_plane(pre, row0[r], mu, off)
+                res[li][:, :, band] = torch.where(active[band] > 0, raw, 0.0)
         planes = nxt
-    # K8: stage A per site, the transposed chain band by band, stage C
+    # K8: stage A per site (its cotangents NaN off the active stripe: never
+    # read), the transposed chain band by band, stage C
     g, g_p = transform_bwd_plain(x, res[-1], gy, gl, mu, off, spec)
+    g = torch.where(active > 0, g, float("nan"))
     planes = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
     for r in range(C):
         _land(planes[r], g[:, :, row0[r]:row0[r + 1]])
@@ -346,7 +434,10 @@ def banded_layer(layer, x, gy, gl, mu, off, spec, C, row0):
         nxt = [_planes(B, cmax, R, L, x.dtype) for _ in range(C)]
         for r in range(C):
             band = slice(row0[r], row0[r + 1])
-            gc = _band_conv(wt, zero, planes[r][:, :widths[li + 1]], rows[r])
+            gin = planes[r][:, :widths[li + 1]]
+            gc = _band_conv_from_stripe(wt, gin, rows[r], row0[r], mu, off) \
+                if li == len(layer) - 1 else \
+                _band_conv(wt, zero, gin, rows[r])
             if li > 0:
                 _land(nxt[r], gc * act_grad(res[li - 1][:, :, band]))
             else:
@@ -374,7 +465,7 @@ def test_banded_mirror_reproduces_the_twins(L, B):
     _, x, gy, gl, _, tspec, tnet = case(kw, seed=5, B=B, L=L)
     xt, gyt, glt = (torch.as_tensor(a) for a in (x, gy, gl))
     C, row0 = band_plan(L, B, N_SM)
-    for mu, off in ((0, 1), (1, 2)):
+    for mu, off in [(m, o) for o in range(4) for m in (0, 1)]:
         res, gx = banded_layer(tnet, xt, gyt, glt, mu, off, tspec, C, row0)
         _, _, res_p = coupling_fwd_res_plain(tnet, xt, mu, off, tspec)
         gx_p = coupling_bwd_plain(tnet, xt, res_p, gyt, glt, mu, off, tspec)
@@ -485,3 +576,75 @@ def test_launch_args_cache(cpu_launch_args, change):
         assert ck.launch_args("K6", live, x, spec) is first
     with pytest.raises(ValueError, match="contiguous"):
         ck.launch_args("K6", live, x.transpose(2, 3), spec)
+
+
+# ---------------------------------------------------------------------------
+# _build.CONV_MACS: the conv multiply-adds each K6/K7/K8 launch runs,
+# reckoned on the host. The library is stubbed (no card here), so every
+# launch path's count runs, against a count from the stripe masks.
+# ---------------------------------------------------------------------------
+
+
+class _NoCard:
+    """The kernels' libraries where there is no card: every entry returns
+    0 (success) and launches nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def _run_from_masks(widths, L, mu, off):
+    """(K6 or K7, K8) multiply-adds a chain, from the stripe masks, each
+    conv's outputs padded to 4: every conv dense but K6/K7's last (the
+    active sites, a row's rounded up to whole items of 4) and K8's first
+    transposed conv (the (site, tap) pairs whose input site is active)."""
+    pad = lambda c: -(-c // 4) * 4
+    active = jm.plaq_masks((L, L), mu, off)[1].astype(bool)
+    n = len(widths) - 1
+    fwd = sum(L * L * widths[li] * 9 * pad(widths[li + 1])
+              for li in range(n - 1))
+    bwd = sum(L * L * widths[li + 1] * 9 * pad(widths[li])
+              for li in range(n - 1))
+    sites = int((-(-active.sum(axis=1) // 4) * 4).sum())
+    fwd += sites * widths[n - 1] * 9 * pad(widths[n])
+    pairs = sum(int(np.roll(active, (1 - dy, 1 - dx), axis=(0, 1)).sum())
+                for dy in range(3) for dx in range(3))
+    bwd += pairs * widths[n] * pad(widths[n - 1])
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("L,B", [(16, 64), (8, 4), (20, 3), (64, 2)])
+def test_conv_macs_count_what_the_launches_run(cpu_launch_args,
+                                                 monkeypatch, L, B):
+    from benchmark.counts.work import coupling_macs
+    from fthmc_tpu_torch.models.flow import init_flow_params
+    from fthmc_tpu_torch.models.masks import layer_mask_params
+    from fthmc_tpu_torch.ops.coupling_vjp_kernels import bwd_call
+    ck = cpu_launch_args
+    monkeypatch.setattr(_build, "library", lambda name: _NoCard())
+    params = init_flow_params(FLAGSHIP, torch.Generator().manual_seed(0),
+                              device="cpu")
+    x = torch.zeros((B, 2, L, L))
+    widths = (2, 32, 32, 17)
+    ran = {"K6": 0, "K7": 0, "K8": 0}
+    needed = dict(ran)
+    for i, layer in enumerate(params):
+        mu, off = layer_mask_params(i)
+        a = ck.launch_args("K6-K8", layer, x, FLAGSHIP)
+        before = dict(_build.CONV_MACS)
+        ck.forward_call(a, 0, 0, 0, None, None, mu, off, 0)
+        ck.forward_call(a, 0, 0, 0, "residuals", None, mu, off, 0)
+        bwd_call(a, 0, 0, 0, 0, None, None, mu, off, 0)
+        got = {k: _build.CONV_MACS[k] - before[k] for k in ran}
+        fwd, bwd = _run_from_masks(widths, L, mu, off)
+        assert got == {"K6": B * fwd, "K7": B * fwd, "K8": B * bwd}
+        for k in ran:
+            ran[k] += got[k]
+            needed[k] += B * coupling_macs(widths, mu, off, L)[k]
+    if L == 16:
+        # the dead work left, against 1.79 (K7) and 1.81 (K8) when every
+        # conv was dense
+        assert ran["K7"] * 8712 == needed["K7"] * 11232
+        assert ran["K8"] * 8424 == needed["K8"] * 11592
+    _build.reset_counts()
+    assert set(_build.CONV_MACS.values()) == {0}

@@ -40,7 +40,10 @@ pytestmark = pytest.mark.cuda
 SPECS = [FlowSpec(n_layers=2, coupling="ncp", n_mixture=3,
                   hidden_sizes=(8,), activation="tanh"),
          FlowSpec(n_layers=2, coupling="rncp", n_mixture=8,
-                  hidden_sizes=(32, 32), s_clip=3.0)]
+                  hidden_sizes=(32, 32), s_clip=3.0),
+         # one conv: the last of K6/K7 and the first transposed of K8 at once
+         FlowSpec(n_layers=2, coupling="rncp", n_mixture=4, hidden_sizes=(),
+                  s_clip=3.0)]
 
 
 @pytest.fixture
@@ -97,6 +100,28 @@ def test_kernels_match_plain_twins(card, spec, B, L):
     assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                         "K6": 8, "K7": 8, "K8": 8, "K9": 0, "K10": 0,
                         "K11": 0, "K11_bf16": 0, "K12": 0}
+
+
+@pytest.mark.parametrize("B,L", [(64, 16), (3, 20), (4, 8)])
+@pytest.mark.parametrize("mu", [0, 1])
+def test_k8_reads_the_last_residual_on_the_stripe_only(card, B, L, mu):
+    """K7 stores its last residual as 0 off the active stripe, and K8 never
+    reads it there: with NaN in its place, the same gx bit for bit."""
+    from fthmc_tpu_torch.models.coupling import _masks
+    spec = SPECS[1]
+    params, x, gy, gl = _layer_inputs(card, spec, B, L, seed=5)
+    for off in range(4):
+        layer = params[mu]
+        active = _masks((L, L), mu, off, x.dtype, card)[1] > 0
+        with full_fp32():
+            _, _, res = coupling_fwd_res(layer, x, mu, off, spec)
+            nan = res[-1].masked_fill(~active, float("nan"))
+            gx = coupling_bwd(layer, x, res, gy, gl, mu, off, spec)
+            gx_nan = coupling_bwd(layer, x, (*res[:-1], nan), gy, gl, mu,
+                                  off, spec)
+        torch.cuda.synchronize()
+        assert bool((res[-1][:, :, ~active] == 0).all())
+        assert torch.equal(gx, gx_nan)
 
 
 def test_shared_memory_envelope(card):

@@ -166,13 +166,3 @@ extern "C" int k1_force(const float* x, float* f, int B, int L, float beta,
 #undef K1_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-__global__ void empty_kernel() {}
-
-// A launch of an empty kernel over a (bx, by) grid of `threads` threads:
-// the floor under a small kernel's time (chip_smoke.py times it beside K1).
-extern "C" int ft_empty_launch(int bx, int by, int threads, void* stream) {
-  empty_kernel<<<dim3(bx, by), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}

@@ -58,10 +58,9 @@ _K11 = [_P] * 8 + [_I, _I, _I, _F, _F, _I, _F, _I, _I, _IP, _I, _I, _P]
 # ft_error_string and ft_smem_limit of csrc/common.cuh, bound in ``bind``)
 _SIGNATURES = {
     # K1: (x, f, B, L, beta, rows, threads, sites, stream); a CTA's shared
-    # memory; an empty kernel's launch (the floor K1 is timed beside)
+    # memory
     "force": {"k1_force": [_P, _P, _I, _I, _F, _I, _I, _I, _P],
-              "force_smem_bytes": [_I] * 4,
-              "ft_empty_launch": [_I, _I, _I, _P]},
+              "force_smem_bytes": [_I] * 4},
     # ... (C, row0, limit, stream) ending the coupling entries: the band
     # plan and the card's shared-memory limit
     "coupling_fwd": {"ft_coupling_forward": [_P, _P, _P, _PP, _P, _I, _I, _I,

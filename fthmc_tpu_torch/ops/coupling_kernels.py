@@ -55,8 +55,8 @@ def band_plan(L: int, B: int, n_sm: int) -> tuple[int, tuple[int, ...]]:
     (an item for each of a CTA's threads in a 32-channel conv at 16^2),
     then twice the bands while B x C is under half the card's ``n_sm`` SMs
     and the bands keep 2 rows; bands differ by at most one row (L = 20 at
-    C = 8: 2 and 3 rows in turn). chip_smoke.py times K6-K8 under every
-    plan at the paths' shapes (its ``band_plans`` line; PERF.md)."""
+    C = 8: 2 and 3 rows in turn). The H100 times of K6-K8 under every plan
+    at the paths' shapes: PERF.md section 6."""
     C = 1
     while 2 * C <= min(MAX_BANDS, L // 8):
         C *= 2

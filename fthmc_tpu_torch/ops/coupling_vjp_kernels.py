@@ -12,7 +12,7 @@ cotangents) in the bands' shared memory (``coupling_kernels.band_plan``).
 Both are bound by the conv flops their outputs depend on (K7 285 MFLOP, K8
 276 MFLOP per launch at the flagship's widths, 16^2 and 64 chains:
 cotangents enter on the active stripe and leave on the frozen stripes;
-``chip_smoke.coupling_macs`` counts them). Each runs 361: K7 its last conv
+PERF.md section 6). Each runs 361: K7 its last conv
 on the active stripe alone, K8 only the taps of its first transposed conv
 that reach that stripe (``coupling_kernels.launch_macs``). The force needs
 d/dz only, so K8 computes input cotangents and no parameter gradients, and

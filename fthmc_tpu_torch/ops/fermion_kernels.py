@@ -58,7 +58,7 @@ __all__ = ["pack_spinor", "unpack_spinor", "link_planes", "parity_masks",
 MAX_BANDS = 8            # bands a group (csrc/common.cuh)
 HALO_ROWS = 4            # halo rows a side of a band (csrc/fermion.cu)
 # chains a K10 tile (a power of two): the chains-last layout's coalesced
-# axis; chip_smoke.py's fermion_band_plans line times 8, 16 and 32
+# axis (8, 16 and 32 timed on an H100: PERF.md section 6)
 K10_TILE = 8
 CG_MAX_THREADS = 1024
 
@@ -358,8 +358,8 @@ def fermion_band_plan(L: int, B: int, n_sm: int,
     MAX_BANDS, doubled while the grid is under the card's ``n_sm`` SMs and
     the bands keep HALO_ROWS rows: a band computes its four halo rows a
     side again, so thinner bands cost more than the SMs they fill (the
-    H100 times of every plan, chip_smoke.py's ``fermion_band_plans`` line;
-    PERF.md). Bands differ by at most one row."""
+    H100 times of every plan, PERF.md section 6). Bands differ by at most
+    one row."""
     groups = -(-B // tile)
     C = 1
     while groups * C < n_sm and 2 * C <= min(MAX_BANDS, L // HALO_ROWS):
@@ -490,8 +490,8 @@ def resolve_layout(layout: str, L0: int, L1: int) -> str:
     """'cf' (K9's planes) or 'cl' (K10's), for the operator and K11's
     solve. 'auto' is K10 up to 8^2 sites and K9 above:
     on an H100 with 128 chains K10 took 6.9 us against K9's 7.9 at 8^2,
-    and K9 was faster at 16^2, 32^2 and 64^2 (PERF.md, the 'auto' layout
-    rule: chip_smoke.py's k9_vs_k10_ms_by_L), where the JAX package picks
+    and K9 was faster at 16^2, 32^2 and 64^2 (PERF.md section 6, the
+    'auto' layout rule), where the JAX package picks
     chains-last below 32 sites a side for its TPU's lanes."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")

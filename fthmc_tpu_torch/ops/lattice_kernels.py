@@ -192,8 +192,8 @@ FORCE_SITES = (1, 2, 4, 8)   # sites a thread: the kernel's instances
 # the plan's sites a thread and threads a CTA: the fastest or within 2% of
 # it at FT's, path A's, path B's and the headline's shapes in a sweep on an
 # H100; at 16^2, where a launch takes ~0.002 ms, the plans differ by less
-# than the spread between runs (chip_smoke.py's "timing" line,
-# k1_by_shape; PERF.md section 6)
+# than the spread between runs (PERF.md section 6, K1's row of the
+# kernel table)
 FORCE_SITES_PREFERRED = 2
 FORCE_THREADS = 256
 
@@ -278,8 +278,8 @@ KINDS = {"K2": 0, "K3": 0, "K4": 1, "K5": 2}   # the smem count's kinds
 # chains a K3 tile, and the threads a CTA its sites a thread keep: tiles
 # of 2 with the most sites (up to 4) that keep 128 threads made plans
 # within 14% of the fastest at 8^2-32^2 x 1024 chains on an H100, one CTA
-# a tile beating any cluster (chip_smoke.py's "k3_plans" line; PERF.md
-# section 6)
+# a tile beating any cluster (PERF.md section 6, K3's row of the kernel
+# table)
 K3_TILE = 2
 K3_MIN_THREADS = 128
 K3_TILES = (2, 4, 8, 16, 32)   # the tiles K3's plan sweep tries
@@ -392,8 +392,8 @@ def traj_plan(L: int, B: int, n_sm: int, kernel: str = "K2") -> TrajPlan:
     bands, with the fewest sites a thread from there up that fit. On an
     H100 one CTA a chain was the fastest plan at 64^2 and eight bands the
     fastest at 128^2, where a cluster's barriers cost the same whatever its
-    size (chip_smoke.py's "traj_plans" line; PERF.md). K3: tiles of K3_TILE
-    chains (one where B is), the fewest bands that hold a tile with
+    size (PERF.md section 6, K2's row of the kernel table). K3: tiles of
+    K3_TILE chains (one where B is), the fewest bands that hold a tile with
     threads of at most SITES_PREFERRED sites, the most that keep
     K3_MIN_THREADS threads a CTA (one CTA a tile up to 44^2); above what
     eight bands hold, K2's plan of one chain a group. Raises above

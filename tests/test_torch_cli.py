@@ -581,7 +581,7 @@ def test_parallel_flags_on_two_gloo_ranks(tmp_path):
 
 def jax_reference_readings() -> dict:
     """The JAX package's reading, on the CPU, of the configuration
-    chip_smoke.py's phase 13 runs through `schwinger --state`: plain
+    tests/test_torch_card_entry.py runs through `schwinger --state`: plain
     dynamical HMC at 16^2, beta=2, m=0.2, tau=1, 8 Omelyan steps, 64
     chains from a hot start, 160 trajectories in blocks of 40; <plaq> and
     <exp(-dH)> over the last 120 (the CLI's summary), <plaq>'s blocked

@@ -1,10 +1,13 @@
-"""The CUDA kernels on the card, against their plain twins, at small shapes.
+"""The CUDA kernels on the card, against their plain twins, at small shapes
+and at the shapes the sampling paths give them.
 
-Marked ``cuda``: each test skips without a card. This file imports only
-torch and the port, so it also runs on a machine with no JAX:
+Marked ``cuda``: each test skips without a card. This file, like the card
+suite's other files (``tests/test_torch_card_*.py``, the paths, training
+and the entry points), imports only torch, numpy and the port, so the
+suite also runs on a machine with no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
-        tests/test_torch_cuda.py
+        tests/test_torch_cuda.py tests/test_torch_card_*.py
 
 fp32 bounds: sum-order roundoff through the conv chain (fx wrapped 1e-4,
 logJ 1e-4 relative, gx 2e-3 * max|ref| as the JAX package's own fp32
@@ -34,6 +37,7 @@ from fthmc_tpu_torch.ops.coupling_vjp_kernels import (coupling_bwd,
                                                       coupling_fwd_res,
                                                       coupling_fwd_res_plain)
 from fthmc_tpu_torch.ops.lattice_kernels import force, force_plain
+from fthmc_tpu_torch.weights import load_flow_npz
 
 pytestmark = pytest.mark.cuda
 
@@ -46,11 +50,26 @@ SPECS = [FlowSpec(n_layers=2, coupling="ncp", n_mixture=3,
                   s_clip=3.0)]
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+# the flagship FT-HMC configuration: chains, L, beta, tau, Omelyan steps
+FT_B, FT_L, FT_BETA, FT_TAU, FT_NSTEP = 64, 16, 6.0, 0.5, 8
+
+
+@pytest.fixture(scope="module")
+def flagship(card):
+    """The exported flagship flow on the card and z0 = f^-1(0) at the
+    flagship's shape: (params, spec, z0)."""
+    from fthmc_tpu_torch.models.flow import flow_reverse
+    params, spec = load_flow_npz(device=card)
+    z0, _ = flow_reverse(params, torch.zeros((FT_B, 2, FT_L, FT_L),
+                                             device=card), spec)
+    return params, spec, z0
 
 
 def _wrapped(a, b):
@@ -58,17 +77,73 @@ def _wrapped(a, b):
                   - math.pi).abs().max())
 
 
+def near_equilibrium(g, B, L, beta, dev):
+    """Links with Gaussian angles of variance 1 / (4 beta), so a plaquette
+    (four links) has about the variance of beta's equilibrium: trajectories
+    from here are accepted or rejected as the main path's are."""
+    return torch.randn((B, 2, L, L), generator=g, device=dev) / \
+        math.sqrt(4 * beta)
+
+
+def _counted(fn):
+    """(fn(), launches, plain twin calls), the launch counters set to 0
+    just before it and read just after."""
+    _build.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+
+
+def _expect(**counts) -> dict:
+    """Every kernel's launches: ``counts``, the rest 0."""
+    return {**dict.fromkeys(_build.KERNELS, 0), **counts}
+
+
+def _ft_launches(n_force: int, n_layers: int, ntraj: int) -> dict:
+    """An FT-HMC run's launches: K1, K7 and K8 a force (K7/K8 a layer), K6
+    a layer an energy flow (two a trajectory and the start's charge)."""
+    return {"K1": n_force * ntraj, "K6": n_layers * (2 * ntraj + 1),
+            "K7": n_force * n_layers * ntraj,
+            "K8": n_force * n_layers * ntraj}
+
+
+# The plain-HMC headline, fthmc_tpu/bench.py:42-76: 64^2, beta=6, tau=1,
+# 25 steps (dt=0.04), 1024 chains, cold start; its beta, dt and steps
+HEADLINE_CFG = HMCConfig(beta=6.0, L=64, tau=1.0, nstep=25, n_chains=1024,
+                         randinit=False, seed=0)
+HEADLINE = (HEADLINE_CFG.beta, HEADLINE_CFG.dt, HEADLINE_CFG.nstep)
+
+
 # one shape for each band plan (coupling_kernels.band_plan on 132 SMs):
 # (64, 16) 2 bands of 8 rows, the flagship; (128, 16) path C's; (32, 16) 4
 # of 4 rows; (2, 64) 8 of 8 rows; (3, 20) 8 ragged bands of 2 and 3 rows;
 # (4, 8) 4 of 2 rows
-@pytest.mark.parametrize("spec", SPECS)
-@pytest.mark.parametrize("B,L", [(4, 8), (3, 20), (64, 16), (128, 16),
-                                 (32, 16), (2, 64)])
+GRID = [(4, 8), (3, 20), (64, 16), (128, 16), (32, 16), (2, 64)]
+# the exported flows on every layer at the shapes the paths give them: the
+# flagship flow at the flagship's 16^2 x 64, path C's 16^2 x 128 and 64^2
+# x 8 (8-row bands); the sampler's flows at 8^2 x 4096 (the 16-layer ncp)
+# and 8^2 x 512 (the flagship's width)
+EXPORTED = [("flow8x8_b3_rncp24_ftb6", 64, 16),
+            ("flow8x8_b3_rncp24_ftb6", 128, 16),
+            ("flow8x8_b3_rncp24_ftb6", 8, 64),
+            ("flow8x8_b2_16l_long", 4096, 8), ("flow8x8_b3_rncp24", 512, 8)]
+
+
+@pytest.mark.parametrize("spec,B,L", [(spec, B, L) for spec in SPECS
+                                      for B, L in GRID] + EXPORTED)
 def test_kernels_match_plain_twins(card, spec, B, L):
+    from fthmc_tpu_torch.models.masks import layer_mask_params
     g = torch.Generator(device=card).manual_seed(0)
-    params = init_flow_params(spec, torch.Generator().manual_seed(1),
-                              device=card)
+    if isinstance(spec, str):
+        # an exported flow: every layer with its own (mu, off)
+        params, spec = load_flow_npz(device=card, name=spec)
+        layers = [(params[li], *layer_mask_params(li))
+                  for li in range(len(params))]
+    else:
+        # every (mu, off) a flow's layers take, layer mu's weights for mu
+        params = init_flow_params(spec, torch.Generator().manual_seed(1),
+                                  device=card)
+        layers = [(params[m], m, o) for o in range(4) for m in (0, 1)]
     x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
     gy = torch.randn((B, 2, L, L), generator=g, device=card)
     gl = torch.randn((B,), generator=g, device=card)
@@ -76,17 +151,18 @@ def test_kernels_match_plain_twins(card, spec, B, L):
     with full_fp32():
         f = force(x, 2.0)
         assert float((f - force_plain(x, 2.0)).abs().max()) < 1e-5
-        # every (mu, off) a flow's layers take, layer mu's weights for mu
-        for mu, off in [(m, o) for o in range(4) for m in (0, 1)]:
-            layer = params[mu]
+        for layer, mu, off in layers:
             fx, lj = coupling_forward(layer, x, mu, off, spec)
             fx_p, lj_p = coupling_forward_plain(layer, x, mu, off, spec)
             assert _wrapped(fx, fx_p) < 1e-4
             assert float((lj - lj_p).abs().max()) < \
                 1e-4 * max(1.0, float(lj_p.abs().max()))
             fx7, lj7, res = coupling_fwd_res(layer, x, mu, off, spec)
-            _, _, res_p = coupling_fwd_res_plain(layer, x, mu, off, spec)
-            assert _wrapped(fx7, fx_p) < 1e-4
+            fx7_p, lj7_p, res_p = coupling_fwd_res_plain(layer, x, mu, off,
+                                                         spec)
+            assert _wrapped(fx7, fx7_p) < 1e-4
+            assert float((lj7 - lj7_p).abs().max()) < \
+                1e-4 * max(1.0, float(lj7_p.abs().max()))
             assert torch.equal(lj7, lj)
             for r, r_p in zip(res, res_p):
                 assert float((r - r_p).abs().max()) < \
@@ -97,8 +173,9 @@ def test_kernels_match_plain_twins(card, spec, B, L):
             assert float((gx - gx_p).abs().max()) < \
                 2e-3 * max(1.0, float(gx_p.abs().max()))
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    n = len(layers)
     assert launched == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                        "K6": 8, "K7": 8, "K8": 8, "K9": 0, "K10": 0,
+                        "K6": n, "K7": n, "K8": n, "K9": 0, "K10": 0,
                         "K11": 0, "K11_bf16": 0, "K12": 0}
 
 
@@ -404,20 +481,42 @@ def _close_traj(got, ref, x0, v0, u, beta, dt, nstep):
     assert _wrapped(xk[same], xp[same]) < 1e-4
 
 
-@pytest.mark.parametrize("B,L,nstep", [(8, 8, 6), (12, 20, 10), (4, 64, 3),
-                                        (4, 128, 3), (2, 256, 2)])
-def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
-    """K2, K4 and K5 under the default plan and, at the shapes up to 64^2,
-    under every plan of L (traj_plans); K3 likewise (its plans of chain
-    tiles, traj_plans(L, K3_TILES)), bit-equal to its twin."""
-    g = torch.Generator(device=card).manual_seed(0)
-    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
+def _traj_inputs(card, B, L, physics, seed):
+    """(x, v, u, K4's seed, beta, dt) of a trajectory kernel case: 'hot'
+    uniform links at beta = 2, dt = 0.1; 'headline' near-equilibrium links
+    at the headline's beta and dt."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if physics == "hot":
+        beta, dt = 2.0, 0.1
+        x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) \
+            * math.pi
+    else:
+        beta, dt, _ = HEADLINE
+        x = near_equilibrium(g, B, L, beta, card)
     v = torch.randn((B, 2, L, L), generator=g, device=card)
     u = torch.rand((B,), generator=g, device=card)
     seed = torch.tensor([12345], dtype=torch.int32, device=card)
-    beta, dt = 2.0, 0.1
-    plans = [None] + (lk.traj_plans(L) if L <= 64 else [])
-    plans3 = [None] + (lk.traj_plans(L, lk.K3_TILES) if L <= 64 else [])
+    return x, v, u, seed, beta, dt
+
+
+# the hot cases; then the headline (64^2 x 1024), K2-K5 above what one CTA
+# holds (128^2 and 256^2 at 16 chains, bands in a cluster) and the shapes
+# of a launch of the headline's sites (128^2 x 256, 256^2 x 64), all at the
+# headline's beta, dt and steps
+@pytest.mark.parametrize("B,L,nstep,physics", [
+    (8, 8, 6, "hot"), (12, 20, 10, "hot"), (4, 64, 3, "hot"),
+    (4, 128, 3, "hot"), (2, 256, 2, "hot"), (1024, 64, 25, "headline"),
+    (16, 128, 25, "headline"), (16, 256, 25, "headline"),
+    (256, 128, 25, "headline"), (64, 256, 25, "headline")])
+def test_trajectory_kernels_match_plain_twins(card, B, L, nstep, physics):
+    """K2, K4 and K5 under the default plan and, at the hot shapes up to
+    64^2 and at the headline's, under every plan of L (traj_plans); K3
+    likewise (its plans of chain tiles, traj_plans(L, K3_TILES)), bit-equal
+    to its twin."""
+    x, v, u, seed, beta, dt = _traj_inputs(card, B, L, physics, 0)
+    sweep = L <= 64 or physics == "headline"
+    plans = [None] + (lk.traj_plans(L) if sweep else [])
+    plans3 = [None] + (lk.traj_plans(L, lk.K3_TILES) if sweep else [])
     before = dict(_build.LAUNCHES)
     ref2 = lk.leapfrog_plain(x, v, beta, dt, nstep)
     ref5 = lk.hmc_traj_hostrng_plain(x, v, u, beta, dt, nstep)
@@ -460,22 +559,39 @@ def test_trajectory_kernels_match_plain_twins(card, B, L, nstep):
                         "K12": 0}
 
 
-# K3 at ragged chain counts (a tile's last chains past B) and at the
-# shapes chip_smoke.py holds it to
-@pytest.mark.parametrize("B,L", [(1, 8), (3, 16), (13, 32), (130, 8),
-                                 (16, 64), (5, 48)])
-def test_k3_takes_any_chain_count(card, B, L):
-    g = torch.Generator(device=card).manual_seed(B + L)
-    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * math.pi
-    v = torch.randn((B, 2, L, L), generator=g, device=card)
-    got = lk.leapfrog_cl(x, v, 2.0, 0.1, 5)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b)
-               for a, b in zip(got, lk.leapfrog_cl_plain(x, v, 2.0, 0.1, 5)))
+# K3 at ragged chain counts (a tile's last chains past B); then at the
+# headline's beta, dt and steps from near-equilibrium links: 32^2, 8^2 and
+# 48^2 at 1024 chains, a chain count no tile divides, 64^2 x 16, and 16^2
+# and 64^2 at 1024 chains, each under every plan of chain tiles
+@pytest.mark.parametrize("B,L,physics", [
+    (1, 8, "hot"), (3, 16, "hot"), (13, 32, "hot"), (130, 8, "hot"),
+    (16, 64, "hot"), (5, 48, "hot"), (1024, 32, "headline"),
+    (1024, 8, "headline"), (1024, 48, "headline"), (1000, 16, "headline"),
+    (16, 64, "headline"), (1024, 16, "headline"), (1024, 64, "headline")])
+def test_k3_takes_any_chain_count(card, B, L, physics):
+    """K3 bit-equal to its twin (at the headline's physics under every plan
+    of chain tiles too), two launches bit-equal."""
+    if physics == "hot":
+        g = torch.Generator(device=card).manual_seed(B + L)
+        x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) \
+            * math.pi
+        v = torch.randn((B, 2, L, L), generator=g, device=card)
+        args, plans = (2.0, 0.1, 5), [None]
+    else:
+        x, v, _, _, _, _ = _traj_inputs(card, B, L, physics, B + L)
+        args, plans = HEADLINE, [None] + lk.traj_plans(L, lk.K3_TILES)
+    ref = lk.leapfrog_cl_plain(x, v, *args)
+    for p in plans:
+        got = lk.leapfrog_cl(x, v, *args, plan=p)
+        again = lk.leapfrog_cl(x, v, *args, plan=p)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), p
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), p
 
 
-# K1 at the shapes of chip_smoke.py's phase 3 (FT 16^2 x 64, path A 64^2 x
-# 64, path B 16^2 x 128, the headline 64^2 x 1024, an odd 20^2 x 3) and 2^2
+# K1 at the shapes the paths give it (FT 16^2 x 64, path A 64^2 x 64, path
+# B 16^2 x 128, the headline's 'xla' step 64^2 x 1024, an odd 20^2 x 3 with
+# a ragged band) and 2^2
 @pytest.mark.parametrize("B,L", [(64, 16), (64, 64), (128, 16), (1024, 64),
                                  (3, 20), (5, 2)])
 def test_k1_matches_its_twin_under_every_plan(card, B, L):
@@ -668,29 +784,57 @@ def _check_epilogue(got, ref, u, bounds):
     return int(decided.sum()), int(rk[2].sum())
 
 
-@pytest.mark.parametrize("B,L", [(1, 8), (3, 16), (13, 32), (5, 48),
-                                 (1024, 64), (4, 128), (2, 256), (3, 300),
-                                 (2, 512), (1, 1024)])
-def test_k12_matches_its_twin_in_fp64(card, B, L):
-    """K12 under its default plan (and, up to 64^2, every plan of
-    traj_plans(L); above 256 its wide kernel) against its twin run in
-    float64 on the same fp32 inputs, with u = 0 (every chain accepts),
-    u = 1 - 2^-24 (every chain of dH > 0 rejects) and random u; a hot start
-    and a trajectory's end of small moves and whole turns of 2 pi; one
-    launch a call, two launches bit-equal. At 64^2 the bfloat16-cos control
-    breaks the dH bound on most chains."""
+def _epilogue_inputs(card, B, L, inputs):
+    """(x, x1, v1, v0, q_old, beta, generator) of a K12 case. 'synthetic': a
+    hot start and a trajectory's end of small moves and whole turns of 2
+    pi; 'k2' and 'k1': near-equilibrium links and the end of a headline
+    trajectory from them through K2 or the K1 loop ('xla'), q_old 0."""
     g = torch.Generator(device=card).manual_seed(B * 1000 + L)
-    x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * 3.0
-    step = 1.0 / L   # dH of order 1 at every L
-    x1 = (x + step * torch.randn(x.shape, generator=g, device=card)
-          + 2 * math.pi * torch.randint(-1, 2, x.shape, generator=g,
-                                        device=card))
+    if inputs == "synthetic":
+        x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1) * 3.0
+        step = 1.0 / L   # dH of order 1 at every L
+        x1 = (x + step * torch.randn(x.shape, generator=g, device=card)
+              + 2 * math.pi * torch.randint(-1, 2, x.shape, generator=g,
+                                            device=card))
+        v0 = torch.randn(x.shape, generator=g, device=card)
+        v1 = v0 + step * torch.randn(x.shape, generator=g, device=card)
+        q_old = torch.randint(-3, 4, (B,), generator=g, device=card).float()
+        return x, x1, v1, v0, q_old, 2.0, g
+    beta, dt, nstep = HEADLINE
+    x = near_equilibrium(g, B, L, beta, card)
     v0 = torch.randn(x.shape, generator=g, device=card)
-    v1 = v0 + step * torch.randn(x.shape, generator=g, device=card)
-    q_old = torch.randint(-3, 4, (B,), generator=g, device=card).float()
-    beta = 2.0
+    if inputs == "k2":
+        x1, v1 = lk.leapfrog(x, v0, beta, dt, nstep)
+    else:
+        x1, v1 = th.run_leapfrog(x, v0, beta, dt, nstep, backend="xla",
+                                 device=card)
+    return x, x1, v1, v0, torch.zeros(B, device=card), beta, g
+
+
+# the synthetic cases; then after a headline trajectory: K2's at the
+# headline and at a launch of its sites (128^2 x 256, 256^2 x 64), the K1
+# loop's above the band plans' reach (K12's wide kernel)
+@pytest.mark.parametrize("B,L,inputs", [
+    *((B, L, "synthetic") for B, L in (
+        (1, 8), (3, 16), (13, 32), (5, 48), (1024, 64), (4, 128), (2, 256),
+        (3, 300), (2, 512), (1, 1024))),
+    (1024, 64, "k2"), (256, 128, "k2"), (64, 256, "k2"), (4, 512, "k1"),
+    (64, 512, "k1"), (16, 1024, "k1")])
+def test_k12_matches_its_twin_in_fp64(card, B, L, inputs):
+    """K12 under its default plan (and, up to 64^2 and after K2's
+    trajectories, every plan of traj_plans(L); above 256 its wide kernel)
+    against its twin run in float64 on the same fp32 inputs, with u = 0
+    (every chain accepts), u = 1 - 2^-24 (every chain of dH > 0 rejects)
+    and random u; one launch a call, two launches bit-equal. At 64^2 the
+    bfloat16-cos control breaks the dH bound on most synthetic chains.
+    After a trajectory no plaquette lies near the wrap's edge, so the
+    charge is held on every chain whose accept agrees."""
+    x, x1, v1, v0, q_old, beta, g = _epilogue_inputs(card, B, L, inputs)
     bounds = _epilogue_bounds(x, x1, v1, v0, beta)
-    plans = [None] + (lk.traj_plans(L) if L <= 64 else [])
+    if inputs != "synthetic":
+        assert bool((bounds[2] > 1e-4).all())
+    sweep = L <= 64 or inputs == "k2"
+    plans = [None] + (lk.traj_plans(L) if sweep else [])
     before = _build.LAUNCHES["K12"]
     accepts = {}
     for mode in ("zero", "one", "random"):
@@ -707,9 +851,9 @@ def test_k12_matches_its_twin_in_fp64(card, B, L):
             decided, accepts[mode] = _check_epilogue(got, ref, u, bounds)
         if mode == "zero":
             assert decided == B and accepts[mode] == B
-    if B >= 13:   # both outcomes of the decision
+    if B >= 13 and inputs == "synthetic":   # both outcomes of the decision
         assert 0 < accepts["one"] < B and 0 < accepts["random"] < B
-    if L == 64:
+    if L == 64 and inputs == "synthetic":
         miss = (_bf16_cos_dh(x, x1, v1, v0, beta) - ref[1][0]).abs() \
             > bounds[0]
         assert float(miss.double().mean()) > 0.5
@@ -797,22 +941,30 @@ def test_run_hmc_k12_follows_its_twin_above_the_band_reach(card, monkeypatch,
     assert float(hist.acc.mean()) > 0
 
 
-def test_fused_hostrng_follows_xla(card):
+@pytest.mark.parametrize("B,L,physics", [(16, 16, "small"),
+                                         (1024, 64, "headline")])
+def test_fused_hostrng_follows_xla(card, B, L, physics):
     """'fused_hostrng' (K5) takes the draws 'xla' takes: one step from the
     same generator state gives the same dH within dh_tolerance and the same
-    x' where the accept agrees."""
+    x' where the accept agrees; at 16^2 from links in [-1, 1], and at the
+    headline from near-equilibrium links."""
     g = torch.Generator(device=card).manual_seed(3)
-    x = (torch.rand((16, 2, 16, 16), generator=g, device=card) * 2 - 1)
-    q = torch.zeros(16, device=card)
+    if physics == "small":
+        x = (torch.rand((B, 2, L, L), generator=g, device=card) * 2 - 1)
+        beta, dt, nstep = 2.0, 0.1, 8
+    else:
+        beta, dt, nstep = HEADLINE
+        x = near_equilibrium(g, B, L, beta, card)
+    q = torch.zeros(B, device=card)
     out = {b: th.hmc_step(torch.Generator(device=card).manual_seed(9), x, q,
-                          2.0, 0.1, 8, backend=b)
+                          beta, dt, nstep, backend=b)
            for b in ("xla", "fused_hostrng")}
     gen = torch.Generator(device=card).manual_seed(9)
     v0 = torch.randn(x.shape, generator=gen, device=card)
-    u = torch.rand((16,), generator=gen, device=card)
+    u = torch.rand((B,), generator=gen, device=card)
     (xa, _, ma), (xb, _, mb) = out["xla"], out["fused_hostrng"]
-    _close_traj((xb, mb.dh, mb.acc), (xa, ma.dh, ma.acc), x, v0, u, 2.0,
-                0.1, 8)
+    _close_traj((xb, mb.dh, mb.acc), (xa, ma.dh, ma.acc), x, v0, u, beta,
+                dt, nstep)
 
 
 # ---------------------------------------------------------------------------
@@ -846,8 +998,10 @@ def _band_plans(L):
                      for C in (1, 2, 4, 8) if L // C >= 2]
 
 
+# small and odd shapes, then the paths': 64^2 x 64 (A), 16^2 x 128 (B, C)
 @pytest.mark.parametrize("B,L0,L1", [(4, 8, 8), (3, 8, 12), (2, 64, 64),
-                                     (2, 96, 96), (128, 16, 16)])
+                                     (2, 96, 96), (128, 16, 16),
+                                     (64, 64, 64)])
 @pytest.mark.parametrize("eo", [False, True])
 def test_fermion_operators_match_plain_twins(card, B, L0, L1, eo):
     """K9 and K10 against their twins on the same planes under every band
@@ -956,60 +1110,80 @@ def test_fused_cg_kernels_match_twins(card, layout):
 
 # K11's card tests: mass 0.3 on links of small angles (an ordered field,
 # as at beta = 6), where fp32 CGs reach tol 1e-9 in some 100 iterations
-# at every size
+# at every size; and the paths' own field, near-equilibrium links at
+# beta = 6 and m = 0.1 (paths A-G's mass)
 CG_MASS = 0.3
+PATH_MASS = 0.1
 
 
-def _solve_inputs(card, B, L, eo, seed):
-    """Links of N(0, 0.35^2) angles and a right-hand side phi = D^dag chi
-    (eo: Dhat^dag of an even chi)."""
+def _solve_inputs(card, B, L, eo, seed, field="ordered"):
+    """(links, a right-hand side phi = D^dag chi (eo: Dhat^dag of an even
+    chi), the mass): 'ordered' links of N(0, 0.35^2) angles at CG_MASS,
+    'paths' near-equilibrium links at beta = 6 and PATH_MASS, phi from
+    the heatbath's generator seeded 3."""
     from fthmc_tpu_torch import fermion as tf
     g = torch.Generator(device=card).manual_seed(seed)
-    theta = 0.35 * torch.randn((B, 2, L, L), generator=g, device=card)
-    phi, _ = tf.pf_refresh(torch.Generator(device=card).manual_seed(seed + 1),
-                           theta, CG_MASS, eo=eo)
-    return theta, phi
+    if field == "ordered":
+        theta = 0.35 * torch.randn((B, 2, L, L), generator=g, device=card)
+        mass, pf_seed = CG_MASS, seed + 1
+    else:
+        theta = near_equilibrium(g, B, L, 6.0, card)
+        mass, pf_seed = PATH_MASS, 3
+    phi, _ = tf.pf_refresh(torch.Generator(device=card).manual_seed(pf_seed),
+                           theta, mass, eo=eo)
+    return theta, phi, mass
 
 
 # the paths' shapes (A 64^2 x 64 chains-first; B 16^2 x 128 chains-last; C
-# 16^2 x 128 chains-first) and the scratch plans (128^2, 256^2)
-CG_SHAPES = [(64, 64, "cf"), (128, 16, "cl"), (128, 16, "cf"),
-             (4, 128, "cf"), (4, 128, "cl"), (2, 256, "cf"), (3, 256, "cl")]
+# 16^2 x 128 chains-first) and the scratch plans (128^2, 256^2) on the
+# ordered field; the paths' shapes, 128^2 and 256^2 (4 chains) in both
+# layouts on the paths' field
+CG_SHAPES = [*((B, L, layout, "ordered") for B, L, layout in (
+    (64, 64, "cf"), (128, 16, "cl"), (128, 16, "cf"), (4, 128, "cf"),
+    (4, 128, "cl"), (2, 256, "cf"), (3, 256, "cl"))),
+    *((B, L, layout, "paths") for B, L in ((64, 64), (128, 16), (4, 128),
+                                          (4, 256))
+      for layout in ("cf", "cl"))]
 
 
-@pytest.mark.parametrize("B,L,layout", CG_SHAPES)
+@pytest.mark.parametrize("B,L,layout,field", CG_SHAPES)
 @pytest.mark.parametrize("eo", [True, False])
-def test_k11_matches_its_twin(card, B, L, layout, eo):
+def test_k11_matches_its_twin(card, B, L, layout, field, eo):
     """K11 against cg_solve_fused_plain and the torch CG, cold and warm
-    (from a 15-iteration solve), and capped by maxiter: x within 1e-3
-    relative, iters within 1 (equal under the cap), rsq <= tol; two
-    launches bit-equal; one K11 launch a solve, no operator launch."""
+    (from a 15-iteration solve; 20 on the paths' field), and capped by
+    maxiter: x within 1e-3 relative and max|x - x_twin| within 1e-3
+    max|x_twin|, iters within 1 (equal under the cap), every rsq <= tol;
+    two launches bit-equal; one K11 launch a solve, no operator launch."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
     from fthmc_tpu_torch import fermion as tf
-    theta, phi = _solve_inputs(card, B, L, eo, 11)
+    theta, phi, mass = _solve_inputs(card, B, L, eo, 11, field)
     kw = dict(tol=1e-9, maxiter=2000, eo=eo, layout=layout)
-    warm = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=15, eo=eo,
+    warm = fk.cg_solve_fused(theta, phi, mass, tol=1e-9,
+                             maxiter=15 if field == "ordered" else 20, eo=eo,
                              layout=layout).x
     for x0 in (None, warm):
         _build.reset_counts()
-        runs = [fk.cg_solve_fused(theta, phi, CG_MASS, x0, **kw)
+        runs = [fk.cg_solve_fused(theta, phi, mass, x0, **kw)
                 for _ in (0, 1)]
         assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {
             "K11": 2}
         assert torch.equal(runs[0].x, runs[1].x)
         assert torch.equal(runs[0].rsq, runs[1].rsq)
         got = runs[0]
-        twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, x0, **kw)
-        xla = tf.cg_solve(theta, phi, CG_MASS, x0, tol=1e-9, maxiter=2000,
+        twin = fk.cg_solve_fused_plain(theta, phi, mass, x0, **kw)
+        xla = tf.cg_solve(theta, phi, mass, x0, tol=1e-9, maxiter=2000,
                           eo=eo, backend="xla")
         for ref in (twin, xla):
             rel = float((got.x - ref.x).abs().norm() / ref.x.abs().norm())
             assert rel < 1e-3 and abs(got.iters - ref.iters) <= 1, \
                 (rel, got.iters, ref.iters)
+            assert float(ref.rsq.max()) <= 1e-9
+        assert float((got.x - twin.x).abs().max()) <= \
+            1e-3 * float(twin.x.abs().max())
         assert float(got.rsq.max()) <= 1e-9 and got.launched == got.iters
-    capped = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=7, eo=eo,
+    capped = fk.cg_solve_fused(theta, phi, mass, tol=1e-9, maxiter=7, eo=eo,
                                layout=layout)
-    twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, tol=1e-9, maxiter=7,
+    twin = fk.cg_solve_fused_plain(theta, phi, mass, tol=1e-9, maxiter=7,
                                    eo=eo, layout=layout)
     assert capped.iters == twin.iters == 7
     rel = float((capped.x - twin.x).abs().norm() / twin.x.abs().norm())
@@ -1021,7 +1195,7 @@ def _cg_plans(L):
             for C in (1, 2, 4, 8) if L // C >= 2]
 
 
-def _plan_solve(theta, phi, eo, layout, plan, tol, maxiter):
+def _plan_solve(theta, phi, mass, eo, layout, plan, tol, maxiter):
     """K11's solve of phi under band plan ``plan`` through cg_launch:
     (x, iters)."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
@@ -1031,33 +1205,42 @@ def _plan_solve(theta, phi, eo, layout, plan, tol, maxiter):
     x = torch.empty_like(b4)
     rel = torch.empty(B, device=b4.device)
     counters = torch.zeros(3, dtype=torch.int32, device=b4.device)
-    fk.cg_launch(op.chains_last, op.ur, op.ui, b4, None, CG_MASS, eo, tol,
+    fk.cg_launch(op.chains_last, op.ur, op.ui, b4, None, mass, eo, tol,
                  maxiter, x, rel, counters, None, plan)()
     iters, _, odd = counters.tolist()
     assert not odd
     return op.unpack(x), iters
 
 
-@pytest.mark.parametrize("L,layout", [(16, "cf"), (16, "cl"), (8, "cl"),
-                                      (12, "cf"), (4, "cl")])
-@pytest.mark.parametrize("eo", [True, False])
+# 5 chains on the ordered field, eo and not; the paths' shapes (A, B and
+# C) on the paths' field, eo, solves of 40 iterations (tol 0)
+@pytest.mark.parametrize("B,L,layout,field,eo", [
+    *((5, L, layout, "ordered", eo) for L, layout in (
+        (16, "cf"), (16, "cl"), (8, "cl"), (12, "cf"), (4, "cl"))
+      for eo in (True, False)),
+    (64, 64, "cf", "paths", True), (128, 16, "cl", "paths", True),
+    (128, 16, "cf", "paths", True)])
 @pytest.mark.parametrize("where", ["smem", "scratch"])
-def test_k11_every_plan_matches_its_twin(card, monkeypatch, L, layout, eo,
-                                         where):
+def test_k11_every_plan_matches_its_twin(card, monkeypatch, B, L, layout,
+                                         field, eo, where):
     """K11 under every plan of C = 1, 2, 4, 8 bands of >= 2 rows (the halo
-    copied from up to three bands a side, wrapping) over 5 chains, in
-    shared memory and in device scratch (the limit stubbed to 0): the
-    twin's solution within 1e-4, iters within 1."""
+    copied from up to three bands a side, wrapping), in shared memory and
+    in device scratch (the limit stubbed to 0): the twin's solution within
+    1e-4 and iters within 1 at tol 1e-10 (ordered), within 1e-3 after 40
+    iterations (the paths' field)."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    theta, phi = _solve_inputs(card, 5, L, eo, 12)
-    twin = fk.cg_solve_fused_plain(theta, phi, CG_MASS, tol=1e-10, maxiter=500,
-                                   eo=eo, layout=layout)
+    theta, phi, mass = _solve_inputs(card, B, L, eo, 12, field)
+    tol, maxiter, limit = ((1e-10, 500, 1e-4) if field == "ordered"
+                           else (0.0, 40, 1e-3))
+    twin = fk.cg_solve_fused_plain(theta, phi, mass, tol=tol,
+                                   maxiter=maxiter, eo=eo, layout=layout)
     if where == "scratch":
         monkeypatch.setattr(fk._build, "smem_limit", lambda index: 0)
     for plan in [None] + _cg_plans(L):
-        x, iters = _plan_solve(theta, phi, eo, layout, plan, 1e-10, 500)
+        x, iters = _plan_solve(theta, phi, mass, eo, layout, plan, tol,
+                               maxiter)
         rel = float((x - twin.x).abs().norm() / twin.x.abs().norm())
-        assert rel < 1e-4 and abs(iters - twin.iters) <= 1, \
+        assert rel < limit and abs(iters - twin.iters) <= 1, \
             (plan, rel, iters, twin.iters)
 
 
@@ -1067,7 +1250,7 @@ def test_k11_freezes_chains_and_refuses_odd_sites(card):
     not zero on an odd site is refused after the launch (the kernel's
     flag), with no second launch."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    theta, phi = _solve_inputs(card, 4, 16, True, 13)
+    theta, phi, _ = _solve_inputs(card, 4, 16, True, 13)
     ref = fk.cg_solve_fused(theta, phi, CG_MASS, tol=1e-9, maxiter=500)
     bad = phi.clone()
     bad[1] = 0
@@ -1194,27 +1377,47 @@ def test_flow_sampling_refuses_what_k6_does_not_take(card):
     assert not any(_build.LAUNCHES.values())
 
 
-def test_training_gradients_on_the_card_match_the_cpu(card):
+# (spec, batch, beta, force weights, ferm_mass): a small rncp; the
+# flagship's width (24-layer rncp, batch 512); the reference training
+# configuration's flow (16-layer ncp, hidden (8, 8)) with the spline
+# coupling, and fermion-aware (ferm_mass 0.1, force_weight 0.5)
+GRAD_CASES = {
+    "small": (FlowSpec(n_layers=3, coupling="rncp", n_mixture=4,
+                       hidden_sizes=(16, 16), s_clip=3.0), 64, 2.5,
+              (0.0, 0.3), 0.0),
+    "flagship": (FlowSpec(n_layers=24, coupling="rncp", n_mixture=8,
+                          hidden_sizes=(32, 32), s_clip=3.0), 512, 2.0,
+                 (0.0,), 0.0),
+    "spline": (FlowSpec(n_layers=16, coupling="spline", n_knots=8,
+                        hidden_sizes=(8, 8), s_clip=3.0), 64, 2.0, (0.0,),
+               0.0),
+    "ferm": (FlowSpec(n_layers=16, n_mixture=2, hidden_sizes=(8, 8)), 64,
+             2.0, (0.5,), 0.1)}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_training_gradients_on_the_card_match_the_cpu(card, case):
     """loss_and_grads on the card against the CPU on the same z and
     parameters, with TF32 switched on around the call: the backward must
     run its convs in full fp32 (1e-4 relative in norm)."""
     from fthmc_tpu_torch import train as tt
+    spec, batch, beta, weights, ferm_mass = GRAD_CASES[case]
     g = torch.Generator().manual_seed(5)
-    spec = FlowSpec(n_layers=3, coupling="rncp", n_mixture=4,
-                    hidden_sizes=(16, 16), s_clip=3.0)
     params = init_flow_params(spec, g, device="cpu")
-    z = torch.rand((64, 2, 8, 8), generator=g) * 2 * math.pi - math.pi
+    z = torch.rand((batch, 2, 8, 8), generator=g) * 2 * math.pi - math.pi
     cparams = [[{k: v.to(card) for k, v in c.items()} for c in net]
                for net in params]
     old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        for fw in (0.0, 0.3):
-            l0, _, g0 = tt.loss_and_grads(params, spec, z, 2.5,
-                                          force_weight=fw)
-            l1, _, g1 = tt.loss_and_grads(cparams, spec, z.to(card), 2.5,
-                                          force_weight=fw)
+        for fw in weights:
+            l0, _, g0 = tt.loss_and_grads(params, spec, z, beta,
+                                          force_weight=fw,
+                                          ferm_mass=ferm_mass)
+            l1, _, g1 = tt.loss_and_grads(cparams, spec, z.to(card), beta,
+                                          force_weight=fw,
+                                          ferm_mass=ferm_mass)
             assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
             a, b = (torch.cat([t.flatten() for t in gg]) for gg in (g0, g1))
             assert float((b.cpu() - a).norm() / a.norm()) <= 1e-4
@@ -1294,29 +1497,35 @@ def test_train_era_reads_the_host_once(card):
 # and Hasenbusch samplers, fermion-aware training
 # ---------------------------------------------------------------------------
 
-def _bf16_inputs(card, B, L, eo, layout, seed):
+def _bf16_inputs(card, B, L, eo, layout, seed, field):
     """(bf16 link planes, bf16 planes of a heatbath right-hand side) in
-    ``layout``."""
+    ``layout``, and the mass."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    theta, phi = _solve_inputs(card, B, L, eo, seed)
+    theta, phi, mass = _solve_inputs(card, B, L, eo, seed, field)
     op = fk._PackedOperator(theta, layout)
-    return op.ur.bfloat16(), op.ui.bfloat16(), op.pack(phi).bfloat16()
+    return (op.ur.bfloat16(), op.ui.bfloat16(), op.pack(phi).bfloat16(),
+            mass)
 
 
-@pytest.mark.parametrize("B,L,layout", [(64, 64, "cf"), (128, 16, "cl"),
-                                        (5, 16, "cf"), (5, 8, "cl"),
-                                        (3, 128, "cf"), (3, 128, "cl")])
+# the ordered field; then path G's shape (64^2, chains-first), path E's
+# (32^2 x 64) and path B's (16^2 x 128, chains-last) on the paths' field
+@pytest.mark.parametrize("B,L,layout,field", [
+    *((B, L, layout, "ordered") for B, L, layout in (
+        (64, 64, "cf"), (128, 16, "cl"), (5, 16, "cf"), (5, 8, "cl"),
+        (3, 128, "cf"), (3, 128, "cl"))),
+    (64, 64, "cf", "paths"), (64, 32, "cf", "paths"),
+    (128, 16, "cl", "paths")])
 @pytest.mark.parametrize("eo", [True, False])
-def test_k11_bf16_matches_its_twin(card, B, L, layout, eo):
+def test_k11_bf16_matches_its_twin(card, B, L, layout, field, eo):
     """K11_bf16 (one launch, d = 0 start, the mixed CG's inner tol and
     sweep cap) against cg_planes_bf16_plain on the same bf16 r: the sweeps
     within 2, d within 5e-2 relative in norm (bf16 rounds in other places:
     the kernel keeps alpha, beta and the hops in fp32); one K11_bf16 launch
     and no other; two launches bit-equal."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    ur, ui, r16 = _bf16_inputs(card, B, L, eo, layout, 21)
+    ur, ui, r16, mass = _bf16_inputs(card, B, L, eo, layout, 21, field)
     cl = layout == "cl"
-    d_ref, k_ref = fk.cg_planes_bf16_plain(ur, ui, r16, CG_MASS,
+    d_ref, k_ref = fk.cg_planes_bf16_plain(ur, ui, r16, mass,
                                            fk.MIXED_INNER_TOL,
                                            fk.MIXED_INNER_MAX, eo, cl)
     outs = []
@@ -1325,7 +1534,7 @@ def test_k11_bf16_matches_its_twin(card, B, L, layout, eo):
         d = torch.empty_like(r16)
         rel = torch.empty(B, device=card)
         counters = torch.zeros(3, dtype=torch.int32, device=card)
-        fk.cg_launch(cl, ur, ui, r16, None, CG_MASS, eo, fk.MIXED_INNER_TOL,
+        fk.cg_launch(cl, ur, ui, r16, None, mass, eo, fk.MIXED_INNER_TOL,
                      fk.MIXED_INNER_MAX, d, rel, counters)()
         outs.append((d, counters.tolist()))
     assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0) | {
@@ -1350,20 +1559,30 @@ def test_k11_bf16_smem_bytes_are_half_the_region(card):
             assert b16 == 4 * (-(-(f32 // 2) // 4))
 
 
-@pytest.mark.parametrize("B,L,layout", [(64, 64, "cf"), (128, 16, "cl"),
-                                        (4, 128, "cf")])
-@pytest.mark.parametrize("eo", [True, False])
-def test_mixed_solve_reaches_tol_in_fp32(card, B, L, layout, eo):
+# the ordered field, eo and not, cold, at the force's tolerance; paths G's
+# and B's shapes on the paths' field, eo, at the force's and the
+# Metropolis' tolerance, cold and from a warm start (a solve to 1e-4)
+@pytest.mark.parametrize("B,L,layout,field,tol,start,eo", [
+    *((B, L, layout, "ordered", 1e-9, "cold", eo)
+      for B, L, layout in ((64, 64, "cf"), (128, 16, "cl"), (4, 128, "cf"))
+      for eo in (True, False)),
+    *((B, L, layout, "paths", tol, start, True)
+      for B, L, layout in ((64, 64, "cf"), (128, 16, "cl"))
+      for tol in (1e-9, 1e-12) for start in ("cold", "warm"))])
+def test_mixed_solve_reaches_tol_in_fp32(card, B, L, layout, field, tol,
+                                         start, eo):
     """cg_solve_mixed on the card: each chain's fp32 true residual,
     recomputed by K9 / K10, within tol of |b|^2; the solution within
-    10 sqrt(tol) of the fused fp32 CG's; the launches K9 / K10 (the
-    residuals) reads times and K11_bf16 (the inner solves) reads - 1
-    times, nothing else."""
+    10 sqrt(tol) (ordered) or 1e-3 (the paths' field, two fp32 CGs'
+    rule) of the fused fp32 CG's from the same start; the launches K9 /
+    K10 (the residuals) reads times and K11_bf16 (the inner solves) reads
+    - 1 times, nothing else."""
     from fthmc_tpu_torch.ops import fermion_kernels as fk
-    theta, phi = _solve_inputs(card, B, L, eo, 22)
-    tol = 1e-9
+    theta, phi, mass = _solve_inputs(card, B, L, eo, 22, field)
+    x0 = None if start == "cold" else fk.cg_solve_fused(
+        theta, phi, mass, tol=1e-4, maxiter=2000, eo=eo, layout=layout).x
     _build.reset_counts()
-    res = fk.cg_solve_mixed(theta, phi, CG_MASS, tol=tol, maxiter=2000,
+    res = fk.cg_solve_mixed(theta, phi, mass, x0, tol=tol, maxiter=2000,
                             eo=eo, layout=layout)
     torch.cuda.synchronize()
     op_name = "K10" if layout == "cl" else "K9"
@@ -1373,40 +1592,54 @@ def test_mixed_solve_reaches_tol_in_fp32(card, B, L, layout, eo):
     op = fk._PackedOperator(theta, layout)
     b4, x4 = op.pack(phi), op.pack(res.x)
     apply = fk.mdagm_cl if layout == "cl" else fk.mdagm
-    r = b4 - apply(op.ur, op.ui, x4, CG_MASS, eo)
+    r = b4 - apply(op.ur, op.ui, x4, mass, eo)
     dims = (0, 1, 2) if layout == "cl" else (1, 2, 3)
     rel = (r * r).sum(dim=dims) / (b4 * b4).sum(dim=dims)
     assert float(rel.max()) <= tol, float(rel.max())
-    ref = fk.cg_solve_fused(theta, phi, CG_MASS, tol=tol, maxiter=2000,
+    ref = fk.cg_solve_fused(theta, phi, mass, x0, tol=tol, maxiter=2000,
                             eo=eo, layout=layout)
     err = float((res.x - ref.x).abs().norm() / ref.x.abs().norm())
-    assert err < 10 * math.sqrt(tol)
+    assert err < (10 * math.sqrt(tol) if field == "ordered" else 1e-3)
 
 
-def test_flow_vjp_kernel_logdet_cotangent_on_the_card(card):
+@pytest.mark.parametrize("flow,B,beta", [("fresh", 16, 2.0),
+                                          ("flow8x8_b3_rncp24_ftb6", 64, 6.0)])
+def test_flow_vjp_kernel_logdet_cotangent_on_the_card(card, flow, B, beta):
     """flow_vjp_kernel with gl = 0 (the nested FT fermion force's) and -1
     against autograd through the flow: 2e-3 x max|ref|, the kernel force
-    chain's tolerance."""
+    chain's tolerance; and the whole kernel force chain (K6-K8 and K1,
+    ft_force_kernel) against the autograd force within 2e-3 x max(1,
+    max|ref|), finite: a fresh flow at 16^2 x 16 and the exported flagship
+    flow at the flagship's 16^2 x 64, beta = 6."""
     from fthmc_tpu_torch import lattice as tl
     from fthmc_tpu_torch.models.flow import flow_forward
-    from fthmc_tpu_torch.ops.coupling_vjp_kernels import flow_vjp_kernel
-    spec = SPECS[1]
-    params = init_flow_params(spec, torch.Generator().manual_seed(6),
-                              device=card)
+    from fthmc_tpu_torch.ops.coupling_vjp_kernels import (flow_vjp_kernel,
+                                                          ft_force_kernel)
+    if flow == "fresh":
+        spec = SPECS[1]
+        params = init_flow_params(spec, torch.Generator().manual_seed(6),
+                                  device=card)
+    else:
+        params, spec = load_flow_npz(device=card, name=flow)
     g = torch.Generator(device=card).manual_seed(7)
-    z = (torch.rand((16, 2, 16, 16), generator=g, device=card) * 2 - 1) \
+    z = (torch.rand((B, 2, 16, 16), generator=g, device=card) * 2 - 1) \
         * math.pi
     with full_fp32():
         for gl in (0.0, -1.0):
             got = flow_vjp_kernel(params, spec, z,
-                                  lambda y: tl.batch_force(y, 2.0),
+                                  lambda y: tl.batch_force(y, beta),
                                   logdet_cotangent=gl)
             zz = z.clone().requires_grad_(True)
             y, logj = flow_forward(params, zz, spec)
             (want,) = torch.autograd.grad(
-                (tl.batch_action(y, 2.0) + gl * logj).sum(), zz)
+                (tl.batch_action(y, beta) + gl * logj).sum(), zz)
             assert float((got - want).abs().max()) <= 2e-3 * float(
                 want.abs().max())
+        f_k = ft_force_kernel(params, spec, z, beta)
+        f_a = th.ft_force(params, spec, z, beta, device=card)
+    assert bool(torch.isfinite(f_k).all())
+    assert float((f_k - f_a).abs().max()) <= 2e-3 * max(
+        1.0, float(f_a.abs().max()))
 
 
 def _trajectory_counts(cfg, log):

@@ -1,12 +1,9 @@
-"""The port stands alone: no module of fthmc_tpu_torch, and not
-chip_smoke.py, imports jax, orbax or fthmc_tpu; entry points run on the
-card unless the caller asks for the CPU; chip_smoke.py refuses to run
-without a card or without the package beside it."""
+"""The port stands alone: no module of fthmc_tpu_torch, and no file of the
+card suite (the test files marked ``cuda``), imports jax, orbax or
+fthmc_tpu; entry points run on the card unless the caller asks for the
+CPU."""
 import ast
 import pathlib
-import subprocess
-import sys
-
 import pytest
 import torch
 
@@ -34,14 +31,44 @@ def _imported_modules(path: pathlib.Path):
             yield node.args[0].value
 
 
-def test_port_imports_no_jax_and_nothing_of_fthmc_tpu():
-    files = sorted((ROOT / "fthmc_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+def _assert_imports_no_jax(files):
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_port_imports_no_jax_and_nothing_of_fthmc_tpu():
+    files = sorted((ROOT / "fthmc_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    _assert_imports_no_jax(files)
+
+
+def _marks_module_cuda(path: pathlib.Path) -> bool:
+    """The file sets ``pytestmark = pytest.mark.cuda``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return any(isinstance(node, ast.Assign)
+               and any(getattr(t, "id", None) == "pytestmark"
+                       for t in node.targets)
+               and ast.unparse(node.value) == "pytest.mark.cuda"
+               for node in tree.body)
+
+
+def test_card_suite_imports_no_jax():
+    """The card suite runs on a machine without JAX (``--noconftest -m
+    cuda``): no test file marked ``cuda`` imports jax, orbax or
+    fthmc_tpu, nor another test file that does."""
+    files = sorted(p for p in (ROOT / "tests").glob("test_*.py")
+                   if _marks_module_cuda(p))
+    names = {p.name for p in files}
+    assert {"test_torch_cuda.py", "test_torch_card_samplers.py",
+            "test_torch_card_training.py", "test_torch_card_parallel.py",
+            "test_torch_card_entry.py"} <= names
+    _assert_imports_no_jax(files)
+    for path in files:
+        for mod in _imported_modules(path):
+            if mod.startswith("test_"):
+                assert f"{mod}.py" in names, f"{path.name} imports {mod}"
 
 
 @pytest.fixture
@@ -110,15 +137,6 @@ def test_fermion_entry_points_raise_without_cuda(no_cuda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         call(device="cpu")
-
-
-def test_chip_smoke_refuses_without_card_or_package(tmp_path):
-    (tmp_path / "chip_smoke.py").write_text(
-        (ROOT / "chip_smoke.py").read_text())
-    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert '"ok"' not in r.stdout
 
 
 def test_training_sampling_and_bench_entry_points_raise_without_cuda(

@@ -178,7 +178,7 @@ def test_nested_omelyan_3level_matches_jax():
     (dict(nstep=4, n_mid=2, n_inner=2, hasenbusch_dm=0.2),
      {"gauge": 288, "heavy": 48, "ratio": 8})])
 def test_force_evaluations_are_the_integrators(kw, want):
-    """The force counts a trajectory makes (what chip_smoke.py's launch
+    """The force counts a trajectory makes (what the card suite's launch
     counts rest on): path D's 8 outer steps of n_inner 2 (n_edge 1, n_mid
     2), path F's n_inner 3 (1, 4), nested leapfrog, single scale, and path
     E's Hasenbusch schedule (8 light and 48 heavy forces)."""

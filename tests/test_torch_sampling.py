@@ -290,12 +290,13 @@ def test_generate_ensemble_reports(params2):
 
 
 # ---------------------------------------------------------------------------
-# the JAX package's readings that chip_smoke.py holds the card to
+# the JAX package's readings that tests/test_torch_card_training.py holds
+# the card to
 # ---------------------------------------------------------------------------
 
 def jax_reference_readings() -> dict:
     """The JAX package's readings, on the CPU, of the two configurations
-    chip_smoke.py runs with the exported flows: D_KL = mean(logq - logp) of
+    the card suite runs with the exported flows: D_KL = mean(logq - logp) of
     flow8x8_b3_rncp24 at 8^2, beta=3 over 8192 draws (with its standard
     error), and flow sampling with flow8x8_b2_16l_long at 8^2, beta=2, 64
     chains x 4096 samples in blocks of 64 (acceptance, tau_int(Q))."""
